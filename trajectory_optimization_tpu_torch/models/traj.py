@@ -1,0 +1,209 @@
+"""Trajectory visibility optimization model.
+
+Twin of ``trajectory_optimization_tpu/models/traj.py``. The selected
+waypoints are a leading batch axis of one visibility evaluation and the
+log-odds fusion is a sum over it:
+
+  1. waypoint subsampling by stride ⌊vis_wps_dist / mean Δwp of the initial
+     path⌋ + 1 (static);
+  2. per-waypoint observation probability = dist·fov score, min-max
+     normalized over the valid points (span floored at 1e-8), clipped to
+     [0.5, 1−eps];
+  3. log-odds summed over waypoints; rewards = σ(Σ log-odds);
+  4. loss = 1/(mean reward + eps) + ‖p₀ − p₀⁰‖ + w_s/(mean angle + eps)
+     + w_l·|len − len⁰|.
+
+Backends of ``traj_forward``: ``"kernel"`` runs the fused K1–K4 family
+(``ops.fused_vis``: CUDA kernels for CUDA tensors, their plain versions for
+CPU tensors, hand-derived backward either way); ``"torch"`` is the plain
+autodiff path, the twin of the JAX package's XLA path; ``"auto"`` picks
+``"kernel"`` for CUDA tensors and ``"torch"`` for CPU tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from trajectory_optimization_tpu_torch.ops.fused_vis import fused_lo_sum
+from trajectory_optimization_tpu_torch.ops.numerics import safe_norm
+from trajectory_optimization_tpu_torch.ops.scores import waypoint_scores
+from trajectory_optimization_tpu_torch.ops.trajectory import mean_segment_angle, polyline_length
+
+Params = Dict[str, torch.Tensor]
+
+BACKENDS = ("auto", "kernel", "torch")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrajProblem:
+    """Static (hashable) problem description for trajectory optimization."""
+
+    img_width: float
+    img_height: float
+    min_dist: float = 1.0
+    max_dist: float = 5.0
+    smoothness_weight: float = 14.0
+    length_weight: float = 0.02
+    eps: float = 1e-6
+    wps_step: int = 1  # evaluate visibility at every wps_step-th waypoint
+    backend: str = "auto"  # one of BACKENDS
+    # Differentiable Katz occlusion inside the loss: not ported yet.
+    soft_hpr: bool = False
+
+
+def waypoint_stride(poses0: np.ndarray, vis_wps_dist: float = 0.5) -> int:
+    """Stride between visibility waypoints, from the initial path's mean
+    inter-waypoint distance (1 for a single or stationary waypoint)."""
+    poses0 = np.asarray(poses0)
+    if len(poses0) < 2:
+        return 1
+    mean_d = float(np.mean(np.linalg.norm(poses0[1:] - poses0[:-1], axis=-1)))
+    if not np.isfinite(mean_d) or mean_d <= 0.0:
+        return 1
+    return int(vis_wps_dist / mean_d) + 1
+
+
+def init_traj_params(poses0, quats0, device="cpu") -> Params:
+    """Parameters {'poses': (W,3), 'quats': (W,4) wxyz} as f32 leaf tensors."""
+    return {
+        "poses": torch.as_tensor(np.asarray(poses0), dtype=torch.float32, device=device).clone(),
+        "quats": torch.as_tensor(np.asarray(quats0), dtype=torch.float32, device=device).clone(),
+    }
+
+
+def _masked_minmax(p: torch.Tensor, valid: Optional[torch.Tensor]):
+    """Per-waypoint min/max of (W, N) scores over real points only.
+    ``amin``/``amax`` split the cotangent equally over ties, as
+    ``jnp.min``/``jnp.max`` do."""
+    if valid is None:
+        return torch.amin(p, dim=-1, keepdim=True), torch.amax(p, dim=-1, keepdim=True)
+    big = torch.finfo(p.dtype).max
+    ok = valid > 0
+    pmin = torch.amin(torch.where(ok, p, torch.full_like(p, big)), dim=-1, keepdim=True)
+    pmax = torch.amax(torch.where(ok, p, torch.full_like(p, -big)), dim=-1, keepdim=True)
+    return pmin, pmax
+
+
+def observation_logodds(
+    p: torch.Tensor, eps: float, valid: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """(W, N) raw visibility scores → (W, N) per-waypoint log-odds."""
+    pmin, pmax = _masked_minmax(p, valid)
+    return logodds_from_minmax(p, pmin, pmax, eps)
+
+
+def logodds_from_minmax(p, pmin, pmax, eps: float) -> torch.Tensor:
+    """Normalize → clip → log-odds with the min/max precomputed. The span is
+    floored at 1e-8, so a waypoint that sees nothing contributes nothing."""
+    span = torch.clamp(pmax - pmin, min=1e-8)
+    p = (p - pmin) / span
+    p = torch.clamp(p, 0.5, 1.0 - eps)
+    return torch.log(p / (1.0 - p))
+
+
+def _resolve_backend(problem: TrajProblem, points: torch.Tensor) -> str:
+    if problem.soft_hpr:
+        raise NotImplementedError(
+            "TrajProblem(soft_hpr=True): the differentiable HPR inside the loss "
+            "(ops/hpr.py) is not ported yet (ROADMAP.md Q1 item 9)"
+        )
+    if problem.backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {problem.backend!r}")
+    if problem.backend == "auto":
+        return "kernel" if points.is_cuda else "torch"
+    return problem.backend
+
+
+def traj_forward(
+    params: Params,
+    points: torch.Tensor,
+    K: torch.Tensor,
+    poses0: torch.Tensor,
+    quats0: torch.Tensor,
+    problem: TrajProblem,
+    *,
+    valid: Optional[torch.Tensor] = None,
+    points_t: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Composite trajectory loss + per-point rewards.
+
+    Args:
+      params: {'poses': (W,3), 'quats': (W,4) wxyz}.
+      points: (N, 3) world points (padded entries allowed).
+      K: (3, 3) intrinsics.
+      poses0/quats0: frozen initial trajectory (anchor/length targets).
+      valid: optional (N,) 0/1 mask of real points.
+      points_t: optional contiguous (3, N) transpose of ``points`` for the
+        kernel backend (pass it to transpose once per problem).
+
+    Returns:
+      (loss, aux); aux = {'rewards': (N,), 'loss_vis', 'loss_l2',
+      'loss_smooth', 'loss_length', 'mean_reward'}.
+    """
+    poses, quats = params["poses"], params["quats"]
+    sel = slice(None, None, problem.wps_step)
+    if _resolve_backend(problem, points) == "kernel":
+        lo_sum = fused_lo_sum(
+            points, quats[sel], poses[sel], K, problem.img_width, problem.img_height,
+            min_dist=problem.min_dist, max_dist=problem.max_dist, eps=problem.eps,
+            valid=valid, points_t=points_t,
+        )
+    else:
+        p = waypoint_scores(
+            points, quats[sel], poses[sel], K, problem.img_width, problem.img_height,
+            min_dist=problem.min_dist, max_dist=problem.max_dist, eps=problem.eps,
+        )  # (W_sel, N)
+        lo_sum = torch.sum(observation_logodds(p, problem.eps, valid), dim=0)
+    return traj_criterion(lo_sum, params, poses0, problem, valid=valid)
+
+
+def traj_criterion(
+    lo_sum: torch.Tensor,
+    params: Params,
+    poses0: torch.Tensor,
+    problem: TrajProblem,
+    *,
+    valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Composite loss from the (N,) accumulated log-odds: rewards = σ(Σ lo),
+    then visibility + first-waypoint anchor + smoothness + length."""
+    rewards = 1.0 / (1.0 + torch.exp(-lo_sum))
+    if valid is None:
+        mean_reward = torch.mean(rewards)
+    else:
+        mean_reward = torch.sum(rewards * valid) / torch.clamp(torch.sum(valid), min=1.0)
+    loss, aux = traj_criterion_from_mean(mean_reward, params, poses0, problem)
+    aux["rewards"] = rewards
+    return loss, aux
+
+
+def traj_criterion_from_mean(
+    mean_reward: torch.Tensor,
+    params: Params,
+    poses0: torch.Tensor,
+    problem: TrajProblem,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The criterion tail given the mean reward; aux carries the scalar terms."""
+    poses = params["poses"]
+    loss_vis = 1.0 / (mean_reward + problem.eps)
+    loss_l2 = safe_norm(poses[0] - poses0[0])  # zero subgradient at init
+    loss_smooth = problem.smoothness_weight / (
+        mean_segment_angle(poses, problem.eps) + problem.eps
+    )
+    # |·| with derivative 1 at 0, as jnp.abs has (torch.abs has 0): on the
+    # initial path the difference is exactly 0, and the first step must
+    # match the JAX twin's.
+    dlen = polyline_length(poses) - polyline_length(poses0)
+    loss_length = problem.length_weight * torch.where(dlen >= 0, dlen, -dlen)
+    loss = loss_vis + loss_l2 + loss_length + loss_smooth
+    aux = {
+        "mean_reward": mean_reward,
+        "loss_vis": loss_vis,
+        "loss_l2": loss_l2,
+        "loss_smooth": loss_smooth,
+        "loss_length": loss_length,
+    }
+    return loss, aux
