@@ -7,14 +7,20 @@ Phases, each printing one line (any failure raises and exits non-zero):
 
 1. device — needs CUDA; prints ``nvidia-smi`` name and power limit; TF32 off.
 2. build — compiles ``csrc/fused_vis.cu`` with nvcc for sm_90a.
-3. kernels — K1–K4 against their plain PyTorch versions on the card, stage
-   by stage, and the whole ``fused_lo_sum`` forward and gradient against the
-   plain autodiff path, at the reference workload (cloud 10 padded to
-   40,960 points, 14 selected waypoints) and at 1,048,576 points × 50
-   waypoints (seeded synthetic cloud).
+3. kernels — K1–K4 and the uncached regime's K1′, K2′ and K5 against their
+   plain PyTorch versions on the card, stage by stage (K1′'s min/max equal
+   K1's bit for bit, K5's tie counts equal K3's exactly, K5's sums combined
+   equal K4's), and the whole ``fused_lo_sum`` forward and gradient, in both
+   regimes, against the plain autodiff path, at the reference workload
+   (cloud 10 padded to 40,960 points, 14 selected waypoints) and at
+   1,048,576 points × 50 waypoints (seeded synthetic cloud).
 4. slice — ``TrajectoryOptimizer.optimize`` on cloud 10 for 400 steps through
-   the kernels (launch counters reset just before, read just after), the
-   same run on the plain backend, and 20 steps of 1M × 50.
+   the cached kernels (launch counters reset just before, read just after),
+   the same run on the plain backend, 20 steps of 1M × 50, and 20 steps of
+   8,388,608 points × 50 waypoints (8m50), whose 1.68 GB of scores exceed
+   the cache budget: that run must go through K1′, K2′ and K5 only, with
+   its first forward checked against a chunked plain forward and its peak
+   memory under the size of a score cache.
 5. times — per-stage and per-step ms, kernel and plain, and peak memory.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -37,7 +43,13 @@ REPLACES = {
     "pass_b": "trajectory_optimization_tpu/ops/pallas_vis.py:264",
     "bwd_stats": "trajectory_optimization_tpu/ops/pallas_vis.py:288",
     "bwd_apply": "trajectory_optimization_tpu/ops/pallas_vis.py:320",
+    "pass_a_minmax": "trajectory_optimization_tpu/ops/pallas_vis.py:212",
+    "pass_b_recompute": "trajectory_optimization_tpu/ops/pallas_vis.py:275",
+    "bwd_fused_acc": "trajectory_optimization_tpu/ops/pallas_vis.py:361",
 }
+CACHED = ("pass_a", "pass_b", "bwd_stats", "bwd_apply")  # the score-cache regime's path
+UNCACHED = ("pass_a_minmax", "pass_b_recompute", "bwd_fused_acc")  # above the cache budget
+N_8M = 8_388_608
 
 
 def fail(msg: str) -> None:
@@ -88,7 +100,7 @@ def main() -> int:
     _kernels._load()
     print(f"[build] {SOURCE} -> sm_90a in {time.perf_counter() - t0:.1f} s", flush=True)
     for line in _kernels.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}", file=sys.stderr)
 
     intr = default_intrinsics()
@@ -145,19 +157,34 @@ def main() -> int:
             stride=stride,
         )
 
+    def kernel_inputs(c):
+        """The waypoint table, camera row and constants fused_lo_sum builds."""
+        sel = slice(None, None, c["stride"])
+        quats, trans = c["quats"][sel].contiguous(), c["path"][sel].contiguous()
+        R = quat_ops.to_matrix(quat_ops.normalize(quats))
+        wp = torch.cat([R.reshape(len(quats), 9), trans], dim=1).contiguous()
+        kp = torch.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]).contiguous()
+        prob = c["problem"]
+        k = fv.make_consts(intr.width, intr.height, prob.min_dist, prob.max_dist, prob.eps)
+        return quats, trans, wp, kp, k
+
+    def criterion_cotangent(lo, c):
+        """The main path's own cotangent for lo: d loss / d lo through the criterion."""
+        lo_leaf = lo.detach().requires_grad_(True)
+        params = {"poses": c["path"], "quats": c["quats"]}
+        loss, _ = traj_criterion(lo_leaf, params, c["path"], c["problem"], valid=c["V"])
+        (g,) = torch.autograd.grad(loss, lo_leaf)
+        return g.contiguous()
+
     cases = [shape_case("ref", cloud10, path10), shape_case("1m50", big_pts, big_path)]
     errs = {k: 0.0 for k in REPLACES}
     stage_ms = {}
 
     # ---- 3. kernels against their plain versions ---------------------------
     for c in cases:
-        prob, sel = c["problem"], slice(None, None, c["stride"])
-        quats, trans = c["quats"][sel].contiguous(), c["path"][sel].contiguous()
+        prob = c["problem"]
+        quats, trans, wp, kp, k = kernel_inputs(c)
         W, N = quats.shape[0], c["P"].shape[0]
-        k = fv.make_consts(intr.width, intr.height, prob.min_dist, prob.max_dist, prob.eps)
-        R = quat_ops.to_matrix(quat_ops.normalize(quats))
-        wp = torch.cat([R.reshape(W, 9), trans], dim=1).contiguous()
-        kp = torch.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]).contiguous()
         Pt, V = c["Pt"], c["V"]
 
         # K1: min/max rtol 1e-5 (atol 1e-30 only absorbs denormal quantization
@@ -177,12 +204,7 @@ def main() -> int:
         errs["pass_b"] = max(errs["pass_b"], close(
             f"K2 lo {c['name']}", lo, fv.pass_b_ref(norm, cache, prob.eps), 1e-4, 2e-4))
 
-        # the main path's own cotangent for lo: d loss / d lo through the criterion
-        lo_leaf = lo.detach().requires_grad_(True)
-        params = {"poses": c["path"], "quats": c["quats"]}
-        loss, _ = traj_criterion(lo_leaf, params, c["path"], prob, valid=V)
-        (g,) = torch.autograd.grad(loss, lo_leaf)
-        g = g.contiguous()
+        g = criterion_cotangent(lo, c)
 
         # K3: sums rtol 2e-3 / atol 2e-3; tie counts exact (same cache, same norm).
         st = _kernels.bwd_stats(norm, cache, V, g, prob.eps)
@@ -201,26 +223,77 @@ def main() -> int:
         errs["bwd_apply"] = max(errs["bwd_apply"], close(
             f"K4 sums {c['name']}", sums, sums_r, 2e-3, 2e-3))
 
-        # the whole fused_lo_sum against the plain autodiff path: forward
-        # rtol 1e-4 / atol 2e-4, gradient w.r.t. quats and trans rtol 2e-3 / atol 2e-3
+        # K1′: the same score arithmetic as K1 without the cache, so its
+        # min/max are K1's bit for bit; against the plain K1 as K1 is.
+        m1, mx1 = _kernels.pass_a_minmax(wp, kp, Pt, V, k)
+        sync()
+        if not (torch.equal(m1, m) and torch.equal(mx1, mx)):
+            fail(f"K1' min/max {c['name']} differ from K1's: {(m1 - m).abs().max():.3e}, "
+                 f"{(mx1 - mx).abs().max():.3e}")
+        e1p = close(f"K1' min {c['name']}", m1, m_r, 1e-5, 1e-30)
+        errs["pass_a_minmax"] = max(errs["pass_a_minmax"], e1p,
+                                    close(f"K1' max {c['name']}", mx1, mx_r, 1e-5, 1e-30))
+
+        # K2′ against its plain version and against K2 on K1's cache, with the
+        # same norm: rtol 1e-4 / atol 2e-4.
+        lo2 = _kernels.pass_b_recompute(wp, kp, norm, Pt, k)
+        errs["pass_b_recompute"] = max(errs["pass_b_recompute"], close(
+            f"K2' lo {c['name']}", lo2, fv.pass_b_recompute_ref(wp, kp, norm, Pt, k), 1e-4, 2e-4))
+        close(f"K2' lo vs K2 {c['name']}", lo2, lo, 1e-4, 2e-4)
+
+        # K5: sums (slots 0-37) rtol 2e-3 / atol 2e-3 against the plain K5. In
+        # this regime each side tests s == m on its own recompute, so the plain
+        # K5 gets the norm of the plain K1 (the kernel norm would split ties
+        # the plain recompute's last bits may miss). Tie counts (38, 39) equal
+        # K3's on K1's cache with the same norm, exactly.
+        acc = _kernels.bwd_fused_acc(wp, kp, norm, Pt, V, g, k)
+        acc_r = fv.bwd_fused_acc_ref(wp, kp, fv.make_norm(m_r, mx_r), Pt, V, g, k)
+        errs["bwd_fused_acc"] = max(errs["bwd_fused_acc"], close(
+            f"K5 sums {c['name']}", acc[:, :38], acc_r[:, :38], 2e-3, 2e-3))
+        if not torch.equal(acc[:, 38:], st[:, 2:]):
+            fail(f"K5 tie counts {c['name']}: {acc[:, 38:].tolist()} vs K3 {st[:, 2:].tolist()}")
+        # linearity: the single pass, combined, is K4 with α and β from K3
+        close(f"K5 combined vs K4 {c['name']}", fv.fused_acc_to_sums(acc, W), sums, 2e-3, 2e-3)
+        del acc_r
+
+        # the whole fused_lo_sum in both regimes against the plain autodiff
+        # path: forward rtol 1e-4 / atol 2e-4, gradient w.r.t. quats and trans
+        # rtol 2e-3 / atol 2e-3. "uncached" forces the regime with a zero budget.
+        from trajectory_optimization_tpu_torch.models.traj import observation_logodds
+        from trajectory_optimization_tpu_torch.ops.scores import waypoint_scores
+
         grads = {}
-        for backend in ("kernel", "torch"):
+        for backend in ("kernel", "uncached", "torch"):
             q_leaf = quats.clone().requires_grad_(True)
             t_leaf = trans.clone().requires_grad_(True)
-            if backend == "kernel":
-                lo_b = fv.fused_lo_sum(c["P"], q_leaf, t_leaf, K, intr.width, intr.height,
-                                       valid=V, points_t=Pt)
-            else:
-                from trajectory_optimization_tpu_torch.models.traj import observation_logodds
-                from trajectory_optimization_tpu_torch.ops.scores import waypoint_scores
-
+            before = dict(_kernels.LAUNCHES)
+            if backend == "torch":
                 s = waypoint_scores(c["P"], q_leaf, t_leaf, K, intr.width, intr.height)
                 lo_b = torch.sum(observation_logodds(s, prob.eps, V), dim=0)
-            gq, gt = torch.autograd.grad(torch.sum(lo_b * g), (q_leaf, t_leaf))
+                gq, gt = torch.autograd.grad(torch.sum(lo_b * g), (q_leaf, t_leaf))
+            else:
+                budget = fv.SCORE_CACHE_MAX_BYTES
+                if backend == "uncached":
+                    fv.SCORE_CACHE_MAX_BYTES = 0
+                try:
+                    lo_b = fv.fused_lo_sum(c["P"], q_leaf, t_leaf, K, intr.width, intr.height,
+                                           valid=V, points_t=Pt)
+                    gq, gt = torch.autograd.grad(torch.sum(lo_b * g), (q_leaf, t_leaf))
+                finally:
+                    fv.SCORE_CACHE_MAX_BYTES = budget
+                ran = {n for n in REPLACES if _kernels.LAUNCHES[n] > before[n]}
+                want = set(UNCACHED if backend == "uncached" else CACHED)
+                if ran != want:
+                    fail(f"fused_lo_sum {backend} {c['name']} launched {sorted(ran)}, "
+                         f"expected {sorted(want)}")
             grads[backend] = (lo_b.detach(), gq, gt)
-        close(f"fused_lo_sum forward {c['name']}", grads["kernel"][0], grads["torch"][0], 1e-4, 2e-4)
-        close(f"fused_lo_sum d/dquats {c['name']}", grads["kernel"][1], grads["torch"][1], 2e-3, 2e-3)
-        close(f"fused_lo_sum d/dtrans {c['name']}", grads["kernel"][2], grads["torch"][2], 2e-3, 2e-3)
+        for backend in ("kernel", "uncached"):
+            close(f"fused_lo_sum {backend} forward {c['name']}", grads[backend][0],
+                  grads["torch"][0], 1e-4, 2e-4)
+            close(f"fused_lo_sum {backend} d/dquats {c['name']}", grads[backend][1],
+                  grads["torch"][1], 2e-3, 2e-3)
+            close(f"fused_lo_sum {backend} d/dtrans {c['name']}", grads[backend][2],
+                  grads["torch"][2], 2e-3, 2e-3)
         del grads
 
         # per-stage times (printed, never asserted)
@@ -234,9 +307,18 @@ def main() -> int:
                           cuda_ms(lambda: fv.bwd_stats_ref(norm, cache, V, g, prob.eps), reps)),
             "bwd_apply": (cuda_ms(lambda: _kernels.bwd_apply(wp, kp, norm2, Pt, V, g, cache, k), reps),
                           cuda_ms(lambda: fv.bwd_apply_ref(wp, kp, norm2, Pt, V, g, cache, k), reps)),
+            "pass_a_minmax": (cuda_ms(lambda: _kernels.pass_a_minmax(wp, kp, Pt, V, k), reps),
+                              cuda_ms(lambda: fv.pass_a_minmax_ref(wp, kp, Pt, V, k), reps)),
+            "pass_b_recompute": (
+                cuda_ms(lambda: _kernels.pass_b_recompute(wp, kp, norm, Pt, k), reps),
+                cuda_ms(lambda: fv.pass_b_recompute_ref(wp, kp, norm, Pt, k), reps)),
+            "bwd_fused_acc": (
+                cuda_ms(lambda: _kernels.bwd_fused_acc(wp, kp, norm, Pt, V, g, k), reps),
+                cuda_ms(lambda: fv.bwd_fused_acc_ref(wp, kp, norm, Pt, V, g, k), reps)),
         }
-        print(f"[kernels] {c['name']} N={N} W={W}: K1-K4 and fused_lo_sum match their plain "
-              f"versions; max|err| " + ", ".join(f"{n}={v:.2e}" for n, v in errs.items()), flush=True)
+        print(f"[kernels] {c['name']} N={N} W={W}: K1-K4, K1', K2', K5 and fused_lo_sum (both "
+              f"regimes) match their plain versions; K1' min/max == K1's, K5 tie counts == K3's; "
+              f"max|err| " + ", ".join(f"{n}={v:.2e}" for n, v in errs.items()), flush=True)
         del cache
         torch.cuda.empty_cache()
 
@@ -249,8 +331,8 @@ def main() -> int:
     sync()
     slice_s = time.perf_counter() - t0
     launches = dict(_kernels.LAUNCHES)
-    if not all(launches[n] > 0 for n in REPLACES):
-        fail(f"a kernel of the main path was never launched: {launches}")
+    if not (all(launches[n] > 0 for n in CACHED) and all(launches[n] == 0 for n in UNCACHED)):
+        fail(f"the cached path did not run exactly K1-K4: {launches}")
     if not (np.all(np.isfinite(res_k.poses)) and res_k.poses.shape == path10.shape
             and res_k.rewards.shape == (len(cloud10),)):
         fail("the optimized trajectory is malformed or not finite")
@@ -284,6 +366,58 @@ def main() -> int:
     print(f"[slice] 1M x 50 20 steps: loss {res_big.loss:.6f}, visibility gain "
           f"{res_big.visibility_gain:.4f}", flush=True)
 
+    # 8m50: 8,388,608 points x 50 waypoints, over the score-cache budget. The
+    # first forward of the run below (identity quaternions, the path) against
+    # the kernels' plain versions (K1' -> make_norm -> K2') in chunks of
+    # waypoints: min/max are per waypoint and lo is a sum over waypoints, so
+    # chunking is exact up to summation order. (The plain autodiff path
+    # normalizes with a division: near the clip ceiling, where d logit / d pn
+    # is ~1e6, its last-bit differences reach 1e-3 in lo at this density.)
+    pts8 = np.random.default_rng(8).uniform(-20, 20, size=(N_8M, 3)).astype(np.float32)
+    stride8 = waypoint_stride(big_path, 0.5)
+    padded8, valid8 = pad_points(pts8)
+    P8 = torch.as_tensor(padded8, device=dev)
+    V8 = torch.as_tensor(valid8, device=dev)
+    q8 = torch.as_tensor(identity_quaternions(len(big_path))[::stride8].copy(), device=dev)
+    t8 = torch.as_tensor(big_path[::stride8].copy(), device=dev)
+    W8, N8 = len(q8), P8.shape[0]
+    cache_mib = W8 * N8 * 4 / 2**20
+    if fv.uses_score_cache(W8, N8):
+        fail(f"8m50 ({W8} x {N8}) fits the score cache: it must test the uncached regime")
+    with torch.no_grad():
+        lo8 = fv.fused_lo_sum(P8, q8, t8, K, intr.width, intr.height, valid=V8)
+        c8 = dict(stride=1, quats=q8, path=t8, problem=TrajProblem(intr.width, intr.height))
+        _, _, wp8, kp8, k8 = kernel_inputs(c8)
+        Pt8 = P8.t().contiguous()
+        lo8_r = torch.zeros_like(lo8)
+        for w0 in range(0, W8, 5):
+            w = slice(w0, w0 + 5)
+            norm_r = fv.make_norm(*fv.pass_a_minmax_ref(wp8[w], kp8, Pt8, V8, k8))
+            lo8_r += fv.pass_b_recompute_ref(wp8[w].contiguous(), kp8, norm_r, Pt8, k8)
+    e8 = close("8m50 first forward vs chunked plain forward", lo8, lo8_r, 1e-4, 2e-4)
+    del P8, Pt8, V8, lo8, lo8_r, c8
+    torch.cuda.empty_cache()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    res8 = opt.optimize(pts8, big_path, n_steps=20)
+    sync()
+    slice8_s = time.perf_counter() - t0
+    launches8 = dict(_kernels.LAUNCHES)
+    peak8 = torch.cuda.max_memory_allocated() / 2**20
+    if not (all(launches8[n] > 0 for n in UNCACHED) and all(launches8[n] == 0 for n in CACHED)):
+        fail(f"the 8m50 run did not run exactly K1', K2' and K5: {launches8}")
+    if not (np.all(np.isfinite(res8.poses)) and np.isfinite(res8.loss) and res8.n_iters == 20
+            and res8.rewards.shape == (N_8M,)):
+        fail("8m50 run: non-finite or malformed result, or wrong step count")
+    if not peak8 < cache_mib:
+        fail(f"8m50 run: peak {peak8:.1f} MiB is not below a score cache's {cache_mib:.1f} MiB")
+    print(f"[slice] 8m50 N={N8} W={W8} 20 steps in {slice8_s:.2f} s: loss {res8.loss:.6f}, "
+          f"visibility gain {res8.visibility_gain:.4f}; first forward max|err| vs plain {e8:.2e}; "
+          f"peak {peak8:.1f} MiB (a score cache alone: {cache_mib:.1f} MiB); launches "
+          f"{launches8}", flush=True)
+
     # ---- 5. times ----------------------------------------------------------
     step_ms, peak_mb = {}, {}
     for c in cases:
@@ -307,6 +441,35 @@ def main() -> int:
                 windows.append((time.perf_counter() - t0) * 1e3 / n)
             step_ms[(c["name"], backend)] = statistics.median(windows)
             peak_mb[(c["name"], backend)] = torch.cuda.max_memory_allocated() / 2**20
+    # 8m50, kernels only (a plain step there holds many (W, N) tensors)
+    c8 = shape_case("8m50", pts8, big_path)
+    _, _, wp8, kp8, k8 = kernel_inputs(c8)
+    Pt8, V8 = c8["Pt"], c8["V"]
+    norm8 = fv.make_norm(*_kernels.pass_a_minmax(wp8, kp8, Pt8, V8, k8))
+    g8 = criterion_cotangent(_kernels.pass_b_recompute(wp8, kp8, norm8, Pt8, k8), c8)
+    stage_ms["8m50"] = {
+        "pass_a_minmax": cuda_ms(lambda: _kernels.pass_a_minmax(wp8, kp8, Pt8, V8, k8), 5),
+        "pass_b_recompute": cuda_ms(lambda: _kernels.pass_b_recompute(wp8, kp8, norm8, Pt8, k8), 5),
+        "bwd_fused_acc": cuda_ms(lambda: _kernels.bwd_fused_acc(wp8, kp8, norm8, Pt8, V8, g8, k8), 5),
+    }
+    prob8 = TrajProblem(intr.width, intr.height, wps_step=c8["stride"], backend="kernel")
+
+    def loss8(p):
+        return traj_forward(p, c8["P"], K, c8["path"], c8["quats"], prob8, valid=V8, points_t=Pt8)
+
+    p0 = init_traj_params(big_path, c8["quats"].cpu().numpy(), dev)
+    run_until_done(loss8, p0, cfg, 5, NEVER)  # warm-up
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    windows = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run_until_done(loss8, p0, cfg, 5, NEVER)
+        sync()
+        windows.append((time.perf_counter() - t0) * 1e3 / 5)
+    step_ms[("8m50", "kernel")] = statistics.median(windows)
+    peak_mb[("8m50", "kernel")] = torch.cuda.max_memory_allocated() / 2**20
+
     for c in cases:
         name = c["name"]
         print(f"[times] {card} | {name}: ms/step kernel {step_ms[(name, 'kernel')]:.4f} "
@@ -314,16 +477,23 @@ def main() -> int:
               f"{peak_mb[(name, 'kernel')]:.1f} plain {peak_mb[(name, 'torch')]:.1f}; stage ms "
               + ", ".join(f"{s} {a:.4f}/{b:.4f}" for s, (a, b) in stage_ms[name].items())
               + " (kernel/plain)", flush=True)
+    print(f"[times] {card} | 8m50: ms/step kernel {step_ms[('8m50', 'kernel')]:.4f}; peak MiB "
+          f"kernel {peak_mb[('8m50', 'kernel')]:.1f} (optimize run {peak8:.1f}); stage ms "
+          + ", ".join(f"{s} {a:.4f}" for s, a in stage_ms["8m50"].items()) + " (kernel)",
+          flush=True)
 
     record = {"kernels": [
         {"name": n, "route": "cuda", "source": SOURCE, "replaces": REPLACES[n],
-         "launches": launches[n], "max_abs_err": errs[n],
+         "launches": (launches8 if n in UNCACHED else launches)[n], "max_abs_err": errs[n],
          "ms": stage_ms["ref"][n][0], "plain_ms": stage_ms["ref"][n][1],
-         "ms_1m50": stage_ms["1m50"][n][0], "plain_ms_1m50": stage_ms["1m50"][n][1]}
+         "ms_1m50": stage_ms["1m50"][n][0], "plain_ms_1m50": stage_ms["1m50"][n][1],
+         **({"ms_8m50": stage_ms["8m50"][n]} if n in UNCACHED else {})}
         for n in REPLACES
-    ], "step_ms": {f"{a}/{b}": v for (a, b), v in step_ms.items()}}
+    ], "step_ms": {f"{a}/{b}": v for (a, b), v in step_ms.items()},
+        "peak_mib_8m50": peak8}
     for n in REPLACES:
-        if not all(math.isfinite(x) for x in (errs[n], *stage_ms["ref"][n], *stage_ms["1m50"][n])):
+        times = (*stage_ms["ref"][n], *stage_ms["1m50"][n], stage_ms["8m50"].get(n, 0.0))
+        if not all(math.isfinite(x) for x in (errs[n], *times)):
             fail(f"{n}: non-finite measurement")
     print(card, flush=True)
     print(json.dumps(record), flush=True)

@@ -1,5 +1,6 @@
-"""The port's hand-written CUDA kernels (K1–K4, csrc/fused_vis.cu) against
-their plain PyTorch versions, on the card.
+"""The port's hand-written CUDA kernels (K1–K4 and the uncached regime's K1′,
+K2′ and K5, csrc/fused_vis.cu) against their plain PyTorch versions, on the
+card.
 
 Every test here needs a CUDA card and is marked ``cuda``; without one each
 skips (the kernels have no CPU mode). The file imports neither JAX nor the
@@ -119,12 +120,58 @@ def test_fused_lo_sum_matches_plain_autodiff(inputs):
         _close(a, b, **tol)
 
 
-def test_uncached_regime_raises(inputs):
+def test_uncached_stages_match_plain(inputs):
     x = inputs
-    W = len(x["quats"])
-    big = torch.zeros((fv.SCORE_CACHE_MAX_BYTES // (4 * W) + 1, 3), device=x["P"].device)
-    with pytest.raises(NotImplementedError, match="K5"):
-        fv.fused_lo_sum(big, x["quats"], x["trans"], x["K"], INTR.width, INTR.height)
+    args = (x["wp"], x["kp"], x["Pt"], x["V"], x["k"])
+    m, mx, cache = _kernels.pass_a(*args)
+    m1, mx1 = _kernels.pass_a_minmax(*args)
+    assert torch.equal(m1, m) and torch.equal(mx1, mx)  # the same score bits as K1
+    norm = fv.make_norm(m, mx)
+    lo2 = _kernels.pass_b_recompute(x["wp"], x["kp"], norm, x["Pt"], x["k"])
+    _close(lo2, fv.pass_b_recompute_ref(x["wp"], x["kp"], norm, x["Pt"], x["k"]), **FWD)
+    _close(lo2, _kernels.pass_b(norm, cache, EPS), **FWD)
+    acc = _kernels.bwd_fused_acc(x["wp"], x["kp"], norm, x["Pt"], x["V"], x["g"], x["k"])
+    # the plain K5 tests its ties against the min/max of its own recompute
+    norm_r = fv.make_norm(*fv.pass_a_minmax_ref(*args))
+    acc_r = fv.bwd_fused_acc_ref(x["wp"], x["kp"], norm_r, x["Pt"], x["V"], x["g"], x["k"])
+    _close(acc[:, :38], acc_r[:, :38], **GRAD)
+    st = _kernels.bwd_stats(norm, cache, x["V"], x["g"], EPS)
+    assert torch.equal(acc[:, 38:], st[:, 2:])  # K3's tie counts, exactly
+    norm2 = torch.cat([norm, (st[:, :2] / st[:, 2:].clamp(min=1.0))], dim=1).contiguous()
+    sums = _kernels.bwd_apply(x["wp"], x["kp"], norm2, x["Pt"], x["V"], x["g"], cache, x["k"])
+    _close(fv.fused_acc_to_sums(acc, len(norm)), sums, **GRAD)
+
+
+def _fused(x, budget):
+    saved = fv.SCORE_CACHE_MAX_BYTES
+    fv.SCORE_CACHE_MAX_BYTES = budget
+    try:
+        q = x["quats"].clone().requires_grad_(True)
+        t = x["trans"].clone().requires_grad_(True)
+        _kernels.reset_launches()
+        lo = fv.fused_lo_sum(x["P"], q, t, x["K"], INTR.width, INTR.height, valid=x["V"],
+                             points_t=x["Pt"])
+        out = (lo.detach(), *torch.autograd.grad(lo, (q, t), x["g"]))
+        torch.cuda.synchronize()
+        return out, dict(_kernels.LAUNCHES)
+    finally:
+        fv.SCORE_CACHE_MAX_BYTES = saved
+
+
+def test_uncached_fused_lo_sum_matches_cached(inputs):
+    cached, _ = _fused(inputs, 1 << 30)
+    uncached, _ = _fused(inputs, 0)
+    for a, b, tol in zip(uncached, cached, (FWD, GRAD, GRAD)):
+        _close(a, b, **tol)
+
+
+def test_uncached_regime_launches_only_its_kernels(inputs):
+    _, launches = _fused(inputs, 0)
+    assert {n for n, c in launches.items() if c} == {
+        "pass_a_minmax", "pass_b_recompute", "bwd_fused_acc"}
+    _, launches = _fused(inputs, 1 << 30)
+    assert {n for n, c in launches.items() if c} == {
+        "pass_a", "pass_b", "bwd_stats", "bwd_apply"}
 
 
 def test_wrappers_reject_bad_inputs(inputs):

@@ -1,5 +1,6 @@
 // Fused visibility log-odds kernels for Hopper (sm_90a): K1-K4 of the
-// score-cache regime. Plain C interface, loaded with ctypes by
+// score-cache regime and K1', K2', K5 of the uncached regime (no (W, N)
+// buffer). Plain C interface, loaded with ctypes by
 // trajectory_optimization_tpu_torch/ops/_kernels.py; each entry point
 // launches on the caller's stream and returns cudaGetLastError().
 //
@@ -12,24 +13,34 @@
 // norm is (W, 4) = [m, inv_d, gate, M]; norm2 (W, 6) adds alpha and beta.
 // The ragged edge i >= N is masked in the kernel.
 //
-// Grid for K1, K3, K4: blockIdx.x over blocks of kBlockPts points (kPPT per
-// thread, neighbouring threads on neighbouring points), blockIdx.y over
-// chunks of kWChunk waypoints, a loop over the chunk's waypoints inside the
-// block. Per-block results go to (n_blocks, W[, slots]) partials that the
+// Grid for K1, K1', K3, K4, K5: blockIdx.x over blocks of kBlockPts points
+// (kPPT per thread, neighbouring threads on neighbouring points), blockIdx.y
+// over chunks of kWChunk waypoints, a loop over the chunk's waypoints inside
+// the block. Per-block results go to (n_blocks, W[, slots]) partials that the
 // wrapper reduces with torch.amin/amax/sum: no float atomics, so a run is
-// reproducible bit for bit. K2 is one thread per point looping over all W.
+// reproducible bit for bit. K2 and K2' are one thread per point looping over
+// all W in order.
 //
 // Built WITHOUT --use_fast_math / -ftz: far points give denormal scores, and
 // the min-tie count (s == m) depends on denormals surviving as they do in
 // the plain version. expf, logf and '/' are the IEEE-accurate versions.
 //
-// All four kernels are bound by device-memory bandwidth, not arithmetic:
-// at 1M points x 50 waypoints K1 writes the 200 MB cache and K2, K3 and K4
-// each read it, against ~40 flops and at most 2 exp per (w, i). The design
-// answers that only by touching each cache element once per kernel with
-// coalesced accesses and keeping the point coordinates of a block in
-// registers across its waypoint chunk; fusing passes or dropping the cache
-// (16 B/point recompute) is for later work.
+// The score s = sig * exp(arg) is computed with explicitly rounded adds and
+// multiplies (__fadd_rn etc., which the compiler never contracts into FMAs),
+// so every kernel that computes it gets the same bits: in the uncached
+// regime K5 tests s == m on its own recompute against the min K1' took over
+// its own. The operations and their order are those of the plain version,
+// whose PyTorch ops each round once, so on the card the two agree bit for
+// bit as well. The gradient chain after the score keeps FMA contraction.
+//
+// The four cached kernels are bound by device-memory bandwidth, not
+// arithmetic: at 1M points x 50 waypoints K1 writes the 200 MB cache and K2,
+// K3 and K4 each read it, against ~40 flops and at most 2 exp per (w, i).
+// The design answers that only by touching each cache element once per
+// kernel with coalesced accesses and keeping the point coordinates of a
+// block in registers across its waypoint chunk. The three uncached kernels
+// read 16-20 B per point and waypoint chunk and are bound by the recompute
+// arithmetic instead; making them fast is later work.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -40,7 +51,9 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPPT = 4;                       // points per thread
 constexpr int kBlockPts = kThreads * kPPT;    // points per block
-constexpr int kWChunk = 8;                    // waypoints per block (K1/K3/K4)
+constexpr int kWChunk = 8;                    // waypoints per block (K1/K3/K4/K5)
+constexpr int kStageW = 128;                  // waypoints staged in shared memory (K2')
+constexpr int kBwdSlots = 40;                 // K5's sums per waypoint
 constexpr float kBig = 3.0e38f;
 
 struct Consts {
@@ -57,34 +70,68 @@ struct Extras {
   float ex, ey, ez, u, v, inv_zd, xu, xv, xu_raw, xv_raw, sig, arg;
 };
 
+// Rounded arithmetic that is never contracted into an FMA (see the header).
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+
+// Same order of operations as the plain version (fused_vis.py _extras).
 __device__ __forceinline__ Extras tile_extras(float px, float py, float pz,
                                               const float* __restrict__ w,
                                               const Cam& cam, const Consts& k) {
   Extras e;
-  const float dx = px - w[9], dy = py - w[10], dz = pz - w[11];
-  const float cx = dx * w[0] + dy * w[3] + dz * w[6];
-  const float cy = dx * w[1] + dy * w[4] + dz * w[7];
-  const float cz = dx * w[2] + dy * w[5] + dz * w[8];
-  e.ex = cx - k.c0;
-  e.ey = cy - k.c0;
-  e.ez = cz - k.c0;
-  const float d2 = e.ex * e.ex + e.ey * e.ey + e.ez * e.ez;
-  e.u = cam.fx * cx + cam.cx0 * cz;
-  e.v = cam.fy * cy + cam.cy0 * cz;
-  float zd = cz + k.eps;
+  const float dx = sub(px, w[9]), dy = sub(py, w[10]), dz = sub(pz, w[11]);
+  const float cx = add(add(mul(dx, w[0]), mul(dy, w[3])), mul(dz, w[6]));
+  const float cy = add(add(mul(dx, w[1]), mul(dy, w[4])), mul(dz, w[7]));
+  const float cz = add(add(mul(dx, w[2]), mul(dy, w[5])), mul(dz, w[8]));
+  e.ex = sub(cx, k.c0);
+  e.ey = sub(cy, k.c0);
+  e.ez = sub(cz, k.c0);
+  const float d2 = add(add(mul(e.ex, e.ex), mul(e.ey, e.ey)), mul(e.ez, e.ez));
+  e.u = add(mul(cam.fx, cx), mul(cam.cx0, cz));
+  e.v = add(mul(cam.fy, cy), mul(cam.cy0, cz));
+  float zd = add(cz, k.eps);
   zd = zd >= 0.0f ? fmaxf(zd, 1e-12f) : fminf(zd, -1e-12f);
   e.inv_zd = 1.0f / zd;
-  e.xu_raw = (e.u * e.inv_zd - k.img_w * 0.5f) / k.img_w;
-  e.xv_raw = (e.v * e.inv_zd - k.img_h * 0.5f) / k.img_h;
+  e.xu_raw = mul(sub(mul(e.u, e.inv_zd), mul(k.img_w, 0.5f)), k.inv_w);
+  e.xv_raw = mul(sub(mul(e.v, e.inv_zd), mul(k.img_h, 0.5f)), k.inv_h);
   e.xu = fminf(fmaxf(e.xu_raw, -20.0f), 20.0f);
   e.xv = fminf(fmaxf(e.xv_raw, -20.0f), 20.0f);
-  e.sig = 1.0f / (1.0f + expf(-cz));
-  e.arg = -0.5f * (d2 * k.inv_var + e.xu * e.xu + e.xv * e.xv);
+  e.sig = 1.0f / add(1.0f, expf(-cz));
+  e.arg = mul(-0.5f, add(add(mul(d2, k.inv_var), mul(e.xu, e.xu)), mul(e.xv, e.xv)));
   return e;
+}
+
+__device__ __forceinline__ float score(const Extras& e) { return mul(e.sig, expf(e.arg)); }
+
+// The camera-frame factors of pallas_vis.py _tile_dcam: for a score
+// cotangent c, (dcx, dcy, dcz) = (c * s) * (bx, by, bz).
+struct DcamFactors {
+  float bx, by, bz;
+};
+
+__device__ __forceinline__ DcamFactors dcam_factors(const Extras& e, const Cam& cam,
+                                                    const Consts& k) {
+  const float g_u = fabsf(e.xu_raw) < 20.0f ? 1.0f : 0.0f;
+  const float g_v = fabsf(e.xv_raw) < 20.0f ? 1.0f : 0.0f;
+  DcamFactors f;
+  f.bx = -(e.ex * k.inv_var) - e.xu * g_u * (cam.fx * e.inv_zd * k.inv_w);
+  f.by = -(e.ey * k.inv_var) - e.xv * g_v * (cam.fy * e.inv_zd * k.inv_h);
+  f.bz = -(e.ez * k.inv_var) + (1.0f - e.sig) -
+         e.xu * g_u * (cam.cx0 * e.inv_zd - e.u * e.inv_zd * e.inv_zd) * k.inv_w -
+         e.xv * g_v * (cam.cy0 * e.inv_zd - e.v * e.inv_zd * e.inv_zd) * k.inv_h;
+  return f;
 }
 
 __device__ __forceinline__ float clip_pn(float x, float hi) {
   return fminf(fmaxf(x, 0.5f), hi);
+}
+
+// log-odds cotangent inside the strict clip window, 0 outside it.
+__device__ __forceinline__ float pn_cotangent(float pn_raw, float g, float hi) {
+  const bool active = pn_raw > 0.5f && pn_raw < hi;
+  const float pn = clip_pn(pn_raw, hi);
+  return active ? g / (pn * (1.0f - pn)) : 0.0f;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -105,10 +152,14 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// K1. Replaces pallas_vis.py _minmax_cache_kernel (pass A with score cache).
-// Bound by the (W, N) cache write (4 B per (w, i)) plus ~40 flops and 2 exp.
-// Writes s to the cache and the block's masked min/max to (n_blocks, W)
-// partials; the min/max are taken over exactly the values written.
+// K1 (kCache) and K1'. K1 replaces pallas_vis.py _minmax_cache_kernel (pass
+// A with score cache): bound by the (W, N) cache write (4 B per (w, i)) plus
+// ~40 flops and 2 exp; it writes s to the cache and the block's masked
+// min/max to (n_blocks, W) partials, taken over exactly the values written.
+// K1' replaces _minmax_kernel (pass A, no cache): the same body without the
+// cache write, bound by the arithmetic (~40 flops and 2 exp per (w, i)
+// against 16 B per point and waypoint chunk).
+template <bool kCache>
 __global__ void __launch_bounds__(kThreads)
 pass_a_kernel(const float* __restrict__ pts, const float* __restrict__ valid,
               const float* __restrict__ wp, const float* __restrict__ kp, int N,
@@ -141,9 +192,8 @@ pass_a_kernel(const float* __restrict__ pts, const float* __restrict__ valid,
 #pragma unroll
     for (int j = 0; j < kPPT; ++j) {
       if (!inb[j]) continue;
-      const Extras e = tile_extras(px[j], py[j], pz[j], wrow, cam, k);
-      const float s = e.sig * expf(e.arg);
-      cache[(size_t)w * N + base + j * kThreads + tid] = s;
+      const float s = score(tile_extras(px[j], py[j], pz[j], wrow, cam, k));
+      if constexpr (kCache) cache[(size_t)w * N + base + j * kThreads + tid] = s;
       if (ok[j]) {
         mn = fminf(mn, s);
         mx = fmaxf(mx, s);
@@ -219,10 +269,7 @@ bwd_stats_kernel(const float* __restrict__ norm, const float* __restrict__ cache
       if (!inb[j]) continue;
       const float s = cache[(size_t)w * N + base + j * kThreads + tid];
       const float sm = s - m;
-      const float pn_raw = sm * inv_d;
-      const bool active = pn_raw > 0.5f && pn_raw < hi;
-      const float pn = clip_pn(pn_raw, hi);
-      const float c_pn = active ? gg[j] / (pn * (1.0f - pn)) : 0.0f;
+      const float c_pn = pn_cotangent(sm * inv_d, gg[j], hi);
       a0 += c_pn * (-inv_d + sm * inv_d * inv_d * gate);
       a1 += c_pn * (-(sm * inv_d * inv_d) * gate);
       a2 += (ok[j] && s == m) ? 1.0f : 0.0f;
@@ -296,25 +343,13 @@ bwd_apply_kernel(const float* __restrict__ wp, const float* __restrict__ kp,
       if (!inb[j]) continue;
       const float s = cache[(size_t)w * N + base + j * kThreads + tid];
       const Extras e = tile_extras(px[j], py[j], pz[j], wrow, cam, k);
-      const float sm = s - m;
-      const float pn_raw = sm * inv_d;
-      const bool active = pn_raw > 0.5f && pn_raw < hi;
-      const float pn = clip_pn(pn_raw, hi);
-      const float c_pn = active ? gg[j] / (pn * (1.0f - pn)) : 0.0f;
+      const float c_pn = pn_cotangent((s - m) * inv_d, gg[j], hi);
       const float eqmin = (ok[j] && s == m) ? 1.0f : 0.0f;
       const float eqmax = (ok[j] && s == mxv) ? 1.0f : 0.0f;
       const float total = c_pn * inv_d + alpha * eqmin + beta * eqmax;
-
-      const float g_u = fabsf(e.xu_raw) < 20.0f ? 1.0f : 0.0f;
-      const float g_v = fabsf(e.xv_raw) < 20.0f ? 1.0f : 0.0f;
+      const DcamFactors f = dcam_factors(e, cam, k);
       const float cs = total * s;
-      const float dcx = cs * (-(e.ex * k.inv_var) - e.xu * g_u * (cam.fx * e.inv_zd * k.inv_w));
-      const float dcy = cs * (-(e.ey * k.inv_var) - e.xv * g_v * (cam.fy * e.inv_zd * k.inv_h));
-      const float dcz =
-          cs * (-(e.ez * k.inv_var) + (1.0f - e.sig) -
-                e.xu * g_u * (cam.cx0 * e.inv_zd - e.u * e.inv_zd * e.inv_zd) * k.inv_w -
-                e.xv * g_v * (cam.cy0 * e.inv_zd - e.v * e.inv_zd * e.inv_zd) * k.inv_h);
-      const float dc[3] = {dcx, dcy, dcz};
+      const float dc[3] = {cs * f.bx, cs * f.by, cs * f.bz};
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         acc[4 * c + 0] += dc[c];
@@ -335,6 +370,134 @@ bwd_apply_kernel(const float* __restrict__ wp, const float* __restrict__ kp,
     float acc = 0.0f;
     for (int q = 0; q < kWarps; ++q) acc += ssum[q][wl][c];
     part[((size_t)blockIdx.x * W + w0 + wl) * 12 + c] = acc;
+  }
+}
+
+// K2'. Replaces pallas_vis.py _losum_kernel (pass B recomputing the
+// scores). Bound by the arithmetic: ~45 flops, 2 exp, a log and a divide per
+// (w, i) against 16 B per point in all. One thread per point loops over all W
+// in order (as K2 does); the waypoint table and (m, inv_d) of kStageW
+// waypoints at a time are staged in shared memory for the whole block.
+__global__ void __launch_bounds__(kThreads)
+pass_b_recompute_kernel(const float* __restrict__ wp, const float* __restrict__ kp,
+                        const float* __restrict__ norm, const float* __restrict__ pts,
+                        int N, int W, Consts k, float hi, float* __restrict__ lo) {
+  __shared__ float swp[kStageW * 12];
+  __shared__ float snorm[kStageW * 2];
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const bool inb = i < N;
+  const float px = inb ? pts[i] : 0.0f;
+  const float py = inb ? pts[(size_t)N + i] : 0.0f;
+  const float pz = inb ? pts[2 * (size_t)N + i] : 0.0f;
+  const Cam cam{kp[0], kp[1], kp[2], kp[3]};
+
+  float acc = 0.0f;
+  for (int w0 = 0; w0 < W; w0 += kStageW) {
+    const int nw = min(kStageW, W - w0);
+    __syncthreads();  // the previous stage is fully read
+    for (int t = threadIdx.x; t < nw * 12; t += kThreads) swp[t] = wp[12 * (size_t)w0 + t];
+    for (int t = threadIdx.x; t < nw; t += kThreads) {
+      snorm[2 * t] = norm[4 * (size_t)(w0 + t)];
+      snorm[2 * t + 1] = norm[4 * (size_t)(w0 + t) + 1];
+    }
+    __syncthreads();
+    if (!inb) continue;
+    for (int wl = 0; wl < nw; ++wl) {
+      const float s = score(tile_extras(px, py, pz, swp + 12 * wl, cam, k));
+      const float pn = clip_pn((s - snorm[2 * wl]) * snorm[2 * wl + 1], hi);
+      acc += logf(pn / (1.0f - pn));
+    }
+  }
+  if (inb) lo[i] = acc;
+}
+
+// K5. Replaces pallas_vis.py _bwd_kernel (single-pass backward, no cache).
+// Bound by the arithmetic: per (w, i) it recomputes the score (~45 flops,
+// 2 exp) and chains three cotangents through the shared dcam factors into
+// 40 running sums (~80 flops), against 20 B per point and waypoint chunk.
+// Slots per w, the JAX twin's layout (pallas_vis.py BWD_SLOTS):
+//   0:12  direct channel, cotangent c_pn * inv_d
+//   12:24 min-tie channel, cotangent 1[valid, s == m]
+//   24:36 max-tie channel, cotangent 1[valid, s == M]
+//         each [sum dc_c, sum dc_c*px, sum dc_c*py, sum dc_c*pz], c = x, y, z
+//   36 sum c_pn*dpn/dm, 37 sum c_pn*dpn/dM, 38 #(s == m), 39 #(s == M)
+// (n_blocks, W, 40) partials. One waypoint at a time: its 40 sums live in
+// registers only across the thread's kPPT points, then go through a warp
+// reduction to shared memory, which bounds the live set.
+__global__ void __launch_bounds__(kThreads)
+bwd_fused_kernel(const float* __restrict__ wp, const float* __restrict__ kp,
+                 const float* __restrict__ norm, const float* __restrict__ pts,
+                 const float* __restrict__ valid, const float* __restrict__ g,
+                 int N, int W, Consts k, float hi, float* __restrict__ part) {
+  __shared__ float ssum[kWarps][kWChunk][kBwdSlots];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int base = blockIdx.x * kBlockPts;
+  const int w0 = blockIdx.y * kWChunk;
+  const int nw = min(kWChunk, W - w0);
+  const Cam cam{kp[0], kp[1], kp[2], kp[3]};
+
+  float px[kPPT], py[kPPT], pz[kPPT], gg[kPPT];
+  bool inb[kPPT], ok[kPPT];
+#pragma unroll
+  for (int j = 0; j < kPPT; ++j) {
+    const int i = base + j * kThreads + tid;
+    inb[j] = i < N;
+    px[j] = inb[j] ? pts[i] : 0.0f;
+    py[j] = inb[j] ? pts[(size_t)N + i] : 0.0f;
+    pz[j] = inb[j] ? pts[2 * (size_t)N + i] : 0.0f;
+    gg[j] = inb[j] ? g[i] : 0.0f;
+    ok[j] = inb[j] && valid[i] > 0.0f;
+  }
+
+  for (int wl = 0; wl < nw; ++wl) {
+    const int w = w0 + wl;
+    const float* wrow = wp + 12 * w;
+    const float m = norm[4 * w], inv_d = norm[4 * w + 1];
+    const float gate = norm[4 * w + 2], mxv = norm[4 * w + 3];
+    float acc[kBwdSlots];
+#pragma unroll
+    for (int c = 0; c < kBwdSlots; ++c) acc[c] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kPPT; ++j) {
+      if (!inb[j]) continue;
+      const Extras e = tile_extras(px[j], py[j], pz[j], wrow, cam, k);
+      const float s = score(e);
+      const float sm = s - m;
+      const float c_pn = pn_cotangent(sm * inv_d, gg[j], hi);
+      const float eqmin = (ok[j] && s == m) ? 1.0f : 0.0f;
+      const float eqmax = (ok[j] && s == mxv) ? 1.0f : 0.0f;
+      acc[36] += c_pn * (-inv_d + sm * inv_d * inv_d * gate);
+      acc[37] += c_pn * (-(sm * inv_d * inv_d) * gate);
+      acc[38] += eqmin;
+      acc[39] += eqmax;
+      const DcamFactors f = dcam_factors(e, cam, k);
+      const float cot[3] = {c_pn * inv_d, eqmin, eqmax};
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        const float cs = cot[ch] * s;
+        const float dc[3] = {cs * f.bx, cs * f.by, cs * f.bz};
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          float* a = acc + 12 * ch + 4 * c;
+          a[0] += dc[c];
+          a[1] += dc[c] * px[j];
+          a[2] += dc[c] * py[j];
+          a[3] += dc[c] * pz[j];
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kBwdSlots; ++c) {
+      const float r = warp_sum(acc[c]);
+      if (lane == 0) ssum[warp][wl][c] = r;
+    }
+  }
+  __syncthreads();
+  for (int t = tid; t < nw * kBwdSlots; t += kThreads) {
+    const int wl = t / kBwdSlots, c = t % kBwdSlots;
+    float acc = 0.0f;
+    for (int q = 0; q < kWarps; ++q) acc += ssum[q][wl][c];
+    part[((size_t)blockIdx.x * W + w0 + wl) * kBwdSlots + c] = acc;
   }
 }
 
@@ -361,7 +524,7 @@ int fv_pass_a(const float* pts, const float* valid, const float* wp,
               const float* kp, int N, int W, float c0, float inv_var,
               float img_w, float img_h, float eps, float inv_w, float inv_h,
               float* cache, float* pmin, float* pmax, void* stream) {
-  pass_a_kernel<<<chunk_grid(N, W), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  pass_a_kernel<true><<<chunk_grid(N, W), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       pts, valid, wp, kp, N, W, make_consts(c0, inv_var, img_w, img_h, eps, inv_w, inv_h),
       cache, pmin, pmax);
   return static_cast<int>(cudaGetLastError());
@@ -389,6 +552,38 @@ int fv_bwd_apply(const float* wp, const float* kp, const float* norm2,
                  float hi, float* part, void* stream) {
   bwd_apply_kernel<<<chunk_grid(N, W), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       wp, kp, norm2, pts, valid, g, cache, N, W,
+      make_consts(c0, inv_var, img_w, img_h, eps, inv_w, inv_h), hi, part);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fv_pass_a_minmax(const float* pts, const float* valid, const float* wp,
+                     const float* kp, int N, int W, float c0, float inv_var,
+                     float img_w, float img_h, float eps, float inv_w, float inv_h,
+                     float* pmin, float* pmax, void* stream) {
+  pass_a_kernel<false><<<chunk_grid(N, W), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      pts, valid, wp, kp, N, W, make_consts(c0, inv_var, img_w, img_h, eps, inv_w, inv_h),
+      nullptr, pmin, pmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fv_pass_b_recompute(const float* wp, const float* kp, const float* norm,
+                        const float* pts, int N, int W, float c0, float inv_var,
+                        float img_w, float img_h, float eps, float inv_w, float inv_h,
+                        float hi, float* lo, void* stream) {
+  pass_b_recompute_kernel<<<(N + kThreads - 1) / kThreads, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      wp, kp, norm, pts, N, W, make_consts(c0, inv_var, img_w, img_h, eps, inv_w, inv_h),
+      hi, lo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fv_bwd_fused_acc(const float* wp, const float* kp, const float* norm,
+                     const float* pts, const float* valid, const float* g, int N,
+                     int W, float c0, float inv_var, float img_w, float img_h,
+                     float eps, float inv_w, float inv_h, float hi, float* part,
+                     void* stream) {
+  bwd_fused_kernel<<<chunk_grid(N, W), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      wp, kp, norm, pts, valid, g, N, W,
       make_consts(c0, inv_var, img_w, img_h, eps, inv_w, inv_h), hi, part);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
 """Build, bind and launch the hand-written CUDA kernels of ``csrc/``.
 
-The kernels replace the Pallas TPU kernels of
+The kernels replace the seven Pallas TPU kernels of
 ``trajectory_optimization_tpu/ops/pallas_vis.py`` (see ``ops/fused_vis.py``
 for the plain versions and the dispatch). ``csrc/fused_vis.cu`` is compiled
 on first use with
@@ -38,7 +38,12 @@ NVCC_FLAGS = (
 )
 
 # One count per kernel, raised only where the wrapper launches its kernel.
-LAUNCHES = {"pass_a": 0, "pass_b": 0, "bwd_stats": 0, "bwd_apply": 0}
+LAUNCHES = {
+    "pass_a": 0, "pass_b": 0, "bwd_stats": 0, "bwd_apply": 0,
+    "pass_a_minmax": 0, "pass_b_recompute": 0, "bwd_fused_acc": 0,
+}
+
+BWD_SLOTS = 40  # K5's sums per waypoint (the JAX twin's layout)
 
 _lib = None
 build_log = ""  # nvcc's output (ptxas register/shared-memory report) of the last build
@@ -98,7 +103,11 @@ def _load():
     lib.fv_pass_b.argtypes = [P, P, I, I, F, P, P]
     lib.fv_bwd_stats.argtypes = [P, P, P, P, I, I, F, P, P]
     lib.fv_bwd_apply.argtypes = [P] * 7 + [I, I] + [F] * 8 + [P, P]
-    for fn in (lib.fv_pass_a, lib.fv_pass_b, lib.fv_bwd_stats, lib.fv_bwd_apply):
+    lib.fv_pass_a_minmax.argtypes = [P, P, P, P, I, I] + [F] * 7 + [P, P, P]
+    lib.fv_pass_b_recompute.argtypes = [P, P, P, P, I, I] + [F] * 8 + [P, P]
+    lib.fv_bwd_fused_acc.argtypes = [P] * 6 + [I, I] + [F] * 8 + [P, P]
+    for fn in (lib.fv_pass_a, lib.fv_pass_b, lib.fv_bwd_stats, lib.fv_bwd_apply,
+               lib.fv_pass_a_minmax, lib.fv_pass_b_recompute, lib.fv_bwd_fused_acc):
         fn.restype = I
     _lib = lib
     return lib
@@ -207,3 +216,56 @@ def bwd_apply(wp, kp, norm2, pts_t, valid, g, scores, k):
     _raise_on(rc, "bwd_apply")
     LAUNCHES["bwd_apply"] += 1
     return torch.sum(part, dim=0).reshape(W, 3, 4)
+
+
+def pass_a_minmax(wp, kp, pts_t, valid, k):
+    """K1′: returns (m (W,), M (W,)); no score cache."""
+    N, W = _sizes(pts_t, wp)
+    args = (
+        _check("pts_t", pts_t, (3, N)), _check("valid", valid, (N,)),
+        _check("wp", wp, (W, 12)), _check("kp", kp, (4,)),
+    )
+    lib = _load()
+    nb = _n_blocks(N)
+    pmin = torch.empty((nb, W), dtype=torch.float32, device=pts_t.device)
+    pmax = torch.empty((nb, W), dtype=torch.float32, device=pts_t.device)
+    with torch.cuda.device(pts_t.device):
+        rc = lib.fv_pass_a_minmax(*args, N, W, *_consts_args(k), pmin.data_ptr(),
+                                  pmax.data_ptr(), _stream(pts_t))
+    _raise_on(rc, "pass_a_minmax")
+    LAUNCHES["pass_a_minmax"] += 1
+    return torch.amin(pmin, dim=0), torch.amax(pmax, dim=0)
+
+
+def pass_b_recompute(wp, kp, norm, pts_t, k):
+    """K2′: returns lo (N,), recomputing the scores."""
+    N, W = _sizes(pts_t, wp)
+    args = (
+        _check("wp", wp, (W, 12)), _check("kp", kp, (4,)), _check("norm", norm, (W, 4)),
+        _check("pts_t", pts_t, (3, N)),
+    )
+    lib = _load()
+    lo = torch.empty((N,), dtype=torch.float32, device=pts_t.device)
+    with torch.cuda.device(pts_t.device):
+        rc = lib.fv_pass_b_recompute(*args, N, W, *_consts_args(k), 1.0 - k.eps,
+                                     lo.data_ptr(), _stream(pts_t))
+    _raise_on(rc, "pass_b_recompute")
+    LAUNCHES["pass_b_recompute"] += 1
+    return lo
+
+
+def bwd_fused_acc(wp, kp, norm, pts_t, valid, g, k):
+    """K5: returns the (W, 40) single-pass-backward sums."""
+    N, W = _sizes(pts_t, wp)
+    args = (
+        _check("wp", wp, (W, 12)), _check("kp", kp, (4,)), _check("norm", norm, (W, 4)),
+        _check("pts_t", pts_t, (3, N)), _check("valid", valid, (N,)), _check("g", g, (N,)),
+    )
+    lib = _load()
+    part = torch.empty((_n_blocks(N), W, BWD_SLOTS), dtype=torch.float32, device=pts_t.device)
+    with torch.cuda.device(pts_t.device):
+        rc = lib.fv_bwd_fused_acc(*args, N, W, *_consts_args(k), 1.0 - k.eps,
+                                  part.data_ptr(), _stream(pts_t))
+    _raise_on(rc, "bwd_fused_acc")
+    LAUNCHES["bwd_fused_acc"] += 1
+    return torch.sum(part, dim=0)

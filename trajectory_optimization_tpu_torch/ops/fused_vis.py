@@ -1,20 +1,28 @@
-"""Fused visibility log-odds: the four Hopper kernels, their plain versions,
+"""Fused visibility log-odds: the seven Hopper kernels, their plain versions,
 and the autograd function that ties them together.
 
-Twin of ``trajectory_optimization_tpu/ops/pallas_vis.py`` (score-cache
-regime). For W waypoints and N points:
+Twin of ``trajectory_optimization_tpu/ops/pallas_vis.py``. For W waypoints
+and N points:
 
     s(w,i)   = σ(cz)·exp(−½(d²/σ² + xu² + xv²))       (ops.scores formulas)
     m_w, M_w = min_i / max_i s(w,i)   over valid points
     pn(w,i)  = clip((s − m_w)/max(M_w − m_w, 1e-8), 0.5, 1−eps)
     lo_i     = Σ_w log(pn/(1−pn))
 
-Stages (kernel ids as in PERF.md; CUDA sources in ``csrc/fused_vis.cu``):
+Stages (kernel ids as in PERF.md; CUDA sources in ``csrc/fused_vis.cu``).
+Score-cache regime, while the (W, N) f32 cache fits ``SCORE_CACHE_MAX_BYTES``
+(decided by :func:`uses_score_cache`, the JAX twin's rule):
 
   K1 ``pass_a``     scores → (W, N) cache + per-waypoint masked min/max
   K2 ``pass_b``     cache → (N,) log-odds sum
   K3 ``bwd_stats``  per-waypoint Σ c_pn·∂pn/∂m, Σ c_pn·∂pn/∂M and tie counts
   K4 ``bwd_apply``  combined cotangent chained to 12 camera-plane sums per w
+
+Uncached regime, above the budget; no stage holds a (W, N) tensor:
+
+  K1′ ``pass_a_minmax``     recomputed scores → per-waypoint masked min/max
+  K2′ ``pass_b_recompute``  recomputed scores → (N,) log-odds sum
+  K5  ``bwd_fused_acc``     single-pass backward → (W, 40) sums per waypoint
 
 Each stage has a plain PyTorch version beside it (``*_ref``) with the same
 inputs and outputs. The stage wrapper runs the plain version for CPU tensors
@@ -24,10 +32,6 @@ Layout: points as a contiguous SoA (3, N) f32, transposed once per problem;
 ``valid`` and the cotangent as (N,) f32; the waypoint table ``wp`` (W, 12) =
 [R row-major 9, t 3]; ``kp`` (4,) = [fx, fy, cx, cy]; ``norm`` (W, 4) =
 [m, 1/max(M − m, 1e-8), gate, M] and ``norm2`` (W, 6) adds α and β.
-
-The uncached regime of the JAX twin (W·N·4 B > 1 GiB: kernels K1′, K2′ and
-the single-pass backward K5) is not ported yet; a CUDA call that needs it
-raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from trajectory_optimization_tpu_torch.ops import _kernels
 from trajectory_optimization_tpu_torch.ops import quat as quat_ops
 
 SCORE_CACHE_MAX_BYTES = 1 << 30  # the JAX twin's cache budget (pallas_vis.py)
+SCORE_CACHE_TILE = 32768  # the JAX twin pads N to its point tile (TILE_ROWS·LANES)
 SPAN_FLOOR = 1e-8
 _BIG = 3.0e38
 
@@ -63,6 +68,14 @@ def make_consts(img_width, img_height, min_dist, max_dist, eps) -> VisConsts:
     return VisConsts(c0, inv_var, img_w, img_h, float(eps), 1.0 / img_w, 1.0 / img_h)
 
 
+def uses_score_cache(W: int, N: int) -> bool:
+    """The JAX twin's regime rule: cache the (W, N) scores while W times N
+    padded to a multiple of its 32,768-point tile, at 4 B each, fits the
+    budget (read at call time, so the budget can be patched)."""
+    n_pad = -(-N // SCORE_CACHE_TILE) * SCORE_CACHE_TILE
+    return W * n_pad * 4 <= SCORE_CACHE_MAX_BYTES
+
+
 def _on_cpu(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return True
@@ -77,7 +90,9 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 
 def _extras(wp, kp, pts_t, k: VisConsts):
-    """(W, N) transform/projection intermediates; s = sig·exp(arg)."""
+    """(W, N) transform/projection intermediates; s = sig·exp(arg). The
+    kernels' ``tile_extras`` repeats these operations in this order, each
+    rounded on its own, so both compute the same score bits on the card."""
     px, py, pz = pts_t[0][None, :], pts_t[1][None, :], pts_t[2][None, :]
     r = [wp[:, j : j + 1] for j in range(12)]
     fx, fy, cx0, cy0 = kp[0], kp[1], kp[2], kp[3]
@@ -92,8 +107,11 @@ def _extras(wp, kp, pts_t, k: VisConsts):
     zd = cz + k.eps
     zd = torch.where(zd >= 0, torch.clamp(zd, min=1e-12), torch.clamp(zd, max=-1e-12))
     inv_zd = 1.0 / zd
-    xu_raw = (u * inv_zd - k.img_w * 0.5) / k.img_w
-    xv_raw = (v * inv_zd - k.img_h * 0.5) / k.img_h
+    # × the f32 reciprocal of the image size, not ÷ it: PyTorch divides a CUDA
+    # tensor by a Python scalar that way, so on the card this version and the
+    # kernels compute the same bits (JAX divides; that differs by an ulp)
+    xu_raw = (u * inv_zd - k.img_w * 0.5) * k.inv_w
+    xv_raw = (v * inv_zd - k.img_h * 0.5) * k.inv_h
     xu = torch.clamp(xu_raw, -20.0, 20.0)
     xv = torch.clamp(xv_raw, -20.0, 20.0)
     sig = torch.sigmoid(cz)
@@ -121,6 +139,18 @@ def _dcam(total_cot, s, e, k: VisConsts):
     return dcx, dcy, dcz
 
 
+def _scores(wp, kp, pts_t, k: VisConsts):
+    arg, e = _extras(wp, kp, pts_t, k)
+    return e["sig"] * torch.exp(arg), e
+
+
+def _plane_sums(dcs, pts_t):
+    """(dcx, dcy, dcz), each (W, N) → (W, 12): [Σdc_c, Σdc_c·px, Σdc_c·py,
+    Σdc_c·pz] for c = x, y, z."""
+    return torch.cat([torch.stack([dc.sum(1), (dc * pts_t[0]).sum(1), (dc * pts_t[1]).sum(1),
+                                   (dc * pts_t[2]).sum(1)], dim=1) for dc in dcs], dim=1)
+
+
 def _pn_terms(norm, scores, g, eps):
     """Shared backward prologue: (s − m, c_pn) per (w, i), where c_pn is the
     log-odds cotangent inside the strict clip window and 0 outside it."""
@@ -141,8 +171,7 @@ def _pn_terms(norm, scores, g, eps):
 def pass_a_ref(wp, kp, pts_t, valid, k: VisConsts):
     """Plain K1: (W, N) scores and their per-waypoint min/max over valid points.
     Returns (m (W,), M (W,), scores (W, N))."""
-    arg, e = _extras(wp, kp, pts_t, k)
-    s = e["sig"] * torch.exp(arg)
+    s, _ = _scores(wp, kp, pts_t, k)
     ok = valid[None, :] > 0
     m = torch.amin(torch.where(ok, s, torch.full_like(s, _BIG)), dim=1)
     mx = torch.amax(torch.where(ok, s, torch.full_like(s, -_BIG)), dim=1)
@@ -154,6 +183,20 @@ def pass_a(wp, kp, pts_t, valid, k: VisConsts):
     if _on_cpu(pts_t):
         return pass_a_ref(wp, kp, pts_t, valid, k)
     return _kernels.pass_a(wp, kp, pts_t, valid, k)
+
+
+def pass_a_minmax_ref(wp, kp, pts_t, valid, k: VisConsts):
+    """Plain K1′: the per-waypoint min/max of K1 without keeping the scores.
+    Returns (m (W,), M (W,))."""
+    m, mx, _ = pass_a_ref(wp, kp, pts_t, valid, k)
+    return m, mx
+
+
+def pass_a_minmax(wp, kp, pts_t, valid, k: VisConsts):
+    """K1′ on CUDA tensors, its plain version on CPU tensors."""
+    if _on_cpu(pts_t):
+        return pass_a_minmax_ref(wp, kp, pts_t, valid, k)
+    return _kernels.pass_a_minmax(wp, kp, pts_t, valid, k)
 
 
 def make_norm(m, mx):
@@ -183,13 +226,30 @@ def pass_b(norm, scores, eps):
 
 
 # ---------------------------------------------------------------------------
+# K2′ — pass B recomputing the scores
+# ---------------------------------------------------------------------------
+
+
+def pass_b_recompute_ref(wp, kp, norm, pts_t, k: VisConsts):
+    """Plain K2′: K2 on scores recomputed from the waypoints. Returns (N,)."""
+    s, _ = _scores(wp, kp, pts_t, k)
+    return pass_b_ref(norm, s, k.eps)
+
+
+def pass_b_recompute(wp, kp, norm, pts_t, k: VisConsts):
+    if _on_cpu(pts_t):
+        return pass_b_recompute_ref(wp, kp, norm, pts_t, k)
+    return _kernels.pass_b_recompute(wp, kp, norm, pts_t, k)
+
+
+# ---------------------------------------------------------------------------
 # K3 — backward B1: min/max-pathway sums and tie counts
 # ---------------------------------------------------------------------------
 
 
-def bwd_stats_ref(norm, scores, valid, g, eps):
-    """Plain K3. Returns (W, 4): [Σ c_pn·∂pn/∂m, Σ c_pn·∂pn/∂M, #(s = m),
-    #(s = M)], the counts over valid points only."""
+def _minmax_pathway(norm, scores, valid, g, eps):
+    """Per (w, i): c_pn, the cotangents reaching m_w and M_w (c_pn·∂pn/∂m,
+    c_pn·∂pn/∂M) and the valid min and max tie indicators."""
     sm, c_pn = _pn_terms(norm, scores, g, eps)
     m, inv_d, gate, mx = (norm[:, j : j + 1] for j in range(4))
     dm = c_pn * (-inv_d + sm * inv_d * inv_d * gate)
@@ -197,6 +257,13 @@ def bwd_stats_ref(norm, scores, valid, g, eps):
     ok = valid[None, :] > 0
     eqmin = (ok & (scores == m)).to(scores.dtype)
     eqmax = (ok & (scores == mx)).to(scores.dtype)
+    return c_pn, dm, dM, eqmin, eqmax
+
+
+def bwd_stats_ref(norm, scores, valid, g, eps):
+    """Plain K3. Returns (W, 4): [Σ c_pn·∂pn/∂m, Σ c_pn·∂pn/∂M, #(s = m),
+    #(s = M)], the counts over valid points only."""
+    _, dm, dM, eqmin, eqmax = _minmax_pathway(norm, scores, valid, g, eps)
     return torch.stack([dm.sum(1), dM.sum(1), eqmin.sum(1), eqmax.sum(1)], dim=1)
 
 
@@ -223,17 +290,37 @@ def bwd_apply_ref(wp, kp, norm2, pts_t, valid, g, scores, k: VisConsts):
     eqmax = (ok & (scores == mx)).to(scores.dtype)
     total = c_pn * inv_d + alpha * eqmin + beta * eqmax
     _, e = _extras(wp, kp, pts_t, k)
-    rows = []
-    for dc in _dcam(total, scores, e, k):
-        rows.append(torch.stack([dc.sum(1), (dc * pts_t[0]).sum(1),
-                                 (dc * pts_t[1]).sum(1), (dc * pts_t[2]).sum(1)], dim=1))
-    return torch.stack(rows, dim=1)
+    return _plane_sums(_dcam(total, scores, e, k), pts_t).reshape(-1, 3, 4)
 
 
 def bwd_apply(wp, kp, norm2, pts_t, valid, g, scores, k: VisConsts):
     if _on_cpu(scores):
         return bwd_apply_ref(wp, kp, norm2, pts_t, valid, g, scores, k)
     return _kernels.bwd_apply(wp, kp, norm2, pts_t, valid, g, scores, k)
+
+
+# ---------------------------------------------------------------------------
+# K5 — single-pass backward recomputing the scores
+# ---------------------------------------------------------------------------
+
+
+def bwd_fused_acc_ref(wp, kp, norm, pts_t, valid, g, k: VisConsts):
+    """Plain K5. Recomputes the scores and returns the JAX twin's (W, 40)
+    layout: the direct (c_pn·inv_d), min-tie (1[valid, s = m]) and max-tie
+    (1[valid, s = M]) cotangents, each chained to 12 camera-plane sums, then
+    Σ c_pn·∂pn/∂m, Σ c_pn·∂pn/∂M, #(s = m) and #(s = M)."""
+    s, e = _scores(wp, kp, pts_t, k)
+    c_pn, dm, dM, eqmin, eqmax = _minmax_pathway(norm, s, valid, g, k.eps)
+    channels = [_plane_sums(_dcam(cot, s, e, k), pts_t)
+                for cot in (c_pn * norm[:, 1:2], eqmin, eqmax)]
+    tail = torch.stack([dm.sum(1), dM.sum(1), eqmin.sum(1), eqmax.sum(1)], dim=1)
+    return torch.cat([*channels, tail], dim=1)
+
+
+def bwd_fused_acc(wp, kp, norm, pts_t, valid, g, k: VisConsts):
+    if _on_cpu(pts_t):
+        return bwd_fused_acc_ref(wp, kp, norm, pts_t, valid, g, k)
+    return _kernels.bwd_fused_acc(wp, kp, norm, pts_t, valid, g, k)
 
 
 # ---------------------------------------------------------------------------
@@ -272,17 +359,25 @@ def fused_acc_to_sums(acc, W):
 class FusedLoSum(torch.autograd.Function):
     """wp (W, 12) → lo (N,), differentiable w.r.t. wp only.
 
-    Forward: K1 → ``make_norm`` → K2. Backward: K3 → α, β → K4 →
-    ``sums_to_param_grads``. The backward reads the ``norm`` and score cache
-    saved by the forward, so the tie tests ``s == m`` see the very values the
-    min/max were taken over.
+    Score-cache regime: forward K1 → ``make_norm`` → K2, backward K3 → α, β
+    → K4; the backward reads the saved ``norm`` and score cache, so the tie
+    tests ``s == m`` see the very values the min/max were taken over.
+    Uncached regime: forward K1′ → ``make_norm`` → K2′, backward K5 →
+    ``fused_acc_to_sums``; K5's recomputed scores are the bits K1′ took the
+    min/max over. Both end in ``sums_to_param_grads``.
     """
 
     @staticmethod
     def forward(ctx, wp, kp, pts_t, valid, consts: VisConsts):
-        m, mx, scores = pass_a(wp, kp, pts_t, valid, consts)
-        norm = make_norm(m, mx)
-        lo = pass_b(norm, scores, consts.eps)
+        if uses_score_cache(wp.shape[0], pts_t.shape[1]):
+            m, mx, scores = pass_a(wp, kp, pts_t, valid, consts)
+            norm = make_norm(m, mx)
+            lo = pass_b(norm, scores, consts.eps)
+        else:
+            m, mx = pass_a_minmax(wp, kp, pts_t, valid, consts)
+            norm = make_norm(m, mx)
+            lo = pass_b_recompute(wp, kp, norm, pts_t, consts)
+            scores = None
         ctx.save_for_backward(wp, kp, pts_t, valid, norm, scores)
         ctx.consts = consts
         return lo
@@ -293,11 +388,15 @@ class FusedLoSum(torch.autograd.Function):
         wp, kp, pts_t, valid, norm, scores = ctx.saved_tensors
         k = ctx.consts
         g = g.contiguous()
-        st = bwd_stats(norm, scores, valid, g, k.eps)
-        alpha = st[:, 0] / torch.clamp(st[:, 2], min=1.0)
-        beta = st[:, 1] / torch.clamp(st[:, 3], min=1.0)
-        norm2 = torch.cat([norm, alpha[:, None], beta[:, None]], dim=1).contiguous()
-        sums = bwd_apply(wp, kp, norm2, pts_t, valid, g, scores, k)
+        if scores is None:
+            acc = bwd_fused_acc(wp, kp, norm, pts_t, valid, g, k)
+            sums = fused_acc_to_sums(acc, wp.shape[0])
+        else:
+            st = bwd_stats(norm, scores, valid, g, k.eps)
+            alpha = st[:, 0] / torch.clamp(st[:, 2], min=1.0)
+            beta = st[:, 1] / torch.clamp(st[:, 3], min=1.0)
+            norm2 = torch.cat([norm, alpha[:, None], beta[:, None]], dim=1).contiguous()
+            sums = bwd_apply(wp, kp, norm2, pts_t, valid, g, scores, k)
         return sums_to_param_grads(wp, sums), None, None, None, None
 
 
@@ -315,7 +414,8 @@ def fused_lo_sum(
     valid: Optional[torch.Tensor] = None,
     points_t: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """(N,) accumulated observation log-odds over W waypoints, through K1–K4.
+    """(N,) accumulated observation log-odds over W waypoints, through K1–K4
+    or, when the score cache would exceed its budget, K1′, K2′ and K5.
 
     Drop-in equivalent of the score → normalize → clip → log-odds → sum
     chain of ``models.traj``; differentiable w.r.t. quats/trans. ``points_t``
@@ -328,12 +428,6 @@ def fused_lo_sum(
         points_t = points.t().contiguous()
     if valid is None:
         valid = torch.ones(N, dtype=points.dtype, device=points.device)
-    if not _on_cpu(points_t) and W * N * 4 > SCORE_CACHE_MAX_BYTES:
-        raise NotImplementedError(
-            f"W·N·4 = {W * N * 4} B exceeds the 1 GiB score cache: the uncached "
-            "regime needs K1′/K2′ and the single-pass backward K5 (pallas_vis.py "
-            "_bwd_kernel), which are not ported yet (ROADMAP.md Q2)"
-        )
     R = quat_ops.to_matrix(quat_ops.normalize(quats))  # differentiable prologue
     wp = torch.cat([R.reshape(W, 9), trans], dim=1).contiguous()
     kp = torch.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]).contiguous()
