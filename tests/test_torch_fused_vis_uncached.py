@@ -97,11 +97,15 @@ def _assert_acc_close(acc, jacc, tt):
 
     XLA's CPU exp flushes denormal results to 0 where torch keeps them, so
     the JAX twin's min ties are the port's ties on its scores with denormals
-    flushed; its max ties are the port's own."""
+    flushed; its max ties are the port's own. The port's min-tie count is
+    the count on the same scores unflushed, so slot 38 is tied to the
+    witness held against JAX."""
     np.testing.assert_allclose(acc[:, :38], jacc[:, :38], **GRAD)
     np.testing.assert_array_equal(acc[:, 39], jacc[:, 39])
     s, _ = fv._scores(tt["wp"], tt["kp"], tt["pts_t"], tt["k"])
     ok = tt["valid"] > 0
+    m = torch.where(ok, s, torch.full_like(s, 3e38)).amin(1, keepdim=True)
+    np.testing.assert_array_equal(acc[:, 38], ((s == m) & ok).sum(1).numpy())
     s_ftz = torch.where(s < np.finfo(np.float32).tiny, torch.zeros_like(s), s)
     m_ftz = torch.where(ok, s_ftz, torch.full_like(s, 3e38)).amin(1, keepdim=True)
     np.testing.assert_array_equal(((s_ftz == m_ftz) & ok).sum(1).numpy(), jacc[:, 38])
