@@ -6,7 +6,9 @@
 Phases, each printing one line (any failure raises and exits non-zero):
 
 1. device — needs CUDA; prints ``nvidia-smi`` name and power limit; TF32 off.
-2. build — compiles ``csrc/fused_vis.cu`` with nvcc for sm_90a.
+2. build — compiles every ``csrc/*.cu`` (``fused_vis.cu``, ``splat_render.cu``)
+   with nvcc for sm_90a, in parallel, into one library; prints ptxas's
+   registers and spills (K6 and K7 on stdout).
 3. kernels — K1–K4 and the uncached regime's K1′, K2′ and K5 against their
    plain PyTorch versions on the card, stage by stage (K1′'s min/max equal
    K1's bit for bit, K5's tie counts equal K3's exactly, K5's sums combined
@@ -23,11 +25,27 @@ Phases, each printing one line (any failure raises and exits non-zero):
    waypoints, and 8m50's stage and step times are taken while the problem
    is on the card. The run itself must go through K1′, K2′ and K5 only, with
    its peak memory under the size of a score cache.
-5. times — per-stage and per-step ms, kernel and plain, peak memory, and
-   the device's busy share of a step from a 20-step ``torch.profiler`` trace.
+5. render kernels — K6 (``splat_runs``) and K7 (``splat_dense``) against
+   their plain versions on the card, images ``torch.equal`` and ``n_dropped``
+   equal to the CPU prologue's, on the visible set of one camera of the
+   six-camera ring over cloud 10 and over the 8,388,608-point cloud, each
+   with both backends forced; each image also against the plain scatter
+   renderer to the 0.1% pixel pin.
+6. render slice — ``PointsProcessorNode(device="cuda")`` (``hpr_backend=
+   "none"``) driven over the bus with the six-camera ring at the reference
+   camera (1232x1616), once per cloud (counts reset just before, read just
+   after: cloud 10 must run K6 only, the 8M cloud K7 only), then ``process``
+   for one camera; every image (1616, 1232, 3), finite, in [0, 1] and not
+   all background; batched and serial counts within max(3, 1%).
+7. times — per-stage and per-step ms, kernel and plain, peak memory, and
+   the device's busy share of a step from a 20-step ``torch.profiler`` trace;
+   K6/K7 ms beside their plain versions and bounds, the splat prologue's ms,
+   ms per ``process_all`` call and its peak memory for both clouds.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+The line before the last is the kernels' JSON record (all nine kernels, each
+with its bound: the larger of the bytes it must move over 3.35 TB/s and its
+operations over 67 TFLOP/s); the last line is ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -40,7 +58,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-SOURCE = "trajectory_optimization_tpu_torch/csrc/fused_vis.cu"
+VIS_SOURCE = "trajectory_optimization_tpu_torch/csrc/fused_vis.cu"
+SPLAT_SOURCE = "trajectory_optimization_tpu_torch/csrc/splat_render.cu"
 REPLACES = {
     "pass_a": "trajectory_optimization_tpu/ops/pallas_vis.py:228",
     "pass_b": "trajectory_optimization_tpu/ops/pallas_vis.py:264",
@@ -49,14 +68,285 @@ REPLACES = {
     "pass_a_minmax": "trajectory_optimization_tpu/ops/pallas_vis.py:212",
     "pass_b_recompute": "trajectory_optimization_tpu/ops/pallas_vis.py:275",
     "bwd_fused_acc": "trajectory_optimization_tpu/ops/pallas_vis.py:361",
+    "splat_runs": "trajectory_optimization_tpu/ops/pallas_render.py:105",
+    "splat_dense": "trajectory_optimization_tpu/ops/pallas_render.py:134",
 }
+VIS = tuple(REPLACES)[:7]
+SPLAT = ("splat_runs", "splat_dense")
 CACHED = ("pass_a", "pass_b", "bwd_stats", "bwd_apply")  # the score-cache regime's path
 UNCACHED = ("pass_a_minmax", "pass_b_recompute", "bwd_fused_acc")  # above the cache budget
 N_8M = 8_388_608
-
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM, published
+F32_OPS_PER_MS = 67e9  # H100 SXM f32 outside the tensor cores, published
+# Operations per (waypoint, point) of each fused-visibility kernel, counted
+# from its plain version (ops/fused_vis.py): every +, -, x, comparison,
+# clamp bound and select is 1, and so are exp, log and a division; sigmoid
+# is 3 (exp, add, division). The score (_extras + exp) is 59.
+VIS_OPS = {"pass_a": 63, "pass_a_minmax": 63, "pass_b": 8, "pass_b_recompute": 67,
+           "bwd_stats": 30, "bwd_apply": 141, "bwd_fused_acc": 279}
+# Per covered (entry, pixel) pair of a splat: dr, dc, two squares, their sum,
+# the coverage and the depth comparisons.
+SPLAT_OPS = 7
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def bound(nbytes: float, ops: float):
+    """(ms, side): the least time the card could take, the larger of the
+    bytes over the memory rate and the operations over the f32 rate."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_MS, ops / F32_OPS_PER_MS
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def vis_bound(name: str, W: int, N: int):
+    """Each input read once and each output written once, per fused kernel."""
+    pts, cache = 12 * N, 4 * W * N
+    nbytes = {
+        "pass_a": pts + 4 * N + 48 * W + cache + 8 * W,
+        "pass_a_minmax": pts + 4 * N + 48 * W + 8 * W,
+        "pass_b": cache + 16 * W + 4 * N,
+        "pass_b_recompute": pts + 48 * W + 16 * W + 4 * N,
+        "bwd_stats": cache + 16 * W + 8 * N + 16 * W,
+        "bwd_apply": 48 * W + 24 * W + pts + 8 * N + cache + 48 * W,
+        "bwd_fused_acc": 48 * W + 16 * W + pts + 8 * N + 160 * W,
+    }[name]
+    return bound(nbytes, VIS_OPS[name] * W * N)
+
+
+def ptxas_report(log: str):
+    """{kernel: (registers, spill stores, spill loads)} from nvcc -Xptxas -v."""
+    import re
+
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1)
+            out[cur] = [None, 0, 0]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            out[cur][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur][0] = int(m.group(1))
+    return out
+
+RING = [(6 + 3 * math.cos(2 * math.pi * i / 6), 2 + 3 * math.sin(2 * math.pi * i / 6), -2.0)
+        for i in range(6)]  # the six-camera ring of tests/test_nodes.py, facing world +z
+MAX_E = 2048  # render_point_cloud_tiles' default per-tile cap
+PIN = 1e-3  # share of pixels that may differ from the scatter renderer (equal depths)
+
+
+def splat_work(offsets, entries, use_runs: bool, tiles_y: int, tiles_x: int):
+    """(bytes, covered (entry, pixel) pairs) that a blend needs on these
+    inputs: the offsets, the entries it blends (K6: those binned in the grid;
+    K7: those its cap keeps) and the planar image written once."""
+    import torch
+
+    n_tiles, Hp, Wp = tiles_y * tiles_x, tiles_y * 32, tiles_x * 128
+    off = offsets.long()
+    if use_runs:
+        kept = entries[: int(off[-1])]
+        y_lo, x_lo, y_hi, x_hi = 0, 0, Hp, Wp
+    else:
+        pos = torch.arange(entries.shape[0], device=entries.device)
+        tile = torch.searchsorted(off, pos, right=True) - 1
+        keep = (tile < n_tiles) & (pos - off[torch.clamp(tile, max=n_tiles - 1)] < MAX_E)
+        kept, t = entries[keep], tile[keep]
+        y_lo, x_lo = (t // tiles_x * 32).float(), (t % tiles_x * 128).float()
+        y_hi, x_hi = y_lo + 32, x_lo + 128
+    u, v, r2 = kept[:, 0], kept[:, 1], kept[:, 3]
+    pairs = 0
+    for dy in range(-4, 5):  # r^2 <= max_radius_px^2 = 16
+        for dx in range(-4, 5):
+            yy, xx = v + dy, u + dx
+            pairs += int(((dy * dy + dx * dx <= r2) & (yy >= y_lo) & (yy < y_hi)
+                          & (xx >= x_lo) & (xx < x_hi)).sum())
+    return 4 * (n_tiles + 1) + 32 * kept.shape[0] + 12 * Hp * Wp, pairs
+
+
+def traced(fn, sync):
+    """Run fn once under torch.profiler: (profile, wall ms, device activities,
+    device-busy µs, the union of the device intervals)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return prof, wall_ms, len(spans), busy_us
+
+
+def trace_call(fn, sync):
+    """(wall ms, device-busy ms, top host ops [(name, self CPU ms)]) of one
+    call of fn; device-busy is None when the trace holds no device activity."""
+    prof, wall_ms, n_spans, busy_us = traced(fn, sync)
+    top = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)[:4]
+    return (wall_ms, busy_us / 1e3 if n_spans else None,
+            [(e.key, e.self_cpu_time_total / 1e3) for e in top])
+
+
+def render_checks(dev, intr, clouds, cuda_ms, sync):
+    """Phases 5 and 6: K6/K7 against their plain versions, then the points
+    processor's rig over each cloud. Returns the numbers for [times] and the
+    record."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from trajectory_optimization_tpu_torch.bus.core import Bus
+    from trajectory_optimization_tpu_torch.bus.messages import CameraInfoMsg, CloudMsg, Header
+    from trajectory_optimization_tpu_torch.bus.nodes import PointsProcessorNode
+    from trajectory_optimization_tpu_torch.ops import _kernels
+    from trajectory_optimization_tpu_torch.ops import tile_render as tr
+    from trajectory_optimization_tpu_torch.ops.render import render_point_cloud
+    from trajectory_optimization_tpu_torch.utils.config import PointsProcessorConfig
+    from trajectory_optimization_tpu_torch.utils.data import pad_points
+
+    H, W = int(intr.height), int(intr.width)
+    tiles_y, tiles_x = tr.tile_grid(H, W)
+    Kd = intr.matrix(device=dev)
+    cams = [f"cam{i}" for i in range(6)]
+    kflat = tuple(intr.matrix_np(np.float64).reshape(-1))
+    cfg = PointsProcessorConfig(pc_topic="/cloud", hpr_backend="none")
+    clip = dict(znear=cfg.frustum_min_dist, zfar=cfg.frustum_max_dist)
+
+    def make_node(topics=(), render=True):
+        bus = Bus(error_policy="raise")
+        node = PointsProcessorNode(
+            bus, PointsProcessorConfig(pc_topic="/cloud", cam_info_topics=topics,
+                                       hpr_backend="none", render=render), device=dev)
+        for c, t in zip(cams, RING):
+            node.frames.set_transform("world", c, t, [0, 0, 0, 1])
+        return bus, node
+
+    def infos():
+        return [CameraInfoMsg(Header(stamp=0.0, frame_id=c), W, H, K=kflat) for c in cams]
+
+    def cloud_msg(pts):
+        return CloudMsg(Header(stamp=0.0, frame_id="world"), pts)
+
+    res = {"err": {n: 0.0 for n in SPLAT}, "ms": {}, "plain_ms": {}, "bound": {}, "work": {},
+           "prologue_ms": {}, "visible": {}, "launches": {}, "rig_ms": {}, "rig_first_s": {},
+           "peak_mib": {}, "dropped": {}, "trace": {}}
+
+    # ---- 5. K6 and K7 against their plain versions, on the card ------------
+    _, probe = make_node(render=False)
+    for name, pts in clouds.items():
+        visible = probe.process(cloud_msg(pts), infos()[0])
+        padded, valid = pad_points(visible)
+        res["visible"][name] = (len(visible), len(padded))
+        P, V = torch.as_tensor(padded, device=dev), torch.as_tensor(valid, device=dev)
+        for backend in ("runs", "dense"):
+            kw = dict(valid=V, backend=backend, **clip)
+            use_runs, offsets, entries, dropped = tr.splat_prologue(P, Kd, H, W, **kw)
+            kname = "splat_runs" if use_runs else "splat_dense"
+            if use_runs:
+                args = (offsets, entries, tiles_y, tiles_x, 1.0)
+                kern, plain = _kernels.splat_runs, tr.splat_runs_ref
+            else:
+                args = (offsets, entries, MAX_E, tiles_y, tiles_x, 1.0)
+                kern, plain = _kernels.splat_dense, tr.splat_dense_ref
+            got, want = kern(*args), plain(*args)
+            sync()
+            if not torch.equal(got, want):
+                fail(f"{kname} {name}: {int((got != want).sum())} values differ from the plain "
+                     f"version (max |err| {float((got - want).abs().max()):.3e})")
+            res["err"][kname] = max(res["err"][kname], float((got - want).abs().max()))
+            # n_dropped of the card's prologue == the CPU prologue's, exactly
+            dropped_cpu = tr.splat_prologue(P.cpu(), Kd.cpu(), H, W, valid=V.cpu(),
+                                            backend=backend, **clip)[3]
+            if int(dropped) != int(dropped_cpu):
+                fail(f"{kname} {name}: n_dropped {int(dropped)} on the card, "
+                     f"{int(dropped_cpu)} on the CPU")
+            img = tr.render_point_cloud_tiles(P, Kd, H, W, **kw)
+            ref = render_point_cloud(P, Kd, H, W, valid=V, **clip)
+            n_diff = int(((img - ref).abs().amax(dim=2) > 1e-3).sum())
+            if not n_diff < PIN * H * W:
+                fail(f"{kname} {name}: {n_diff} pixels differ from the scatter renderer")
+            key = (name, kname)
+            res["ms"][key] = cuda_ms(lambda: kern(*args), 20)
+            res["plain_ms"][key] = cuda_ms(lambda: plain(*args), 1)
+            res["prologue_ms"][(name, backend)] = cuda_ms(
+                lambda: tr.splat_prologue(P, Kd, H, W, **kw), 10)
+            res["work"][key] = splat_work(offsets, entries, use_runs, tiles_y, tiles_x)
+            res["bound"][key] = bound(res["work"][key][0], SPLAT_OPS * res["work"][key][1])
+            print(f"[kernels] {kname} {name} cam0: {len(visible)} visible points padded to "
+                  f"{len(padded)}, backend={backend}: image == plain version (torch.equal), "
+                  f"n_dropped {int(dropped)} == CPU prologue's; {n_diff} of {H * W} pixels differ "
+                  f"from the scatter renderer (pin {PIN:.1%})", flush=True)
+            del got, want, img, ref
+    del probe
+    gc.collect()  # a node and its bus reference each other
+
+    # ---- 6. the points processor's rig over each cloud, through the bus ----
+    for name, pts in clouds.items():
+        want = "splat_runs" if name == "cloud10" else "splat_dense"
+        bus, node = make_node(tuple(f"/{c}/info" for c in cams))
+        images = {}
+        for c in cams:
+            bus.subscribe(f"/{c}/pointcloud_image", lambda m, c=c: images.__setitem__(c, m.data))
+        msgs = infos()
+        gc.collect()
+        torch.cuda.empty_cache()
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        bus.publish("/cloud", cloud_msg(pts))
+        for c, info in zip(cams, msgs):
+            bus.publish(f"/{c}/info", info)
+        sync()
+        res["rig_first_s"][name] = time.perf_counter() - t0
+        launches = dict(_kernels.LAUNCHES)
+        res["launches"][name] = launches
+        res["peak_mib"][name] = torch.cuda.max_memory_allocated() / 2**20
+        if node.n_batched != 1 or sorted(images) != cams:
+            fail(f"rig {name}: {node.n_batched} batched evaluations, images from {sorted(images)}")
+        ran = {n for n, v in launches.items() if v}
+        if ran != {want} or launches[want] != len(cams):
+            fail(f"rig {name} launched {launches}; expected {want} once per camera only")
+        visible = {c: bus.latest(f"/{c}/pointcloud_visible").points for c in cams}
+        for c in cams:
+            n_pad = len(pad_points(visible[c])[0])
+            if (n_pad <= tr.RUN_PATH_MAX_ENTRIES) != (want == "splat_runs"):
+                fail(f"rig {name} {c}: padded visible count {n_pad} leaves the {want} path")
+            img = images[c]
+            if not (img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+                    and float(img.min()) >= 0.0 and float(img.max()) <= 1.0
+                    and bool((img < 1.0).any())):
+                fail(f"rig {name} {c}: malformed image {tuple(img.shape)}")
+        serial = node.process(cloud_msg(pts), msgs[0])
+        if abs(len(serial) - len(visible["cam0"])) > max(3, 0.01 * len(visible["cam0"])):
+            fail(f"rig {name}: serial cam0 {len(serial)} vs batched {len(visible['cam0'])} points")
+        res["dropped"][name] = node.metrics.snapshot().get("render_dropped_splats", 0.0)
+        times = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            node.process_all(cloud_msg(pts), msgs)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res["rig_ms"][name] = statistics.median(times)
+        res["trace"][name] = trace_call(lambda: node.process_all(cloud_msg(pts), msgs), sync)
+        print(f"[slice] rig {name} ({len(pts)} points, 6 cameras at {W}x{H}): first process_all "
+              f"over the bus {res['rig_first_s'][name]:.3f} s; visible per camera "
+              f"{[len(visible[c]) for c in cams]}; serial cam0 {len(serial)}; launches {launches}; "
+              f"render_dropped_splats {res['dropped'][name]:.0f}; images (1616, 1232, 3), finite, "
+              f"in [0, 1], not all background", flush=True)
+        del bus, node, images
+        gc.collect()
+    return res
 
 
 def card_line() -> str:
@@ -101,10 +391,19 @@ def main() -> int:
     t0 = time.perf_counter()
     _kernels.build()
     _kernels._load()
-    print(f"[build] {SOURCE} -> sm_90a in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[build] {VIS_SOURCE} and {SPLAT_SOURCE} -> one sm_90a library in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for line in _kernels.build_log.splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}", file=sys.stderr)
+    regs = ptxas_report(_kernels.build_log)
+    for kname in ("splat_runs_kernel", "splat_dense_kernel"):
+        found = [v for k, v in regs.items() if kname in k]
+        if not found:
+            fail(f"ptxas reported no {kname}: is splat_render.cu built?")
+        r, st, ld = found[0]
+        print(f"[build] {kname}: {r} registers, {st} bytes spill stores, {ld} bytes spill loads",
+              flush=True)
 
     intr = default_intrinsics()
     K = intr.matrix(device=dev)
@@ -131,22 +430,11 @@ def main() -> int:
         """(device activities per step, device-busy ms per step, busy share of
         the traced wall time) from a torch.profiler trace of n steps; None if
         the trace holds no device activity."""
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run_until_done(loss_fn, p0, cfg, n, NEVER)
-            sync()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        if not spans:
+        _, wall_ms, n_spans, busy_us = traced(
+            lambda: run_until_done(loss_fn, p0, cfg, n, NEVER), sync)
+        if not n_spans:
             return None
-        busy_us, end = 0.0, -math.inf  # the union of the device intervals
-        for a, b in spans:
-            busy_us += max(0.0, b - max(a, end))
-            end = max(end, b)
-        return len(spans) / n, busy_us / 1e3 / n, busy_us / wall_us
+        return n_spans / n, busy_us / 1e3 / n, busy_us / 1e3 / wall_ms
 
     def busy_text(b):
         if b is None:
@@ -221,14 +509,15 @@ def main() -> int:
         return g.contiguous()
 
     cases = [shape_case("ref", cloud10, path10), shape_case("1m50", big_pts, big_path)]
-    errs = {k: 0.0 for k in REPLACES}
-    stage_ms = {}
+    errs = {k: 0.0 for k in VIS}
+    stage_ms, shape_wn = {}, {}
 
     # ---- 3. kernels against their plain versions ---------------------------
     for c in cases:
         prob = c["problem"]
         quats, trans, wp, kp, k = kernel_inputs(c)
         W, N = quats.shape[0], c["P"].shape[0]
+        shape_wn[c["name"]] = (W, N)
         Pt, V = c["Pt"], c["V"]
 
         # K1: min/max rtol 1e-5 (atol 1e-30 only absorbs denormal quantization
@@ -499,7 +788,13 @@ def main() -> int:
           + f", K5 tie counts equal; peak {peak8:.1f} MiB (a score cache alone: {cache_mib:.1f} MiB); launches "
           f"{launches8}", flush=True)
 
-    # ---- 5. times ----------------------------------------------------------
+    # ---- 5.-6. the render path: K6, K7 and the points processor ------------
+    del res8
+    torch.cuda.empty_cache()
+    rend = render_checks(dev, intr, {"cloud10": cloud10, "8m": pts8}, cuda_ms, sync)
+    del pts8
+
+    # ---- 7. times ----------------------------------------------------------
     for c in cases:
         n = 50 if c["name"] == "ref" else 10
         for backend in ("kernel", "torch"):
@@ -526,19 +821,58 @@ def main() -> int:
           + ", ".join(f"{s} {a:.4f}" for s, a in stage_ms["8m50"].items())
           + f" (kernel); device, kernel: {busy_text(busy[('8m50', 'kernel')])}", flush=True)
 
-    record = {"kernels": [
-        {"name": n, "route": "cuda", "source": SOURCE, "replaces": REPLACES[n],
-         "launches": (launches8 if n in UNCACHED else launches)[n], "max_abs_err": errs[n],
-         "ms": stage_ms["ref"][n][0], "plain_ms": stage_ms["ref"][n][1],
-         "ms_1m50": stage_ms["1m50"][n][0], "plain_ms_1m50": stage_ms["1m50"][n][1],
-         **({"ms_8m50": stage_ms["8m50"][n]} if n in UNCACHED else {})}
-        for n in REPLACES
-    ], "step_ms": {f"{a}/{b}": v for (a, b), v in step_ms.items()},
-        "peak_mib_8m50": peak8}
-    for n in REPLACES:
-        times = (*stage_ms["ref"][n], *stage_ms["1m50"][n], stage_ms["8m50"].get(n, 0.0))
-        if not all(math.isfinite(x) for x in (errs[n], *times)):
-            fail(f"{n}: non-finite measurement")
+    for name in ("cloud10", "8m"):
+        n_vis, n_pad = rend["visible"][name]
+        print(f"[times] {card} | render {name} cam0 ({n_vis} visible, padded {n_pad}): "
+              + ", ".join(
+                  f"{k} {rend['ms'][(name, k)]:.4f} ms (plain {rend['plain_ms'][(name, k)]:.4f}, "
+                  f"bound {rend['bound'][(name, k)][0]:.4f} by {rend['bound'][(name, k)][1]}: "
+                  f"{rend['work'][(name, k)][0] / 1e6:.1f} MB, "
+                  f"{rend['work'][(name, k)][1]} covered pairs)" for k in SPLAT)
+              + "; prologue ms " + ", ".join(f"{b} {rend['prologue_ms'][(name, b)]:.4f}"
+                                             for b in ("runs", "dense"))
+              + f"; process_all {rend['rig_ms'][name]:.2f} ms/call (median of 3, 6 cameras), "
+              f"peak {rend['peak_mib'][name]:.1f} MiB", flush=True)
+        wall, busy_ms, top = rend["trace"][name]
+        print(f"[times] {card} | rig {name}, one traced process_all: {wall:.2f} ms, device busy "
+              + (f"{busy_ms:.3f} ms ({100 * busy_ms / wall:.1f}%)" if busy_ms is not None
+                 else "not measured (no device activity in the trace)")
+              + "; top host ops by self CPU ms: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in top), flush=True)
+
+    def vis_entry(n):
+        b_ref = vis_bound(n, *shape_wn["ref"])
+        b_1m = vis_bound(n, *shape_wn["1m50"])
+        e = {"name": n, "route": "cuda", "source": VIS_SOURCE, "replaces": REPLACES[n],
+             "launches": (launches8 if n in UNCACHED else launches)[n], "max_abs_err": errs[n],
+             "ms": stage_ms["ref"][n][0], "plain_ms": stage_ms["ref"][n][1],
+             "bound_ms": b_ref[0], "bound_by": b_ref[1], "library_ms": None,
+             "ms_1m50": stage_ms["1m50"][n][0], "plain_ms_1m50": stage_ms["1m50"][n][1],
+             "bound_ms_1m50": b_1m[0], "bound_by_1m50": b_1m[1]}
+        if n in UNCACHED:
+            b_8 = vis_bound(n, W8, N8)
+            e.update(ms_8m50=stage_ms["8m50"][n], bound_ms_8m50=b_8[0], bound_by_8m50=b_8[1])
+        return e
+
+    def splat_entry(n):
+        main, other = ("cloud10", "8m") if n == "splat_runs" else ("8m", "cloud10")
+        return {"name": n, "route": "cuda", "source": SPLAT_SOURCE, "replaces": REPLACES[n],
+                "launches": rend["launches"][main][n], "max_abs_err": rend["err"][n],
+                "ms": rend["ms"][(main, n)], "plain_ms": rend["plain_ms"][(main, n)],
+                "bound_ms": rend["bound"][(main, n)][0], "bound_by": rend["bound"][(main, n)][1],
+                "library_ms": None, f"ms_{other}": rend["ms"][(other, n)],
+                f"plain_ms_{other}": rend["plain_ms"][(other, n)],
+                f"bound_ms_{other}": rend["bound"][(other, n)][0]}
+
+    record = {"kernels": [vis_entry(n) for n in VIS] + [splat_entry(n) for n in SPLAT],
+              "step_ms": {f"{a}/{b}": v for (a, b), v in step_ms.items()},
+              "peak_mib_8m50": peak8,
+              "rig_ms": rend["rig_ms"], "rig_peak_mib": rend["peak_mib"],
+              "render_dropped_splats": rend["dropped"]}
+    for e in record["kernels"]:
+        nums = [v for k, v in e.items() if k.endswith("ms") or k == "max_abs_err"]
+        if not all(isinstance(x, (int, float)) and math.isfinite(x) for x in nums if x is not None):
+            fail(f"{e['name']}: non-finite measurement")
     print(card, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

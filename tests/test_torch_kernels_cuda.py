@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels (K1–K4 and the uncached regime's K1′,
-K2′ and K5, csrc/fused_vis.cu) against their plain PyTorch versions, on the
-card.
+K2′ and K5, csrc/fused_vis.cu; the splat renderer's K6 and K7,
+csrc/splat_render.cu) against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA card and is marked ``cuda``; without one each
 skips (the kernels have no CPU mode). The file imports neither JAX nor the
@@ -20,6 +20,7 @@ from trajectory_optimization_tpu_torch.models.traj import observation_logodds  #
 from trajectory_optimization_tpu_torch.ops import _kernels  # noqa: E402
 from trajectory_optimization_tpu_torch.ops import fused_vis as fv  # noqa: E402
 from trajectory_optimization_tpu_torch.ops import quat as quat_ops  # noqa: E402
+from trajectory_optimization_tpu_torch.ops import tile_render as tr  # noqa: E402
 from trajectory_optimization_tpu_torch.ops.scores import waypoint_scores  # noqa: E402
 from trajectory_optimization_tpu_torch.utils.data import (  # noqa: E402
     identity_quaternions,
@@ -180,3 +181,102 @@ def test_wrappers_reject_bad_inputs(inputs):
         _kernels.pass_a(x["wp"], x["kp"], x["P"].t(), x["V"], x["k"])
     with pytest.raises(ValueError, match="float32"):
         _kernels.pass_a(x["wp"].double(), x["kp"], x["Pt"], x["V"], x["k"])
+
+
+# ---- K6 and K7 ---------------------------------------------------------------
+
+SMALL_K = np.array([[100.0, 0.0, 64.0], [0.0, 100.0, 48.0], [0.0, 0.0, 1.0]], np.float32)
+
+
+def _splat_both(pts, K, H, W, dev, **kw):
+    """Kernel and plain blend on the same prologue output; returns the two
+    planar images and n_dropped."""
+    P = torch.as_tensor(pts, device=dev)
+    use_runs, offsets, entries, dropped = tr.splat_prologue(
+        P, torch.as_tensor(K, device=dev), H, W, znear=1.0, zfar=15.0, **kw)
+    ty, tx = tr.tile_grid(H, W)
+    if use_runs:
+        args = (offsets, entries, ty, tx, 1.0)
+        got, want = _kernels.splat_runs(*args), tr.splat_runs_ref(*args)
+    else:
+        args = (offsets, entries, kw.get("max_entries_per_tile", 2048), ty, tx, 1.0)
+        got, want = _kernels.splat_dense(*args), tr.splat_dense_ref(*args)
+    torch.cuda.synchronize()
+    return got, want, dropped, use_runs
+
+
+@pytest.mark.parametrize("backend", ["runs", "dense"])
+def test_splat_kernels_match_plain_at_the_reference_camera(dev, backend):
+    """The visible points of cloud 10 from the reference camera, padded as
+    the points processor pads them: bit-equal images."""
+    from trajectory_optimization_tpu_torch.ops.geometry import compact_masked, frustum_cull
+
+    pts = load_point_cloud(str(DATA / "points/point_cloud_10.npz")) - np.array([9.0, 2.0, -2.0],
+                                                                               np.float32)
+    mask = frustum_cull(torch.as_tensor(pts), INTR.matrix(), INTR.width, INTR.height,
+                        max_dist=15.0)[0]
+    padded, valid = pad_points(compact_masked(pts, mask))
+    got, want, dropped, use_runs = _splat_both(
+        padded, INTR.matrix_np(), int(INTR.height), int(INTR.width), dev,
+        valid=torch.as_tensor(valid, device=dev), backend=backend)
+    assert use_runs == (backend == "runs") and got.shape == (3, 1632, 1280)
+    assert torch.equal(got, want) and int(dropped) == 0
+    assert bool((got < 1).any())
+
+
+@pytest.mark.parametrize("backend", ["runs", "dense"])
+def test_splat_kernels_odd_size_and_empty(dev, backend):
+    rng = np.random.default_rng(1)
+    pts = np.stack([rng.uniform(-3, 3, 400), rng.uniform(-2, 2, 400), rng.uniform(1.5, 9, 400)],
+                   axis=1).astype(np.float32)
+    got, want, _, _ = _splat_both(pts, SMALL_K, 100, 130, dev, backend=backend)
+    assert got.shape == (3, 128, 256) and torch.equal(got, want)
+    img = tr.render_point_cloud_tiles(torch.as_tensor(pts, device=dev),
+                                      torch.as_tensor(SMALL_K, device=dev), 100, 130,
+                                      backend=backend)
+    assert img.shape == (100, 130, 3) and img.is_cuda
+    got, want, dropped, _ = _splat_both(np.zeros((0, 3), np.float32), SMALL_K, 64, 128, dev,
+                                        backend=backend)
+    assert torch.equal(got, want) and bool((got == 1.0).all()) and int(dropped) == 0
+
+
+def test_splat_dense_overflow_cap(dev):
+    rng = np.random.default_rng(0)
+    pts = np.stack([rng.uniform(-0.02, 0.02, 64), rng.uniform(-0.02, 0.02, 64), np.full(64, 2.0)],
+                   axis=1).astype(np.float32)  # all in one tile
+    got, want, dropped, _ = _splat_both(pts, SMALL_K, 64, 128, dev, backend="dense",
+                                        max_entries_per_tile=8)
+    assert torch.equal(got, want)
+    cpu = tr.splat_prologue(torch.as_tensor(pts), torch.as_tensor(SMALL_K), 64, 128, znear=1.0,
+                            zfar=15.0, backend="dense", max_entries_per_tile=8)[3]
+    assert int(dropped) == int(cpu) > 0
+
+
+def test_auto_backend_launches_one_kernel_each_side_of_the_limit(dev):
+    rng = np.random.default_rng(2)
+    K = torch.as_tensor(SMALL_K, device=dev)
+    for n, want in ((tr.RUN_PATH_MAX_ENTRIES, "splat_runs"),
+                    (tr.RUN_PATH_MAX_ENTRIES + 1, "splat_dense")):
+        z = rng.uniform(2, 14, n)
+        pts = np.stack([z * rng.uniform(-0.6, 0.6, n), z * rng.uniform(-0.45, 0.45, n), z], 1)
+        _kernels.reset_launches()
+        img, dropped = tr.render_point_cloud_tiles(
+            torch.as_tensor(pts.astype(np.float32), device=dev), K, 96, 128, zfar=15.0,
+            return_overflow=True)
+        torch.cuda.synchronize()
+        assert {k for k, v in _kernels.LAUNCHES.items() if v} == {want}
+        assert _kernels.LAUNCHES[want] == 1
+        assert img.shape == (96, 128, 3) and int(dropped) >= 0
+
+
+def test_splat_wrappers_reject_bad_inputs(dev):
+    offsets = torch.zeros(4, dtype=torch.int32, device=dev)
+    entries = torch.zeros((5, 8), device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        _kernels.splat_runs(offsets.long(), entries, 1, 3, 1.0)
+    with pytest.raises(ValueError, match="shape"):
+        _kernels.splat_runs(offsets, entries, 2, 3, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        _kernels.splat_dense(offsets, torch.zeros((8, 5), device=dev).t(), 8, 1, 3, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.splat_runs(offsets.cpu(), entries.cpu(), 1, 3, 1.0)

@@ -1,16 +1,20 @@
 """Build, bind and launch the hand-written CUDA kernels of ``csrc/``.
 
-The kernels replace the seven Pallas TPU kernels of
-``trajectory_optimization_tpu/ops/pallas_vis.py`` (see ``ops/fused_vis.py``
-for the plain versions and the dispatch). ``csrc/fused_vis.cu`` is compiled
-on first use with
+``csrc/fused_vis.cu`` holds the seven kernels that replace the Pallas TPU
+kernels of ``trajectory_optimization_tpu/ops/pallas_vis.py`` (plain versions
+and dispatch: ``ops/fused_vis.py``); ``csrc/splat_render.cu`` the two that
+replace those of ``ops/pallas_render.py`` (``ops/tile_render.py``). Every
+``csrc/*.cu`` is compiled on first use, one ``nvcc -c`` per source, all
+started together, with
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
-         -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17
+         -Xcompiler -fPIC -Xptxas -v -c
 
-into ``build/torch_kernels/`` at the repository root (no fast-math flags:
-denormal scores must survive), and loaded with ctypes. Nothing here runs at
-import time: the CPU tests import this module without ``nvcc`` or a card.
+and linked into one library under ``build/torch_kernels/`` at the
+repository root, named by a digest of every source and the flags (no
+fast-math flags: denormal scores must survive), then loaded with ctypes.
+Nothing here runs at import time: the CPU tests import this module without
+``nvcc`` or a card.
 
 Every wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream, raises if the
@@ -19,6 +23,7 @@ C entry point returns a CUDA error, and only then adds one to its entry in
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,32 +31,44 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Sequence
 
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "fused_vis.cu"
+SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*_ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")
+LINK_FLAGS = (*_ARCH, "-shared")
+SPLAT_TILE_H, SPLAT_TILE_W = 32, 128  # the tile of csrc/splat_render.cu (checked at load)
 
 # One count per kernel, raised only where the wrapper launches its kernel.
 LAUNCHES = {
     "pass_a": 0, "pass_b": 0, "bwd_stats": 0, "bwd_apply": 0,
     "pass_a_minmax": 0, "pass_b_recompute": 0, "bwd_fused_acc": 0,
+    "splat_runs": 0, "splat_dense": 0,
 }
 
 BWD_SLOTS = 40  # K5's sums per waypoint (the JAX twin's layout)
 
 _lib = None
-build_log = ""  # nvcc's output (ptxas register/shared-memory report) of the last build
+build_log = ""  # nvcc's output (ptxas register/spill report) of the last build, per source
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (its op takes the plain version), False for a
+    CUDA one (it launches the kernel); other devices are refused."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise NotImplementedError(f"the port's kernels run on CPU or CUDA tensors, not {t.device}")
 
 
 def _nvcc() -> str:
@@ -64,30 +81,55 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
 
 
+def library_path(sources: Sequence[Path] = SOURCES) -> Path:
+    """The library built from ``sources``: its name is a digest of every
+    source's name and bytes and of the flags, so a change to any of them
+    makes a new library."""
+    h = hashlib.sha256()
+    for src in sources:
+        h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
+    h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    return BUILD_DIR / f"libtorch_kernels_{h.hexdigest()[:16]}.so"
+
+
 def build() -> Path:
-    """Compile ``csrc/fused_vis.cu`` unless a library built from the same
-    source and flags exists; return the library's path."""
+    """Compile every ``csrc/*.cu`` (in parallel) and link them into one
+    library, unless one built from the same sources and flags exists;
+    return the library's path."""
     global build_log
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libfused_vis_{digest}.so"
+    out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True, check=False,
-        )
-        build_log = proc.stdout + proc.stderr
+        nvcc = _nvcc()
+        logs, failed = [], []
+        with contextlib.ExitStack() as stack:
+            jobs = []
+            for src in SOURCES:
+                log = stack.enter_context(open(work / f"{src.stem}.log", "w+"))
+                obj = work / f"{src.stem}.o"
+                proc = subprocess.Popen([nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)],
+                                        stdout=log, stderr=subprocess.STDOUT)
+                jobs.append((src, obj, proc, log))
+            for src, _, proc, log in jobs:
+                rc = proc.wait()
+                log.seek(0)
+                logs.append(f"== {src.name}\n{log.read()}")
+                if rc != 0:
+                    failed.append(f"{src.name} ({rc})")
+        build_log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{build_log}")
+        tmp = work / out.name
+        proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(j[1]) for j in jobs)],
+                              capture_output=True, text=True, check=False)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)  # atomic: concurrent builders never load half a file
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -106,18 +148,25 @@ def _load():
     lib.fv_pass_a_minmax.argtypes = [P, P, P, P, I, I] + [F] * 7 + [P, P, P]
     lib.fv_pass_b_recompute.argtypes = [P, P, P, P, I, I] + [F] * 8 + [P, P]
     lib.fv_bwd_fused_acc.argtypes = [P] * 6 + [I, I] + [F] * 8 + [P, P]
+    lib.sr_splat_runs.argtypes = [P, P, I, I, F, P, P]
+    lib.sr_splat_dense.argtypes = [P, P, I, I, I, F, P, P]
     for fn in (lib.fv_pass_a, lib.fv_pass_b, lib.fv_bwd_stats, lib.fv_bwd_apply,
-               lib.fv_pass_a_minmax, lib.fv_pass_b_recompute, lib.fv_bwd_fused_acc):
+               lib.fv_pass_a_minmax, lib.fv_pass_b_recompute, lib.fv_bwd_fused_acc,
+               lib.sr_splat_runs, lib.sr_splat_dense, lib.sr_tile_h, lib.sr_tile_w):
         fn.restype = I
+    lib.sr_tile_h.argtypes = lib.sr_tile_w.argtypes = []
+    if (lib.sr_tile_h(), lib.sr_tile_w()) != (SPLAT_TILE_H, SPLAT_TILE_W):
+        raise RuntimeError(f"splat_render.cu tiles are {lib.sr_tile_h()}x{lib.sr_tile_w()}, "
+                           f"the wrapper expects {SPLAT_TILE_H}x{SPLAT_TILE_W}")
     _lib = lib
     return lib
 
 
-def _check(name: str, t: torch.Tensor, shape) -> int:
+def _check(name: str, t: torch.Tensor, shape, dtype=torch.float32) -> int:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -269,3 +318,46 @@ def bwd_fused_acc(wp, kp, norm, pts_t, valid, g, k):
     _raise_on(rc, "bwd_fused_acc")
     LAUNCHES["bwd_fused_acc"] += 1
     return torch.sum(part, dim=0)
+
+
+def _splat_args(offsets, entries, tiles_y, tiles_x):
+    n_tiles = tiles_y * tiles_x
+    if n_tiles <= 0:
+        raise ValueError(f"empty tile grid: {tiles_y} x {tiles_x}")
+    if entries.dim() != 2:
+        raise ValueError(f"entries: expected (M, 8), got {tuple(entries.shape)}")
+    if offsets.device != entries.device:
+        raise ValueError(f"offsets on {offsets.device}, entries on {entries.device}")
+    args = (_check("offsets", offsets, (n_tiles + 1,), torch.int32),
+            _check("entries", entries, (entries.shape[0], 8)))
+    if args[1] % 16:
+        raise ValueError("entries: rows are read as float4, the data must be 16-byte aligned")
+    out = torch.empty((3, tiles_y * SPLAT_TILE_H, tiles_x * SPLAT_TILE_W), dtype=torch.float32,
+                      device=entries.device)
+    return args, out
+
+
+def splat_runs(offsets, entries, tiles_y: int, tiles_x: int, bg: float):
+    """K6: returns the planar image (3, Hp, Wp)."""
+    args, out = _splat_args(offsets, entries, tiles_y, tiles_x)
+    lib = _load()
+    with torch.cuda.device(entries.device):
+        rc = lib.sr_splat_runs(*args, tiles_y, tiles_x, bg, out.data_ptr(), _stream(entries))
+    _raise_on(rc, "splat_runs")
+    LAUNCHES["splat_runs"] += 1
+    return out
+
+
+def splat_dense(offsets, entries, max_e: int, tiles_y: int, tiles_x: int, bg: float):
+    """K7: returns the planar image (3, Hp, Wp); tile t blends the first
+    ``max_e`` entries of its run."""
+    if max_e <= 0:
+        raise ValueError(f"max_e must be positive, got {max_e}")
+    args, out = _splat_args(offsets, entries, tiles_y, tiles_x)
+    lib = _load()
+    with torch.cuda.device(entries.device):
+        rc = lib.sr_splat_dense(*args, max_e, tiles_y, tiles_x, bg, out.data_ptr(),
+                                _stream(entries))
+    _raise_on(rc, "splat_dense")
+    LAUNCHES["splat_dense"] += 1
+    return out

@@ -76,12 +76,7 @@ def uses_score_cache(W: int, N: int) -> bool:
     return W * n_pad * 4 <= SCORE_CACHE_MAX_BYTES
 
 
-def _on_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if t.device.type == "cuda":
-        return False
-    raise NotImplementedError(f"fused visibility kernels run on CPU or CUDA, not {t.device}")
+_on_cpu = _kernels.on_cpu
 
 
 # ---------------------------------------------------------------------------

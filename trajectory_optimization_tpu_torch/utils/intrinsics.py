@@ -41,6 +41,24 @@ class CameraIntrinsics:
             dtype=dtype,
         )
 
+    @classmethod
+    def from_matrix(cls, K, width: float, height: float, **kw) -> "CameraIntrinsics":
+        K = np.asarray(K, dtype=np.float64)
+        return cls(
+            fx=float(K[0, 0]),
+            fy=float(K[1, 1]),
+            cx=float(K[0, 2]),
+            cy=float(K[1, 2]),
+            width=float(width),
+            height=float(height),
+            **kw,
+        )
+
+    @classmethod
+    def from_flat_k(cls, K, width: float, height: float, **kw) -> "CameraIntrinsics":
+        """From a row-major 9-element K (the CameraInfo message layout)."""
+        return cls.from_matrix(np.asarray(K, dtype=np.float64).reshape(3, 3), width, height, **kw)
+
 
 # The reference robot camera.
 _DEFAULT = CameraIntrinsics(
