@@ -15,7 +15,14 @@ Phases, each printing one line (any failure raises and exits non-zero):
    equal K4's), and the whole ``fused_lo_sum`` forward and gradient, in both
    regimes, against the plain autodiff path, at the reference workload
    (cloud 10 padded to 40,960 points, 14 selected waypoints) and at
-   1,048,576 points × 50 waypoints (seeded synthetic cloud).
+   1,048,576 points × 50 waypoints (seeded synthetic cloud). K5 and K2′ skip
+   the pairs whose terms are exactly zero: per shape, the share of pairs
+   that need K5's chain or K2′'s log and the share of 32-point groups (one
+   warp's points) that take them, from the plain ``fused_vis.skip_masks``.
+   K5 and K2′ also run, against their plain versions and twice (bit-equal),
+   on a dense case (1,048,576 points in view of 50 close waypoints: every
+   warp takes the chain) and a tie case (that cloud plus two copies of each
+   waypoint's lowest- and highest-scoring point: ties with s ≠ 0).
 4. slice — ``TrajectoryOptimizer.optimize`` on cloud 10 for 400 steps through
    the cached kernels (launch counters reset just before, read just after),
    the same run on the plain backend, 20 steps of 1M × 50, and 20 steps of
@@ -44,7 +51,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
 
 The line before the last is the kernels' JSON record (all nine kernels, each
 with its bound: the larger of the bytes it must move over 3.35 TB/s and its
-operations over 67 TFLOP/s); the last line is ``{"ok": true, "device":
+operations over 67 TFLOP/s, K5's and K2′'s operations counted on the pairs
+these inputs need); the last line is ``{"ok": true, "device":
 {...}}``. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -82,8 +90,18 @@ F32_OPS_PER_MS = 67e9  # H100 SXM f32 outside the tensor cores, published
 # from its plain version (ops/fused_vis.py): every +, -, x, comparison,
 # clamp bound and select is 1, and so are exp, log and a division; sigmoid
 # is 3 (exp, add, division). The score (_extras + exp) is 59.
-VIS_OPS = {"pass_a": 63, "pass_a_minmax": 63, "pass_b": 8, "pass_b_recompute": 67,
-           "bwd_stats": 30, "bwd_apply": 141, "bwd_fused_acc": 279}
+VIS_OPS = {"pass_a": 63, "pass_a_minmax": 63, "pass_b": 8, "bwd_stats": 30, "bwd_apply": 141}
+# K5 and K2′ compute only the terms that can be nonzero (fused_vis.skip_masks),
+# so their counts depend on the data. K5: 70 on every pair (the score; s − m,
+# × inv_d, the window's two comparisons and their and; two valid tie tests;
+# two count adds), 83 more on a pair in its direct mask (clip 2, c_pn 4,
+# c_pn·∂pn/∂m 6 and c_pn·∂pn/∂M 5 with their two sums, c_pn·inv_d, the dcam
+# chain 42, the 12 plane sums 21) and 63 on a pair in its tie mask (one tie
+# channel: the dcam chain and the plane sums). K2′: 63 on every pair (the
+# score, s − m, × inv_d, the clip) and 4 more where pn > 0.5 (1 − pn, the
+# division, the log, the add). With every mask full they are 279 and 67.
+K5_OPS = {"hot": 70, "direct": 83, "tie": 63}
+K2P_OPS = {"hot": 63, "unclipped": 4}
 # Per covered (entry, pixel) pair of a splat: dr, dc, two squares, their sum,
 # the coverage and the depth comparisons.
 SPLAT_OPS = 7
@@ -99,8 +117,10 @@ def bound(nbytes: float, ops: float):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def vis_bound(name: str, W: int, N: int):
-    """Each input read once and each output written once, per fused kernel."""
+def vis_bound(name: str, W: int, N: int, skips=None):
+    """Each input read once and each output written once, per fused kernel;
+    K5's and K2′'s operations on the pairs that ``skips`` (``skip_counts``
+    of these inputs) says they need."""
     pts, cache = 12 * N, 4 * W * N
     nbytes = {
         "pass_a": pts + 4 * N + 48 * W + cache + 8 * W,
@@ -111,7 +131,40 @@ def vis_bound(name: str, W: int, N: int):
         "bwd_apply": 48 * W + 24 * W + pts + 8 * N + cache + 48 * W,
         "bwd_fused_acc": 48 * W + 16 * W + pts + 8 * N + 160 * W,
     }[name]
-    return bound(nbytes, VIS_OPS[name] * W * N)
+    if name == "bwd_fused_acc":
+        ops = (K5_OPS["hot"] * W * N + K5_OPS["direct"] * skips["direct"]
+               + K5_OPS["tie"] * skips["tie"])
+    elif name == "pass_b_recompute":
+        ops = K2P_OPS["hot"] * W * N + K2P_OPS["unclipped"] * skips["unclipped"]
+    else:
+        ops = VIS_OPS[name] * W * N
+    return bound(nbytes, ops)
+
+
+def skip_counts(masks):
+    """Counts of ``fused_vis.skip_masks``: pairs in K5's direct and tie
+    masks, in their union ``need`` and in K2′'s ``unclipped`` mask, and the
+    32-point groups (one warp's points, aligned as the kernels align them)
+    that hold such a pair, i.e. whose warp takes the chain or the log."""
+    from trajectory_optimization_tpu_torch.ops.fused_vis import warp_groups
+
+    need = masks.direct | masks.tie
+    W, N = need.shape
+
+    def groups(x):
+        return int(warp_groups(x).sum())
+
+    return {"pairs": W * N, "direct": int(masks.direct.sum()), "tie": int(masks.tie.sum()),
+            "need": int(need.sum()), "unclipped": int(masks.unclipped.sum()),
+            "groups": W * (-(-N // 32)), "need_groups": groups(need),
+            "unclipped_groups": groups(masks.unclipped)}
+
+
+def skip_text(c):
+    return (f"K5 needs {c['need'] / c['pairs']:.6f} of pairs ({c['direct']} direct, {c['tie']} "
+            f"tie), {c['need_groups'] / c['groups']:.6f} of 32-point groups take its chain; K2′ "
+            f"{c['unclipped'] / c['pairs']:.6f} of pairs, {c['unclipped_groups'] / c['groups']:.6f} "
+            f"of groups")
 
 
 def ptxas_report(log: str):
@@ -375,7 +428,7 @@ def main() -> int:
     from trajectory_optimization_tpu_torch.ops import quat as quat_ops
     from trajectory_optimization_tpu_torch.opt.engine import NEVER, OptimizerConfig, run_until_done
     from trajectory_optimization_tpu_torch.utils.data import (
-        identity_quaternions, load_path, load_point_cloud, pad_points,
+        identity_quaternions, in_view_case, load_path, load_point_cloud, pad_points,
     )
     from trajectory_optimization_tpu_torch.utils.intrinsics import default_intrinsics
 
@@ -397,10 +450,14 @@ def main() -> int:
         if "entry function" in line or "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}", file=sys.stderr)
     regs = ptxas_report(_kernels.build_log)
-    for kname in ("splat_runs_kernel", "splat_dense_kernel"):
-        found = [v for k, v in regs.items() if kname in k]
+    for kname, mangled in (("pass_a_kernel<false> (K1')", "pass_a_kernelILb0E"),
+                           ("pass_b_recompute_kernel (K2')", "pass_b_recompute_kernel"),
+                           ("bwd_fused_kernel (K5)", "bwd_fused_kernel"),
+                           ("splat_runs_kernel (K6)", "splat_runs_kernel"),
+                           ("splat_dense_kernel (K7)", "splat_dense_kernel")):
+        found = [v for k, v in regs.items() if mangled in k]
         if not found:
-            fail(f"ptxas reported no {kname}: is splat_render.cu built?")
+            fail(f"ptxas reported no {kname}: is every csrc/*.cu built?")
         r, st, ld = found[0]
         print(f"[build] {kname}: {r} registers, {st} bytes spill stores, {ld} bytes spill loads",
               flush=True)
@@ -510,7 +567,7 @@ def main() -> int:
 
     cases = [shape_case("ref", cloud10, path10), shape_case("1m50", big_pts, big_path)]
     errs = {k: 0.0 for k in VIS}
-    stage_ms, shape_wn = {}, {}
+    stage_ms, shape_wn, skips = {}, {}, {}
 
     # ---- 3. kernels against their plain versions ---------------------------
     for c in cases:
@@ -588,6 +645,7 @@ def main() -> int:
         # linearity: the single pass, combined, is K4 with α and β from K3
         close(f"K5 combined vs K4 {c['name']}", fv.fused_acc_to_sums(acc, W), sums, 2e-3, 2e-3)
         del acc_r
+        skips[c["name"]] = skip_counts(fv.skip_masks(wp, kp, norm, Pt, V, k))
 
         # the whole fused_lo_sum in both regimes against the plain autodiff
         # path: forward rtol 1e-4 / atol 2e-4, gradient w.r.t. quats and trans
@@ -651,9 +709,62 @@ def main() -> int:
         }
         print(f"[kernels] {c['name']} N={N} W={W}: K1-K4, K1', K2', K5 and fused_lo_sum (both "
               f"regimes) match their plain versions; K1' min/max == K1's, K5 tie counts == K3's; "
-              f"max|err| " + ", ".join(f"{n}={v:.2e}" for n, v in errs.items()), flush=True)
+              f"max|err| " + ", ".join(f"{n}={v:.2e}" for n, v in errs.items())
+              + f"; {skip_text(skips[c['name']])}", flush=True)
         del cache
         torch.cuda.empty_cache()
+
+    # ---- 3b. K5 and K2′ where they skip little: dense and tie cases ---------
+    # K5 sums rtol 2e-3 / atol 2e-3 and tie counts exactly equal, each plain
+    # version on the min/max of its own recompute; lo rtol 1e-4 / atol 2e-4;
+    # two launches of each kernel on the same inputs bit-equal.
+    kp0, k0 = kernel_inputs(cases[0])[3:]
+    dense_pts, dense_q, dense_path = in_view_case(1_048_576, 50)
+    R_c = quat_ops.to_matrix(quat_ops.normalize(torch.as_tensor(dense_q, device=dev)))
+    wp_c = torch.cat([R_c.reshape(len(dense_q), 9), torch.as_tensor(dense_path, device=dev)],
+                     dim=1).contiguous()
+    dense_pt = torch.as_tensor(np.ascontiguousarray(dense_pts.T), device=dev)
+
+    dense = {}
+    for name in ("dense", "ties"):
+        Pt_c = dense_pt if name == "dense" else fv.with_extreme_ties(wp_c, kp0, dense_pt, k0)
+        N_c = Pt_c.shape[1]
+        V_c = torch.ones(N_c, device=dev)
+        g_c = torch.as_tensor(np.random.default_rng(1).normal(size=N_c).astype(np.float32),
+                              device=dev)
+        m_c, mx_c = _kernels.pass_a_minmax(wp_c, kp0, Pt_c, V_c, k0)
+        norm_c = fv.make_norm(m_c, mx_c)
+        norm_cr = fv.make_norm(*fv.pass_a_minmax_ref(wp_c, kp0, Pt_c, V_c, k0))
+        acc_c = _kernels.bwd_fused_acc(wp_c, kp0, norm_c, Pt_c, V_c, g_c, k0)
+        acc_cr = fv.bwd_fused_acc_ref(wp_c, kp0, norm_cr, Pt_c, V_c, g_c, k0)
+        errs["bwd_fused_acc"] = max(errs["bwd_fused_acc"], close(
+            f"K5 sums {name}", acc_c[:, :38], acc_cr[:, :38], 2e-3, 2e-3))
+        if not torch.equal(acc_c[:, 38:], acc_cr[:, 38:]):
+            fail(f"K5 tie counts {name}: {acc_c[:, 38:].tolist()} vs plain {acc_cr[:, 38:].tolist()}")
+        lo_c = _kernels.pass_b_recompute(wp_c, kp0, norm_c, Pt_c, k0)
+        errs["pass_b_recompute"] = max(errs["pass_b_recompute"], close(
+            f"K2' lo {name}", lo_c, fv.pass_b_recompute_ref(wp_c, kp0, norm_c, Pt_c, k0), 1e-4, 2e-4))
+        if not (torch.equal(acc_c, _kernels.bwd_fused_acc(wp_c, kp0, norm_c, Pt_c, V_c, g_c, k0))
+                and torch.equal(lo_c, _kernels.pass_b_recompute(wp_c, kp0, norm_c, Pt_c, k0))):
+            fail(f"{name}: two launches of K5 or K2' on the same inputs differ")
+        counts = skip_counts(fv.skip_masks(wp_c, kp0, norm_c, Pt_c, V_c, k0))
+        if name == "dense" and counts["need_groups"] != counts["groups"]:
+            fail(f"dense: only {counts['need_groups']} of {counts['groups']} groups take K5's chain")
+        if name == "ties" and not (bool((m_c > 0).all()) and bool((acc_c[:, 38:] >= 2).all())):
+            fail(f"ties: m {m_c.min():.3e}, tie counts {acc_c[:, 38:].min():.0f}: no ties with s != 0")
+        dense[name] = {"counts": counts, "W": len(dense_q), "N": N_c, "ms": {
+            "pass_a_minmax": cuda_ms(lambda: _kernels.pass_a_minmax(wp_c, kp0, Pt_c, V_c, k0), 10),
+            "pass_b_recompute": cuda_ms(
+                lambda: _kernels.pass_b_recompute(wp_c, kp0, norm_c, Pt_c, k0), 10),
+            "bwd_fused_acc": cuda_ms(
+                lambda: _kernels.bwd_fused_acc(wp_c, kp0, norm_c, Pt_c, V_c, g_c, k0), 10)}}
+        print(f"[kernels] {name} N={N_c} W={len(dense_q)}: K5 and K2' match their plain "
+              f"versions, K5 tie counts equal, two launches bit-equal; m_w > 0 at "
+              f"{int((m_c > 0).sum())} waypoints, tie counts >= {acc_c[:, 38:].min():.0f}; "
+              f"{skip_text(counts)}", flush=True)
+        del Pt_c, V_c, g_c, acc_c, acc_cr, lo_c
+        torch.cuda.empty_cache()
+    del wp_c, dense_pt
 
     # ---- 4. the slice: 400 steps of cloud 10 through the kernels ------------
     opt = TrajectoryOptimizer(lr_pose=0.1, lr_quat=0.02, device=dev)
@@ -722,11 +833,13 @@ def main() -> int:
     g8 = criterion_cotangent(lo8, c8)
     acc8 = _kernels.bwd_fused_acc(wp8, kp8, norm8, Pt8, V8, g8, k8)
     lo8_r, acc8_r = torch.zeros_like(lo8), torch.empty_like(acc8)
-    e8 = {}
+    e8, sk8 = {}, []
     with torch.no_grad():
         for w0 in range(0, W8, 5):
             w = slice(w0, w0 + 5)
             wp_w = wp8[w].contiguous()
+            # the pairs the kernels' skips leave, on the norm the kernels got
+            sk8.append(skip_counts(fv.skip_masks(wp_w, kp8, norm8[w], Pt8, V8, k8)))
             m_r, mx_r = fv.pass_a_minmax_ref(wp_w, kp8, Pt8, V8, k8)
             # K1': rtol 1e-5 / atol 1e-30, as at the other shapes
             e8["pass_a_minmax"] = max(e8.get("pass_a_minmax", 0.0),
@@ -745,6 +858,7 @@ def main() -> int:
         fail(f"8m50 K5 tie counts: {acc8[:, 38:].tolist()} vs plain {acc8_r[:, 38:].tolist()}")
     for n, e in e8.items():
         errs[n] = max(errs[n], e)
+    skips["8m50"] = {key: sum(c[key] for c in sk8) for key in sk8[0]}
     del lo8, lo8_r, acc8, acc8_r
 
     # 8m50 times, kernels only (a plain step there holds many (W, N)
@@ -786,7 +900,7 @@ def main() -> int:
           f"visibility gain {res8.visibility_gain:.4f}; first forward and K5 against chunked "
           f"plain versions, max|err| " + ", ".join(f"{n}={v:.2e}" for n, v in e8.items())
           + f", K5 tie counts equal; peak {peak8:.1f} MiB (a score cache alone: {cache_mib:.1f} MiB); launches "
-          f"{launches8}", flush=True)
+          f"{launches8}; {skip_text(skips['8m50'])}", flush=True)
 
     # ---- 5.-6. the render path: K6, K7 and the points processor ------------
     del res8
@@ -820,6 +934,16 @@ def main() -> int:
           f"kernel {peak_mb[('8m50', 'kernel')]:.1f} (optimize run {peak8:.1f}); stage ms "
           + ", ".join(f"{s} {a:.4f}" for s, a in stage_ms["8m50"].items())
           + f" (kernel); device, kernel: {busy_text(busy[('8m50', 'kernel')])}", flush=True)
+    for n in ("pass_b_recompute", "bwd_fused_acc"):
+        b8 = vis_bound(n, W8, N8, skips["8m50"])
+        bd = {name: vis_bound(n, d["W"], d["N"], d["counts"]) for name, d in dense.items()}
+        print(f"[times] {card} | {n} 8m50 {stage_ms['8m50'][n]:.4f} ms, bound {b8[0]:.4f} by "
+              f"{b8[1]}; "
+              + ", ".join(f"{name} {d['ms'][n]:.4f} ms, bound {bd[name][0]:.4f} by {bd[name][1]}"
+                          for name, d in dense.items())
+              + f"; K1' on the same inputs: 8m50 {stage_ms['8m50']['pass_a_minmax']:.4f}, "
+              + ", ".join(f"{name} {d['ms']['pass_a_minmax']:.4f}" for name, d in dense.items())
+              + " ms", flush=True)
 
     for name in ("cloud10", "8m"):
         n_vis, n_pad = rend["visible"][name]
@@ -841,8 +965,8 @@ def main() -> int:
               + ", ".join(f"{k} {v:.2f}" for k, v in top), flush=True)
 
     def vis_entry(n):
-        b_ref = vis_bound(n, *shape_wn["ref"])
-        b_1m = vis_bound(n, *shape_wn["1m50"])
+        b_ref = vis_bound(n, *shape_wn["ref"], skips["ref"])
+        b_1m = vis_bound(n, *shape_wn["1m50"], skips["1m50"])
         e = {"name": n, "route": "cuda", "source": VIS_SOURCE, "replaces": REPLACES[n],
              "launches": (launches8 if n in UNCACHED else launches)[n], "max_abs_err": errs[n],
              "ms": stage_ms["ref"][n][0], "plain_ms": stage_ms["ref"][n][1],
@@ -850,8 +974,13 @@ def main() -> int:
              "ms_1m50": stage_ms["1m50"][n][0], "plain_ms_1m50": stage_ms["1m50"][n][1],
              "bound_ms_1m50": b_1m[0], "bound_by_1m50": b_1m[1]}
         if n in UNCACHED:
-            b_8 = vis_bound(n, W8, N8)
+            b_8 = vis_bound(n, W8, N8, skips["8m50"])
             e.update(ms_8m50=stage_ms["8m50"][n], bound_ms_8m50=b_8[0], bound_by_8m50=b_8[1])
+        if n in ("pass_b_recompute", "bwd_fused_acc"):
+            for name, d in dense.items():
+                b = vis_bound(n, d["W"], d["N"], d["counts"])
+                e.update({f"ms_{name}": d["ms"][n], f"bound_ms_{name}": b[0],
+                          f"bound_by_{name}": b[1]})
         return e
 
     def splat_entry(n):
@@ -868,7 +997,8 @@ def main() -> int:
               "step_ms": {f"{a}/{b}": v for (a, b), v in step_ms.items()},
               "peak_mib_8m50": peak8,
               "rig_ms": rend["rig_ms"], "rig_peak_mib": rend["peak_mib"],
-              "render_dropped_splats": rend["dropped"]}
+              "render_dropped_splats": rend["dropped"],
+              "skip_counts": {**skips, **{name: d["counts"] for name, d in dense.items()}}}
     for e in record["kernels"]:
         nums = [v for k, v in e.items() if k.endswith("ms") or k == "max_abs_err"]
         if not all(isinstance(x, (int, float)) and math.isfinite(x) for x in nums if x is not None):

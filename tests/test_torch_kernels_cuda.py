@@ -24,6 +24,7 @@ from trajectory_optimization_tpu_torch.ops import tile_render as tr  # noqa: E40
 from trajectory_optimization_tpu_torch.ops.scores import waypoint_scores  # noqa: E402
 from trajectory_optimization_tpu_torch.utils.data import (  # noqa: E402
     identity_quaternions,
+    in_view_case,
     load_path,
     load_point_cloud,
     pad_points,
@@ -173,6 +174,77 @@ def test_uncached_regime_launches_only_its_kernels(inputs):
     _, launches = _fused(inputs, 1 << 30)
     assert {n for n, c in launches.items() if c} == {
         "pass_a", "pass_b", "bwd_stats", "bwd_apply"}
+
+
+def _skip_case(dev, name):
+    """Inputs of K1′, K2′ and K5 that exercise their skips: "sparse" a seeded
+    uniform ±20 m cloud of 262,144 points on the 50-waypoint path of the
+    8,388,608 × 50 shape (few warps take the gradient chain); "dense" 65,536
+    points in view of 50 close waypoints (``in_view_case``: every warp takes
+    it); "ties" the dense cloud with two copies of each waypoint's lowest-
+    and highest-scoring point first (min and max ties with s ≠ 0); "one" and
+    "ragged" the first 1 and 1,025 points of the tie cloud (a partial warp
+    and block). Returns (wp, kp, pts_t, valid, g, k)."""
+    W = 50
+    if name == "sparse":
+        pts = np.random.default_rng(8).uniform(-20, 20, size=(262_144, 3)).astype(np.float32)
+        t = np.linspace(0, 1, W, dtype=np.float32)
+        trans = np.stack([30 * t, 10 * np.sin(4 * t), np.zeros_like(t)], axis=1).astype(np.float32)
+        quats = identity_quaternions(W)
+        quats[::3] = [0.9, 0.1, -0.3, 0.2]
+    else:
+        pts, quats, trans = in_view_case(65_536, W)
+    R = quat_ops.to_matrix(quat_ops.normalize(torch.as_tensor(quats, device=dev)))
+    wp = torch.cat([R.reshape(W, 9), torch.as_tensor(trans, device=dev)], dim=1).contiguous()
+    K = INTR.matrix(device=dev)
+    kp = torch.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]).contiguous()
+    k = fv.make_consts(INTR.width, INTR.height, 1.0, 5.0, EPS)
+    pts_t = torch.as_tensor(pts.T.copy(), device=dev)
+    if name in ("ties", "one", "ragged"):
+        n = {"one": 1, "ragged": 1025}.get(name)
+        pts_t = fv.with_extreme_ties(wp, kp, pts_t, k)[:, :n].contiguous()
+    N = pts_t.shape[1]
+    g = np.random.default_rng(1).normal(size=N).astype(np.float32)
+    return wp, kp, pts_t, torch.ones(N, device=dev), torch.as_tensor(g, device=dev), k
+
+
+@pytest.mark.parametrize("name", ["sparse", "dense", "ties", "one", "ragged"])
+def test_skipping_kernels_match_plain(dev, name):
+    """K5 and K2′ against their plain versions (K5's sums at the gradient
+    bound, its tie counts exactly; lo at the forward bound), each plain
+    version on the min/max of its own recompute, as in chip_smoke.py."""
+    wp, kp, Pt, V, g, k = _skip_case(dev, name)
+    m, mx = _kernels.pass_a_minmax(wp, kp, Pt, V, k)
+    norm = fv.make_norm(m, mx)
+    norm_r = fv.make_norm(*fv.pass_a_minmax_ref(wp, kp, Pt, V, k))
+    acc = _kernels.bwd_fused_acc(wp, kp, norm, Pt, V, g, k)
+    acc_r = fv.bwd_fused_acc_ref(wp, kp, norm_r, Pt, V, g, k)
+    _close(acc[:, :38], acc_r[:, :38], **GRAD)
+    assert torch.equal(acc[:, 38:], acc_r[:, 38:])
+    lo = _kernels.pass_b_recompute(wp, kp, norm, Pt, k)
+    _close(lo, fv.pass_b_recompute_ref(wp, kp, norm, Pt, k), **FWD)
+    # each case exercises what it is named for
+    sk = fv.skip_masks(wp, kp, norm, Pt, V, k)
+    taken = fv.warp_groups(sk.direct | sk.tie).float().mean().item()
+    if name == "sparse":
+        assert 0 < taken < 0.1
+    elif name == "dense":
+        assert taken == 1.0
+    elif name == "ties":
+        assert bool((m > 0).all()) and bool((acc[:, 38:] >= 2).all())
+    else:
+        assert bool(sk.tie.any(dim=1).all())  # the first points are the tied ones
+
+
+@pytest.mark.parametrize("name", ["sparse", "dense", "ties"])
+def test_skipping_kernels_are_reproducible(dev, name):
+    """No float atomics: two launches on the same inputs agree bit for bit."""
+    wp, kp, Pt, V, g, k = _skip_case(dev, name)
+    norm = fv.make_norm(*_kernels.pass_a_minmax(wp, kp, Pt, V, k))
+    a, b = (_kernels.bwd_fused_acc(wp, kp, norm, Pt, V, g, k) for _ in range(2))
+    lo_a, lo_b = (_kernels.pass_b_recompute(wp, kp, norm, Pt, k) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(lo_a, lo_b)
 
 
 def test_wrappers_reject_bad_inputs(inputs):

@@ -18,8 +18,8 @@
 // over chunks of kWChunk waypoints, a loop over the chunk's waypoints inside
 // the block. Per-block results go to (n_blocks, W[, slots]) partials that the
 // wrapper reduces with torch.amin/amax/sum: no float atomics, so a run is
-// reproducible bit for bit. K2 and K2' are one thread per point looping over
-// all W in order.
+// reproducible bit for bit. K2 is one thread per point and K2' one thread
+// per kPPT points, looping over all W in order.
 //
 // Built WITHOUT --use_fast_math / -ftz: far points give denormal scores, and
 // the min-tie count (s == m) depends on denormals surviving as they do in
@@ -40,7 +40,10 @@
 // kernel with coalesced accesses and keeping the point coordinates of a
 // block in registers across its waypoint chunk. The three uncached kernels
 // read 16-20 B per point and waypoint chunk and are bound by the recompute
-// arithmetic instead; making them fast is later work.
+// arithmetic instead. K2' and K5 compute only what can be nonzero: outside
+// the strict clip window (0.5, 1 - eps) a pair's log term and direct
+// gradient terms are exactly zero, as is a min or max tie's term when its
+// score is 0, and on a large map that is nearly every pair.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -54,6 +57,7 @@ constexpr int kBlockPts = kThreads * kPPT;    // points per block
 constexpr int kWChunk = 8;                    // waypoints per block (K1/K3/K4/K5)
 constexpr int kStageW = 128;                  // waypoints staged in shared memory (K2')
 constexpr int kBwdSlots = 40;                 // K5's sums per waypoint
+constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr float kBig = 3.0e38f;
 
 struct Consts {
@@ -374,9 +378,13 @@ bwd_apply_kernel(const float* __restrict__ wp, const float* __restrict__ kp,
 }
 
 // K2'. Replaces pallas_vis.py _losum_kernel (pass B recomputing the
-// scores). Bound by the arithmetic: ~45 flops, 2 exp, a log and a divide per
-// (w, i) against 16 B per point in all. One thread per point loops over all W
-// in order (as K2 does); the waypoint table and (m, inv_d) of kStageW
+// scores). Bound by the arithmetic: the score (~45 flops, 2 exp) and its clip
+// on every (w, i), the divide, log and add only where pn > 0.5, against 16 B
+// per point in all. A pair clipped to the 0.5 floor adds logf(0.5f / 0.5f)
+// == +0 to a sum that is never -0, so skipping it keeps lo's bits; a NaN
+// score, which the clip maps to 0.5, is skipped the same way. One thread
+// holds kPPT points (independent dependency chains) and loops over all
+// W in order (as K2 does); the waypoint table and (m, inv_d) of kStageW
 // waypoints at a time are staged in shared memory for the whole block.
 __global__ void __launch_bounds__(kThreads)
 pass_b_recompute_kernel(const float* __restrict__ wp, const float* __restrict__ kp,
@@ -384,14 +392,19 @@ pass_b_recompute_kernel(const float* __restrict__ wp, const float* __restrict__ 
                         int N, int W, Consts k, float hi, float* __restrict__ lo) {
   __shared__ float swp[kStageW * 12];
   __shared__ float snorm[kStageW * 2];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool inb = i < N;
-  const float px = inb ? pts[i] : 0.0f;
-  const float py = inb ? pts[(size_t)N + i] : 0.0f;
-  const float pz = inb ? pts[2 * (size_t)N + i] : 0.0f;
+  const int base = blockIdx.x * kBlockPts + threadIdx.x;
   const Cam cam{kp[0], kp[1], kp[2], kp[3]};
+  float px[kPPT], py[kPPT], pz[kPPT], acc[kPPT];
+#pragma unroll
+  for (int j = 0; j < kPPT; ++j) {
+    const int i = base + j * kThreads;
+    const bool inb = i < N;
+    px[j] = inb ? pts[i] : 0.0f;
+    py[j] = inb ? pts[(size_t)N + i] : 0.0f;
+    pz[j] = inb ? pts[2 * (size_t)N + i] : 0.0f;
+    acc[j] = 0.0f;
+  }
 
-  float acc = 0.0f;
   for (int w0 = 0; w0 < W; w0 += kStageW) {
     const int nw = min(kStageW, W - w0);
     __syncthreads();  // the previous stage is fully read
@@ -401,29 +414,55 @@ pass_b_recompute_kernel(const float* __restrict__ wp, const float* __restrict__ 
       snorm[2 * t + 1] = norm[4 * (size_t)(w0 + t) + 1];
     }
     __syncthreads();
-    if (!inb) continue;
     for (int wl = 0; wl < nw; ++wl) {
-      const float s = score(tile_extras(px, py, pz, swp + 12 * wl, cam, k));
-      const float pn = clip_pn((s - snorm[2 * wl]) * snorm[2 * wl + 1], hi);
-      acc += logf(pn / (1.0f - pn));
+      const float m = snorm[2 * wl], inv_d = snorm[2 * wl + 1];
+#pragma unroll
+      for (int j = 0; j < kPPT; ++j) {
+        const float s = score(tile_extras(px[j], py[j], pz[j], swp + 12 * wl, cam, k));
+        const float pn_raw = (s - m) * inv_d;
+        if (pn_raw > 0.5f) {
+          const float pn = fminf(pn_raw, hi);  // == clip_pn(pn_raw, hi) here
+          acc[j] += logf(pn / (1.0f - pn));
+        }
+      }
     }
   }
-  if (inb) lo[i] = acc;
+#pragma unroll
+  for (int j = 0; j < kPPT; ++j) {
+    const int i = base + j * kThreads;
+    if (i < N) lo[i] = acc[j];
+  }
 }
 
 // K5. Replaces pallas_vis.py _bwd_kernel (single-pass backward, no cache).
-// Bound by the arithmetic: per (w, i) it recomputes the score (~45 flops,
-// 2 exp) and chains three cotangents through the shared dcam factors into
-// 40 running sums (~80 flops), against 20 B per point and waypoint chunk.
 // Slots per w, the JAX twin's layout (pallas_vis.py BWD_SLOTS):
 //   0:12  direct channel, cotangent c_pn * inv_d
 //   12:24 min-tie channel, cotangent 1[valid, s == m]
 //   24:36 max-tie channel, cotangent 1[valid, s == M]
 //         each [sum dc_c, sum dc_c*px, sum dc_c*py, sum dc_c*pz], c = x, y, z
 //   36 sum c_pn*dpn/dm, 37 sum c_pn*dpn/dM, 38 #(s == m), 39 #(s == M)
-// (n_blocks, W, 40) partials. One waypoint at a time: its 40 sums live in
-// registers only across the thread's kPPT points, then go through a warp
-// reduction to shared memory, which bounds the live set.
+// (n_blocks, W, 40) partials.
+//
+// Bound by the arithmetic. Every (w, i) needs its score (~45 flops, 2 exp),
+// the clip-window test and the two tie tests; the gradient chain (the dcam
+// factors and ~80 flops into 38 sums) is needed only where a term can be
+// nonzero. A term is cot * s * f with f finite for finite inputs (|inv_zd|
+// <= 1e12, xu and xv clamped to +-20), so it is exactly zero when
+//   direct channel, slots 36/37: pn is outside the strict clip window (c_pn
+//     == 0), unless s is NaN;
+//   tie channels: the pair ties neither m nor M, or ties with s == 0 (every
+//     far point ties a minimum that has underflowed to 0), unless s is NaN.
+// On a large map nearly every pair is such a pair. So each warp votes
+// (__any_sync, every lane voting, ragged-edge lanes with a false predicate)
+// per waypoint and point slot, and runs a chain only when one of its lanes
+// needs it; lanes that do not contribute an exact 0. The direct channel and
+// slots 36/37 keep 14 per-lane sums across the thread's kPPT points and go
+// through one warp reduction per waypoint, only if the warp took the branch;
+// the tie channels, taken almost never, are reduced inside their branch and
+// added to shared memory by lane 0. The tie counts come from
+// __popc(__ballot_sync) on every pair and stay exact integers. Every order
+// is fixed (waypoint, point slot, warp), so a run is reproducible bit for
+// bit.
 __global__ void __launch_bounds__(kThreads)
 bwd_fused_kernel(const float* __restrict__ wp, const float* __restrict__ kp,
                  const float* __restrict__ norm, const float* __restrict__ pts,
@@ -435,6 +474,9 @@ bwd_fused_kernel(const float* __restrict__ wp, const float* __restrict__ kp,
   const int w0 = blockIdx.y * kWChunk;
   const int nw = min(kWChunk, W - w0);
   const Cam cam{kp[0], kp[1], kp[2], kp[3]};
+
+  for (int t = tid; t < kWarps * kWChunk * kBwdSlots; t += kThreads) (&ssum[0][0][0])[t] = 0.0f;
+  __syncthreads();  // below, only lane 0 of warp q writes ssum[q]
 
   float px[kPPT], py[kPPT], pz[kPPT], gg[kPPT];
   bool inb[kPPT], ok[kPPT];
@@ -454,42 +496,73 @@ bwd_fused_kernel(const float* __restrict__ wp, const float* __restrict__ kp,
     const float* wrow = wp + 12 * w;
     const float m = norm[4 * w], inv_d = norm[4 * w + 1];
     const float gate = norm[4 * w + 2], mxv = norm[4 * w + 3];
-    float acc[kBwdSlots];
+    float* tie_sums = ssum[warp][wl] + 12;
+    float acc[14];  // direct channel 0:12, then slots 36 and 37
 #pragma unroll
-    for (int c = 0; c < kBwdSlots; ++c) acc[c] = 0.0f;
+    for (int c = 0; c < 14; ++c) acc[c] = 0.0f;
+    bool took_direct = false;
+    int n_min = 0, n_max = 0;
 #pragma unroll
     for (int j = 0; j < kPPT; ++j) {
-      if (!inb[j]) continue;
       const Extras e = tile_extras(px[j], py[j], pz[j], wrow, cam, k);
       const float s = score(e);
       const float sm = s - m;
-      const float c_pn = pn_cotangent(sm * inv_d, gg[j], hi);
-      const float eqmin = (ok[j] && s == m) ? 1.0f : 0.0f;
-      const float eqmax = (ok[j] && s == mxv) ? 1.0f : 0.0f;
-      acc[36] += c_pn * (-inv_d + sm * inv_d * inv_d * gate);
-      acc[37] += c_pn * (-(sm * inv_d * inv_d) * gate);
-      acc[38] += eqmin;
-      acc[39] += eqmax;
+      const float pn_raw = sm * inv_d;
+      const bool nan = isnan(s);
+      const bool eqmin = ok[j] && s == m;
+      const bool eqmax = ok[j] && s == mxv;
+      const bool direct = inb[j] && ((pn_raw > 0.5f && pn_raw < hi) || nan);
+      const bool tie = inb[j] && (((eqmin || eqmax) && s != 0.0f) || nan);
+      n_min += __popc(__ballot_sync(kFullWarp, eqmin));
+      n_max += __popc(__ballot_sync(kFullWarp, eqmax));
+      const bool any_direct = __any_sync(kFullWarp, direct);
+      const bool any_tie = __any_sync(kFullWarp, tie);
+      if (!(any_direct || any_tie)) continue;
       const DcamFactors f = dcam_factors(e, cam, k);
-      const float cot[3] = {c_pn * inv_d, eqmin, eqmax};
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) {
-        const float cs = cot[ch] * s;
+      if (any_direct) {
+        took_direct = true;
+        const float c_pn = pn_cotangent(pn_raw, gg[j], hi);
+        const float cs = direct ? c_pn * inv_d * s : 0.0f;
         const float dc[3] = {cs * f.bx, cs * f.by, cs * f.bz};
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          float* a = acc + 12 * ch + 4 * c;
-          a[0] += dc[c];
-          a[1] += dc[c] * px[j];
-          a[2] += dc[c] * py[j];
-          a[3] += dc[c] * pz[j];
+          acc[4 * c + 0] += dc[c];
+          acc[4 * c + 1] += dc[c] * px[j];
+          acc[4 * c + 2] += dc[c] * py[j];
+          acc[4 * c + 3] += dc[c] * pz[j];
+        }
+        acc[12] += direct ? c_pn * (-inv_d + sm * inv_d * inv_d * gate) : 0.0f;
+        acc[13] += direct ? c_pn * (-(sm * inv_d * inv_d) * gate) : 0.0f;
+      }
+      if (any_tie) {
+        const float cs[2] = {tie ? (eqmin ? 1.0f : 0.0f) * s : 0.0f,
+                             tie ? (eqmax ? 1.0f : 0.0f) * s : 0.0f};
+#pragma unroll
+        for (int ch = 0; ch < 2; ++ch) {
+          const float dc[3] = {cs[ch] * f.bx, cs[ch] * f.by, cs[ch] * f.bz};
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const float v[4] = {dc[c], dc[c] * px[j], dc[c] * py[j], dc[c] * pz[j]};
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const float r = warp_sum(v[q]);
+              if (lane == 0) tie_sums[12 * ch + 4 * c + q] += r;
+            }
+          }
         }
       }
     }
+    if (took_direct) {
 #pragma unroll
-    for (int c = 0; c < kBwdSlots; ++c) {
-      const float r = warp_sum(acc[c]);
-      if (lane == 0) ssum[warp][wl][c] = r;
+      for (int c = 0; c < 14; ++c) acc[c] = warp_sum(acc[c]);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < 12; ++c) ssum[warp][wl][c] = acc[c];
+      ssum[warp][wl][36] = acc[12];
+      ssum[warp][wl][37] = acc[13];
+      ssum[warp][wl][38] = static_cast<float>(n_min);
+      ssum[warp][wl][39] = static_cast<float>(n_max);
     }
   }
   __syncthreads();
@@ -570,7 +643,7 @@ int fv_pass_b_recompute(const float* wp, const float* kp, const float* norm,
                         const float* pts, int N, int W, float c0, float inv_var,
                         float img_w, float img_h, float eps, float inv_w, float inv_h,
                         float hi, float* lo, void* stream) {
-  pass_b_recompute_kernel<<<(N + kThreads - 1) / kThreads, kThreads, 0,
+  pass_b_recompute_kernel<<<(N + kBlockPts - 1) / kBlockPts, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       wp, kp, norm, pts, N, W, make_consts(c0, inv_var, img_w, img_h, eps, inv_w, inv_h),
       hi, lo);

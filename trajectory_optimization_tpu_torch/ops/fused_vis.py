@@ -27,6 +27,9 @@ Uncached regime, above the budget; no stage holds a (W, N) tensor:
 Each stage has a plain PyTorch version beside it (``*_ref``) with the same
 inputs and outputs. The stage wrapper runs the plain version for CPU tensors
 only; for a CUDA tensor it launches the kernel (``ops._kernels``) or raises.
+K2′ and K5 skip the pairs whose terms are exactly zero; ``skip_masks`` gives
+their predicates in plain PyTorch, and ``warp_groups`` and
+``with_extreme_ties`` help count and test them.
 
 Layout: points as a contiguous SoA (3, N) f32, transposed once per problem;
 ``valid`` and the cotangent as (N,) f32; the waypoint table ``wp`` (W, 12) =
@@ -147,15 +150,23 @@ def _plane_sums(dcs, pts_t):
 
 
 def _pn_terms(norm, scores, g, eps):
-    """Shared backward prologue: (s − m, c_pn) per (w, i), where c_pn is the
-    log-odds cotangent inside the strict clip window and 0 outside it."""
+    """Shared backward prologue: (s − m, c_pn, active) per (w, i), where
+    active is the strict clip window and c_pn is the log-odds cotangent
+    inside it and 0 outside it."""
     m, inv_d = norm[:, 0:1], norm[:, 1:2]
     sm = scores - m
     pn_raw = sm * inv_d
     active = (pn_raw > 0.5) & (pn_raw < 1.0 - eps)
     pn = torch.clamp(pn_raw, 0.5, 1.0 - eps)
     c_pn = torch.where(active, g[None, :] / (pn * (1.0 - pn)), torch.zeros_like(pn))
-    return sm, c_pn
+    return sm, c_pn, active
+
+
+def _ties(norm, scores, valid):
+    """Per (w, i): the valid min and max tie indicators (bool), s = m_w and
+    s = M_w."""
+    ok = valid[None, :] > 0
+    return ok & (scores == norm[:, 0:1]), ok & (scores == norm[:, 3:4])
 
 
 # ---------------------------------------------------------------------------
@@ -245,13 +256,11 @@ def pass_b_recompute(wp, kp, norm, pts_t, k: VisConsts):
 def _minmax_pathway(norm, scores, valid, g, eps):
     """Per (w, i): c_pn, the cotangents reaching m_w and M_w (c_pn·∂pn/∂m,
     c_pn·∂pn/∂M) and the valid min and max tie indicators."""
-    sm, c_pn = _pn_terms(norm, scores, g, eps)
-    m, inv_d, gate, mx = (norm[:, j : j + 1] for j in range(4))
+    sm, c_pn, _ = _pn_terms(norm, scores, g, eps)
+    inv_d, gate = norm[:, 1:2], norm[:, 2:3]
     dm = c_pn * (-inv_d + sm * inv_d * inv_d * gate)
     dM = c_pn * (-(sm * inv_d * inv_d) * gate)
-    ok = valid[None, :] > 0
-    eqmin = (ok & (scores == m)).to(scores.dtype)
-    eqmax = (ok & (scores == mx)).to(scores.dtype)
+    eqmin, eqmax = (t.to(scores.dtype) for t in _ties(norm, scores, valid))
     return c_pn, dm, dM, eqmin, eqmax
 
 
@@ -277,12 +286,9 @@ def bwd_apply_ref(wp, kp, norm2, pts_t, valid, g, scores, k: VisConsts):
     """Plain K4. The cotangent c_pn·inv_d + α·1[s=m] + β·1[s=M] is chained
     through the camera transform (reading s from the cache, not recomputing
     it). Returns (W, 3, 4): [c, (Σdc_c, Σdc_c·px, Σdc_c·py, Σdc_c·pz)]."""
-    sm, c_pn = _pn_terms(norm2, scores, g, k.eps)
-    m, inv_d, mx = norm2[:, 0:1], norm2[:, 1:2], norm2[:, 3:4]
-    alpha, beta = norm2[:, 4:5], norm2[:, 5:6]
-    ok = valid[None, :] > 0
-    eqmin = (ok & (scores == m)).to(scores.dtype)
-    eqmax = (ok & (scores == mx)).to(scores.dtype)
+    _, c_pn, _ = _pn_terms(norm2, scores, g, k.eps)
+    inv_d, alpha, beta = norm2[:, 1:2], norm2[:, 4:5], norm2[:, 5:6]
+    eqmin, eqmax = (t.to(scores.dtype) for t in _ties(norm2, scores, valid))
     total = c_pn * inv_d + alpha * eqmin + beta * eqmax
     _, e = _extras(wp, kp, pts_t, k)
     return _plane_sums(_dcam(total, scores, e, k), pts_t).reshape(-1, 3, 4)
@@ -316,6 +322,44 @@ def bwd_fused_acc(wp, kp, norm, pts_t, valid, g, k: VisConsts):
     if _on_cpu(pts_t):
         return bwd_fused_acc_ref(wp, kp, norm, pts_t, valid, g, k)
     return _kernels.bwd_fused_acc(wp, kp, norm, pts_t, valid, g, k)
+
+
+class SkipMasks(NamedTuple):
+    """(W, N) bool masks of the pairs whose terms K5 and K2′ compute. Every
+    other pair's terms are exactly zero for finite inputs, so the kernels
+    skip them."""
+
+    direct: torch.Tensor  # K5's direct channel and slots 36/37: c_pn ≠ 0, or s is NaN
+    tie: torch.Tensor  # K5's tie channels: a valid min or max tie with s ≠ 0, or s is NaN
+    unclipped: torch.Tensor  # K2′'s log term: pn above the 0.5 floor (log(0.5/0.5) = 0)
+
+
+def skip_masks(wp, kp, norm, pts_t, valid, k: VisConsts) -> SkipMasks:
+    """The predicates of K5's two warp votes and of K2′'s branch, on scores
+    recomputed by the plain version. K5 needs a pair's gradient chain where
+    ``direct | tie``. Used to count the work that the kernels do and to test
+    that the pairs they skip add only zeros; not on the main path."""
+    s, _ = _scores(wp, kp, pts_t, k)
+    sm, _, active = _pn_terms(norm, s, torch.zeros_like(valid), k.eps)
+    eqmin, eqmax = _ties(norm, s, valid)
+    nan = torch.isnan(s)
+    return SkipMasks(active | nan, ((eqmin | eqmax) & (s != 0)) | nan, sm * norm[:, 1:2] > 0.5)
+
+
+def warp_groups(mask):
+    """Per waypoint, whether each 32-point group (one warp's points, aligned
+    as the kernels align them) holds a True: (W, ceil(N / 32)) bool."""
+    pad = torch.nn.functional.pad(mask, (0, (-mask.shape[1]) % 32))
+    return pad.reshape(mask.shape[0], -1, 32).any(-1)
+
+
+def with_extreme_ties(wp, kp, pts_t, k: VisConsts):
+    """``pts_t`` (3, N) with two copies of each waypoint's lowest- and
+    highest-scoring point put first (3, N + 4W): on a cloud whose scores do
+    not underflow, min and max ties with s ≠ 0, which K5 must chain."""
+    s, _ = _scores(wp, kp, pts_t, k)
+    lo, hi = pts_t[:, s.argmin(1)], pts_t[:, s.argmax(1)]
+    return torch.cat([lo, hi, lo, hi, pts_t], dim=1).contiguous()
 
 
 # ---------------------------------------------------------------------------

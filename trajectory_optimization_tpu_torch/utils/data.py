@@ -42,6 +42,20 @@ def identity_quaternions(n: int, dtype=np.float32) -> np.ndarray:
     return q
 
 
+def in_view_case(n: int, n_wps: int, seed: int = 3, lo=(0.5, 0.5, 2.5)):
+    """A cloud that every waypoint sees, so no score underflows: n points
+    uniform in the box from ``lo`` to (2, 2, 4) m (seeded) ahead of n_wps
+    close waypoints on (0.6t, 0.2 sin 3t, 0), every other one turned
+    slightly. Returns (points (n, 3), quats (n_wps, 4) wxyz, trans
+    (n_wps, 3)), f32."""
+    t = np.linspace(0, 1, n_wps, dtype=np.float32)
+    trans = np.stack([0.6 * t, 0.2 * np.sin(3 * t), np.zeros_like(t)], axis=1)
+    quats = identity_quaternions(n_wps)
+    quats[::2] = [0.99, 0.03, -0.05, 0.02]
+    pts = np.random.default_rng(seed).uniform(lo, [2, 2, 4], size=(n, 3))
+    return pts.astype(np.float32), quats, trans.astype(np.float32)
+
+
 def bucket_size(n: int, *, multiple: int = 1024, min_size: int = 1024) -> int:
     """Round a cloud size up to a power-of-two-ish bucket (1/4 steps between
     powers of two, so padding waste stays under ~25%)."""
