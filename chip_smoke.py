@@ -8,7 +8,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
 1. device — needs CUDA; prints ``nvidia-smi`` name and power limit; TF32 off.
 2. build — compiles every ``csrc/*.cu`` (``fused_vis.cu``, ``splat_render.cu``)
    with nvcc for sm_90a, in parallel, into one library; prints ptxas's
-   registers and spills (K6 and K7 on stdout).
+   registers and spills (K1, K1′, K2′, K5, K6 and K7 on stdout). Then the
+   premise of pass A's exact-zero pruning is tried on the card: ``expf(x)``
+   is 0 for every float x ≤ −``PRUNE_ZERO_T``/2, all bit patterns, one launch.
 3. kernels — K1–K4 and the uncached regime's K1′, K2′ and K5 against their
    plain PyTorch versions on the card, stage by stage (K1′'s min/max equal
    K1's bit for bit, K5's tie counts equal K3's exactly, K5's sums combined
@@ -23,6 +25,15 @@ Phases, each printing one line (any failure raises and exits non-zero):
    on a dense case (1,048,576 points in view of 50 close waypoints: every
    warp takes the chain) and a tie case (that cloud plus two copies of each
    waypoint's lowest- and highest-scoring point: ties with s ≠ 0).
+   Pass A (K1, K1′) finishes a pair after the score's distance term where
+   that decides it (``fused_vis.prune_masks``): at every shape, the dense and
+   tie cases included (nothing is pruned there), K1's min, max and cache and
+   K1′'s min and max are ``torch.equal`` to the plain version's and to each
+   other, two launches agree bit for bit, and a call is one kernel and at
+   most one other device operation; per shape, the share of pairs that are
+   exact zeros, under the max, and scored in full. At 1M × 50 they also run
+   on the same cloud in Morton order (same min and max, the cache permuted),
+   where pruned pairs fill whole warps, and are timed there.
 4. slice — ``TrajectoryOptimizer.optimize`` on cloud 10 for 400 steps through
    the cached kernels (launch counters reset just before, read just after),
    the same run on the plain backend, 20 steps of 1M × 50, and 20 steps of
@@ -51,8 +62,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
 
 The line before the last is the kernels' JSON record (all nine kernels, each
 with its bound: the larger of the bytes it must move over 3.35 TB/s and its
-operations over 67 TFLOP/s, K5's and K2′'s operations counted on the pairs
-these inputs need); the last line is ``{"ok": true, "device":
+operations over 67 TFLOP/s, K1's, K1′'s, K5's and K2′'s operations counted
+on the pairs these inputs need); the last line is ``{"ok": true, "device":
 {...}}``. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -90,7 +101,14 @@ F32_OPS_PER_MS = 67e9  # H100 SXM f32 outside the tensor cores, published
 # from its plain version (ops/fused_vis.py): every +, -, x, comparison,
 # clamp bound and select is 1, and so are exp, log and a division; sigmoid
 # is 3 (exp, add, division). The score (_extras + exp) is 59.
-VIS_OPS = {"pass_a": 63, "pass_a_minmax": 63, "pass_b": 8, "bwd_stats": 30, "bwd_apply": 141}
+VIS_OPS = {"pass_b": 8, "bwd_stats": 30, "bwd_apply": 141}
+# Pass A (K1, K1′) needs a pair's whole score (59), its valid select and the
+# min and max (63 in all) only where the distance term does not decide the
+# pair (fused_vis.prune_masks): a pruned pair costs the 27 operations up to
+# t0 = d²·inv_var and the comparison. K1 prunes the exact zeros of every
+# pair (it caches them all); K1′ the exact zeros and the pairs under the max,
+# and needs nothing for a point that is not valid.
+PASS_A_OPS = {"full": 63, "pruned": 28}
 # K5 and K2′ compute only the terms that can be nonzero (fused_vis.skip_masks),
 # so their counts depend on the data. K5: 70 on every pair (the score; s − m,
 # × inv_d, the window's two comparisons and their and; two valid tie tests;
@@ -117,10 +135,11 @@ def bound(nbytes: float, ops: float):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def vis_bound(name: str, W: int, N: int, skips=None):
+def vis_bound(name: str, W: int, N: int, skips=None, prunes=None):
     """Each input read once and each output written once, per fused kernel;
     K5's and K2′'s operations on the pairs that ``skips`` (``skip_counts``
-    of these inputs) says they need."""
+    of these inputs) says they need, K1's and K1′'s on those that ``prunes``
+    (``prune_counts``) leaves."""
     pts, cache = 12 * N, 4 * W * N
     nbytes = {
         "pass_a": pts + 4 * N + 48 * W + cache + 8 * W,
@@ -136,9 +155,28 @@ def vis_bound(name: str, W: int, N: int, skips=None):
                + K5_OPS["tie"] * skips["tie"])
     elif name == "pass_b_recompute":
         ops = K2P_OPS["hot"] * W * N + K2P_OPS["unclipped"] * skips["unclipped"]
+    elif name in ("pass_a", "pass_a_minmax"):
+        full = prunes["scored" if name == "pass_a" else "scored_valid"]
+        seen = prunes["pairs" if name == "pass_a" else "valid_pairs"]
+        ops = PASS_A_OPS["full"] * full + PASS_A_OPS["pruned"] * (seen - full)
     else:
         ops = VIS_OPS[name] * W * N
     return bound(nbytes, ops)
+
+
+def morton_order(pts_t):
+    """Indices that put the points of a (3, N) cloud in Morton (Z-curve)
+    order of their coordinates quantized to 10 bits each: neighbours in the
+    order are neighbours in space, so a warp's 32 points share their fate."""
+    import torch
+
+    lo, hi = pts_t.amin(dim=1, keepdim=True), pts_t.amax(dim=1, keepdim=True)
+    q = ((pts_t - lo) / (hi - lo).clamp(min=1e-12) * 1023.0).long().clamp(0, 1023)
+    code = torch.zeros_like(q[0])
+    for bit in range(10):
+        for axis in range(3):
+            code |= ((q[axis] >> bit) & 1) << (3 * bit + axis)
+    return torch.argsort(code, stable=True)
 
 
 def skip_counts(masks):
@@ -158,6 +196,27 @@ def skip_counts(masks):
             "need": int(need.sum()), "unclipped": int(masks.unclipped.sum()),
             "groups": W * (-(-N // 32)), "need_groups": groups(need),
             "unclipped_groups": groups(masks.unclipped)}
+
+
+def prune_counts(masks, valid):
+    """Counts of ``fused_vis.prune_masks`` (made with the final min and max,
+    which prune the most): over all pairs, K1's exact zeros and the rest it
+    scores; over the pairs of valid points, K1′'s exact zeros, those under
+    the max, and the rest it scores."""
+    ok = (valid > 0)[None, :]
+    W, N = masks.zero.shape
+    zero, zero_valid = int(masks.zero.sum()), int((masks.zero & ok).sum())
+    under_valid, valid_pairs = int((masks.under_max & ok).sum()), W * int(ok.sum())
+    return {"pairs": W * N, "zero": zero, "scored": W * N - zero, "valid_pairs": valid_pairs,
+            "zero_valid": zero_valid, "under_max_valid": under_valid,
+            "scored_valid": valid_pairs - zero_valid - under_valid}
+
+
+def prune_text(c):
+    v = max(c["valid_pairs"], 1)
+    return (f"K1 scores {c['scored'] / c['pairs']:.6f} of pairs ({c['zero'] / c['pairs']:.6f} "
+            f"exact zeros); K1′ scores {c['scored_valid'] / v:.6f} of valid pairs "
+            f"({c['zero_valid'] / v:.6f} exact zeros, {c['under_max_valid'] / v:.6f} under the max)")
 
 
 def skip_text(c):
@@ -450,7 +509,8 @@ def main() -> int:
         if "entry function" in line or "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}", file=sys.stderr)
     regs = ptxas_report(_kernels.build_log)
-    for kname, mangled in (("pass_a_kernel<false> (K1')", "pass_a_kernelILb0E"),
+    for kname, mangled in (("pass_a_kernel<true> (K1)", "pass_a_kernelILb1E"),
+                           ("pass_a_kernel<false> (K1')", "pass_a_kernelILb0E"),
                            ("pass_b_recompute_kernel (K2')", "pass_b_recompute_kernel"),
                            ("bwd_fused_kernel (K5)", "bwd_fused_kernel"),
                            ("splat_runs_kernel (K6)", "splat_runs_kernel"),
@@ -461,6 +521,14 @@ def main() -> int:
         r, st, ld = found[0]
         print(f"[build] {kname}: {r} registers, {st} bytes spill stores, {ld} bytes spill loads",
               flush=True)
+
+    n_tried, n_nonzero = _kernels.expf_zero_check(dev)
+    if n_nonzero or n_tried < 1_000_000_000:
+        fail(f"expf(x) != 0 for {n_nonzero} of the {n_tried} floats x <= "
+             f"{-_kernels.PRUNE_ZERO_T / 2}: pass A's exact-zero pruning does not hold here")
+    print(f"[build] expf(x) == 0 for all {n_tried} floats x <= {-_kernels.PRUNE_ZERO_T / 2} "
+          f"(every bit pattern down to -inf): T0 >= {_kernels.PRUNE_ZERO_T} gives a score of "
+          f"exactly 0", flush=True)
 
     intr = default_intrinsics()
     K = intr.matrix(device=dev)
@@ -565,9 +633,40 @@ def main() -> int:
         (g,) = torch.autograd.grad(loss, lo_leaf)
         return g.contiguous()
 
+    def same(what, got, want):
+        if not torch.equal(got, want):
+            diff = got != want
+            fail(f"{what}: {int(diff.sum())} of {got.numel()} values differ (max |diff| "
+                 f"{float((got - want)[diff].abs().max()):.3e}); they must be bit-equal")
+
+    def pass_a_equal(name, wp, kp, Pt, V, k):
+        """K1's min, max and cache and K1′'s min and max bit-equal to the
+        plain pass A's (so K1′'s equal K1's), and a second launch of each to
+        its first. Returns K1's outputs and the plain ones."""
+        m, mx, cache = _kernels.pass_a(wp, kp, Pt, V, k)
+        m_r, mx_r, cache_r = fv.pass_a_ref(wp, kp, Pt, V, k)
+        m1, mx1 = _kernels.pass_a_minmax(wp, kp, Pt, V, k)
+        sync()
+        for what, got, want in (("K1 min", m, m_r), ("K1 max", mx, mx_r), ("K1 cache", cache, cache_r),
+                                ("K1' min", m1, m_r), ("K1' max", mx1, mx_r)):
+            same(f"{what} {name} against the plain version", got, want)
+        again = (*_kernels.pass_a(wp, kp, Pt, V, k), *_kernels.pass_a_minmax(wp, kp, Pt, V, k))
+        sync()
+        for what, got, want in zip(("K1 min", "K1 max", "K1 cache", "K1' min", "K1' max"), again,
+                                   (m, mx, cache, m1, mx1)):
+            same(f"{what} {name}, second launch against the first", got, want)
+        return m, mx, cache, m_r, mx_r, cache_r
+
+    def device_ops(fn):
+        """Device operations (kernels, copies) of one call of fn, from a
+        torch.profiler trace; 0 if the trace holds no device activity."""
+        fn()
+        sync()
+        return traced(fn, sync)[2]
+
     cases = [shape_case("ref", cloud10, path10), shape_case("1m50", big_pts, big_path)]
     errs = {k: 0.0 for k in VIS}
-    stage_ms, shape_wn, skips = {}, {}, {}
+    stage_ms, shape_wn, skips, prunes = {}, {}, {}, {}
 
     # ---- 3. kernels against their plain versions ---------------------------
     for c in cases:
@@ -577,10 +676,10 @@ def main() -> int:
         shape_wn[c["name"]] = (W, N)
         Pt, V = c["Pt"], c["V"]
 
-        # K1: min/max rtol 1e-5 (atol 1e-30 only absorbs denormal quantization
-        # of far-point minima); cache rtol 1e-5 / atol 1e-7.
-        m, mx, cache = _kernels.pass_a(wp, kp, Pt, V, k)
-        m_r, mx_r, cache_r = fv.pass_a_ref(wp, kp, Pt, V, k)
+        # K1 and K1′: bit-equal to the plain pass A (tolerance 0; ``close``
+        # below only takes the record's max |err|).
+        m, mx, cache, m_r, mx_r, cache_r = pass_a_equal(c["name"], wp, kp, Pt, V, k)
+        prunes[c["name"]] = prune_counts(fv.prune_masks(wp, kp, Pt, k, m, mx), V)
         e1 = close(f"K1 min {c['name']}", m, m_r, 1e-5, 1e-30)
         e1 = max(e1, close(f"K1 max {c['name']}", mx, mx_r, 1e-5, 1e-30))
         e1 = max(e1, close(f"K1 cache {c['name']}", cache, cache_r, 1e-5, 1e-7))
@@ -616,10 +715,8 @@ def main() -> int:
         # K1′: the same score arithmetic as K1 without the cache, so its
         # min/max are K1's bit for bit; against the plain K1 as K1 is.
         m1, mx1 = _kernels.pass_a_minmax(wp, kp, Pt, V, k)
-        sync()
-        if not (torch.equal(m1, m) and torch.equal(mx1, mx)):
-            fail(f"K1' min/max {c['name']} differ from K1's: {(m1 - m).abs().max():.3e}, "
-                 f"{(mx1 - mx).abs().max():.3e}")
+        same(f"K1' min {c['name']} against K1's", m1, m)
+        same(f"K1' max {c['name']} against K1's", mx1, mx)
         e1p = close(f"K1' min {c['name']}", m1, m_r, 1e-5, 1e-30)
         errs["pass_a_minmax"] = max(errs["pass_a_minmax"], e1p,
                                     close(f"K1' max {c['name']}", mx1, mx_r, 1e-5, 1e-30))
@@ -707,14 +804,42 @@ def main() -> int:
                 cuda_ms(lambda: _kernels.bwd_fused_acc(wp, kp, norm, Pt, V, g, k), reps),
                 cuda_ms(lambda: fv.bwd_fused_acc_ref(wp, kp, norm, Pt, V, g, k), reps)),
         }
+        if c["name"] == "1m50":
+            # the same cloud in a coherent (Morton) order: the pruned pairs
+            # then fill whole warps, K1's exact zeros included. Same set of
+            # points, so the same min and max, and the cache permuted.
+            order = morton_order(Pt)
+            Pt_s, V_s = Pt[:, order].contiguous(), V[order].contiguous()
+            m_s, mx_s, cache_s = _kernels.pass_a(wp, kp, Pt_s, V_s, k)
+            for what, got, want in (("min", m_s, m), ("max", mx_s, mx),
+                                    ("cache", cache_s, cache[:, order])):
+                same(f"K1 {what} 1m50 in Morton order against the given order", got, want)
+            del cache_s
+            for what, got, want in zip(("min", "max"),
+                                       _kernels.pass_a_minmax(wp, kp, Pt_s, V_s, k), (m, mx)):
+                same(f"K1' {what} 1m50 in Morton order against the given order", got, want)
+            morton_ms = {
+                "pass_a": cuda_ms(lambda: _kernels.pass_a(wp, kp, Pt_s, V_s, k), reps),
+                "pass_a_minmax": cuda_ms(lambda: _kernels.pass_a_minmax(wp, kp, Pt_s, V_s, k), reps)}
+            del Pt_s, V_s, order
         print(f"[kernels] {c['name']} N={N} W={W}: K1-K4, K1', K2', K5 and fused_lo_sum (both "
-              f"regimes) match their plain versions; K1' min/max == K1's, K5 tie counts == K3's; "
+              f"regimes) match their plain versions; K1 and K1' bit-equal to the plain pass A and "
+              f"to a second launch, K5 tie counts == K3's; "
               f"max|err| " + ", ".join(f"{n}={v:.2e}" for n, v in errs.items())
-              + f"; {skip_text(skips[c['name']])}", flush=True)
+              + f"; {prune_text(prunes[c['name']])}; {skip_text(skips[c['name']])}", flush=True)
+        if c["name"] == "ref":
+            # a pass A call is its kernel and at most one initialising operation
+            for n, fn in (("pass_a", _kernels.pass_a), ("pass_a_minmax", _kernels.pass_a_minmax)):
+                n_ops = device_ops(lambda: fn(wp, kp, Pt, V, k))
+                if n_ops > 2:
+                    fail(f"{n}: {n_ops} device operations in one call, expected at most 2")
+                print(f"[kernels] {n}: " + (f"{n_ops} device operations per call" if n_ops else
+                      "device operations per call not measured (no device activity in the trace)"),
+                      flush=True)
         del cache
         torch.cuda.empty_cache()
 
-    # ---- 3b. K5 and K2′ where they skip little: dense and tie cases ---------
+    # ---- 3b. K1, K1′, K5 and K2′ where they skip little: dense and tie cases --
     # K5 sums rtol 2e-3 / atol 2e-3 and tie counts exactly equal, each plain
     # version on the min/max of its own recompute; lo rtol 1e-4 / atol 2e-4;
     # two launches of each kernel on the same inputs bit-equal.
@@ -732,9 +857,13 @@ def main() -> int:
         V_c = torch.ones(N_c, device=dev)
         g_c = torch.as_tensor(np.random.default_rng(1).normal(size=N_c).astype(np.float32),
                               device=dev)
-        m_c, mx_c = _kernels.pass_a_minmax(wp_c, kp0, Pt_c, V_c, k0)
+        m_c, mx_c, cache_c, m_cr, mx_cr, cache_cr = pass_a_equal(name, wp_c, kp0, Pt_c, V_c, k0)
+        del cache_c, cache_cr
+        prune_c = prune_counts(fv.prune_masks(wp_c, kp0, Pt_c, k0, m_c, mx_c), V_c)
+        if prune_c["scored"] != prune_c["pairs"] or prune_c["scored_valid"] != prune_c["pairs"]:
+            fail(f"{name}: pass A would prune where every score is positive: {prune_c}")
         norm_c = fv.make_norm(m_c, mx_c)
-        norm_cr = fv.make_norm(*fv.pass_a_minmax_ref(wp_c, kp0, Pt_c, V_c, k0))
+        norm_cr = fv.make_norm(m_cr, mx_cr)
         acc_c = _kernels.bwd_fused_acc(wp_c, kp0, norm_c, Pt_c, V_c, g_c, k0)
         acc_cr = fv.bwd_fused_acc_ref(wp_c, kp0, norm_cr, Pt_c, V_c, g_c, k0)
         errs["bwd_fused_acc"] = max(errs["bwd_fused_acc"], close(
@@ -752,13 +881,15 @@ def main() -> int:
             fail(f"dense: only {counts['need_groups']} of {counts['groups']} groups take K5's chain")
         if name == "ties" and not (bool((m_c > 0).all()) and bool((acc_c[:, 38:] >= 2).all())):
             fail(f"ties: m {m_c.min():.3e}, tie counts {acc_c[:, 38:].min():.0f}: no ties with s != 0")
-        dense[name] = {"counts": counts, "W": len(dense_q), "N": N_c, "ms": {
+        dense[name] = {"counts": counts, "prunes": prune_c, "W": len(dense_q), "N": N_c, "ms": {
+            "pass_a": cuda_ms(lambda: _kernels.pass_a(wp_c, kp0, Pt_c, V_c, k0), 10),
             "pass_a_minmax": cuda_ms(lambda: _kernels.pass_a_minmax(wp_c, kp0, Pt_c, V_c, k0), 10),
             "pass_b_recompute": cuda_ms(
                 lambda: _kernels.pass_b_recompute(wp_c, kp0, norm_c, Pt_c, k0), 10),
             "bwd_fused_acc": cuda_ms(
                 lambda: _kernels.bwd_fused_acc(wp_c, kp0, norm_c, Pt_c, V_c, g_c, k0), 10)}}
-        print(f"[kernels] {name} N={N_c} W={len(dense_q)}: K5 and K2' match their plain "
+        print(f"[kernels] {name} N={N_c} W={len(dense_q)}: K1 and K1' bit-equal to the plain pass "
+              f"A (nothing pruned), K5 and K2' match their plain "
               f"versions, K5 tie counts equal, two launches bit-equal; m_w > 0 at "
               f"{int((m_c > 0).sum())} waypoints, tie counts >= {acc_c[:, 38:].min():.0f}; "
               f"{skip_text(counts)}", flush=True)
@@ -830,18 +961,32 @@ def main() -> int:
         lo8 = fv.fused_lo_sum(P8, q8, t8, K, intr.width, intr.height, valid=V8, points_t=Pt8)
         m8, mx8 = _kernels.pass_a_minmax(wp8, kp8, Pt8, V8, k8)
         norm8 = fv.make_norm(m8, mx8)
+        # K1 is not on this shape's path (its cache is over the budget); it
+        # runs once here so that K1′'s min and max are held against K1's and
+        # K1's cache against the plain scores, below
+        m8k, mx8k, cache8 = _kernels.pass_a(wp8, kp8, Pt8, V8, k8)
+        same("8m50 K1' min against K1's", m8, m8k)
+        same("8m50 K1' max against K1's", mx8, mx8k)
+        again8 = _kernels.pass_a_minmax(wp8, kp8, Pt8, V8, k8)
+        same("8m50 K1' min, second launch against the first", again8[0], m8)
+        same("8m50 K1' max, second launch against the first", again8[1], mx8)
     g8 = criterion_cotangent(lo8, c8)
     acc8 = _kernels.bwd_fused_acc(wp8, kp8, norm8, Pt8, V8, g8, k8)
     lo8_r, acc8_r = torch.zeros_like(lo8), torch.empty_like(acc8)
-    e8, sk8 = {}, []
+    e8, sk8, pr8 = {}, [], []
     with torch.no_grad():
         for w0 in range(0, W8, 5):
             w = slice(w0, w0 + 5)
             wp_w = wp8[w].contiguous()
             # the pairs the kernels' skips leave, on the norm the kernels got
             sk8.append(skip_counts(fv.skip_masks(wp_w, kp8, norm8[w], Pt8, V8, k8)))
-            m_r, mx_r = fv.pass_a_minmax_ref(wp_w, kp8, Pt8, V8, k8)
-            # K1': rtol 1e-5 / atol 1e-30, as at the other shapes
+            pr8.append(prune_counts(fv.prune_masks(wp_w, kp8, Pt8, k8, m8[w], mx8[w]), V8))
+            m_r, mx_r, s_r = fv.pass_a_ref(wp_w, kp8, Pt8, V8, k8)
+            # K1 and K1': bit-equal to the plain pass A, as at the other shapes
+            same(f"8m50 K1' min w{w0} against the plain version", m8[w], m_r)
+            same(f"8m50 K1' max w{w0} against the plain version", mx8[w], mx_r)
+            same(f"8m50 K1 cache w{w0} against the plain version", cache8[w], s_r)
+            del s_r
             e8["pass_a_minmax"] = max(e8.get("pass_a_minmax", 0.0),
                                       close(f"8m50 K1' min w{w0}", m8[w], m_r, 1e-5, 1e-30),
                                       close(f"8m50 K1' max w{w0}", mx8[w], mx_r, 1e-5, 1e-30))
@@ -859,7 +1004,8 @@ def main() -> int:
     for n, e in e8.items():
         errs[n] = max(errs[n], e)
     skips["8m50"] = {key: sum(c[key] for c in sk8) for key in sk8[0]}
-    del lo8, lo8_r, acc8, acc8_r
+    prunes["8m50"] = {key: sum(c[key] for c in pr8) for key in pr8[0]}
+    del lo8, lo8_r, acc8, acc8_r, cache8, m8k, mx8k, again8
 
     # 8m50 times, kernels only (a plain step there holds many (W, N)
     # tensors), taken while the problem is on the card; printed under [times]
@@ -899,8 +1045,8 @@ def main() -> int:
     print(f"[slice] 8m50 N={N8} W={W8} 20 steps in {slice8_s:.2f} s: loss {res8.loss:.6f}, "
           f"visibility gain {res8.visibility_gain:.4f}; first forward and K5 against chunked "
           f"plain versions, max|err| " + ", ".join(f"{n}={v:.2e}" for n, v in e8.items())
-          + f", K5 tie counts equal; peak {peak8:.1f} MiB (a score cache alone: {cache_mib:.1f} MiB); launches "
-          f"{launches8}; {skip_text(skips['8m50'])}", flush=True)
+          + f", K1' and K1 bit-equal to the plain pass A, K5 tie counts equal; peak {peak8:.1f} MiB (a score cache alone: {cache_mib:.1f} MiB); launches "
+          f"{launches8}; {prune_text(prunes['8m50'])}; {skip_text(skips['8m50'])}", flush=True)
 
     # ---- 5.-6. the render path: K6, K7 and the points processor ------------
     del res8
@@ -934,6 +1080,18 @@ def main() -> int:
           f"kernel {peak_mb[('8m50', 'kernel')]:.1f} (optimize run {peak8:.1f}); stage ms "
           + ", ".join(f"{s} {a:.4f}" for s, a in stage_ms["8m50"].items())
           + f" (kernel); device, kernel: {busy_text(busy[('8m50', 'kernel')])}", flush=True)
+    for n in ("pass_a", "pass_a_minmax"):
+        parts = [f"{sh} {stage_ms[sh][n][0]:.4f} ms, bound "
+                 + "{:.4f} by {}".format(*vis_bound(n, *shape_wn[sh], prunes=prunes[sh]))
+                 for sh in ("ref", "1m50")]
+        if n == "pass_a_minmax":
+            parts.append(f"8m50 {stage_ms['8m50'][n]:.4f} ms, bound "
+                         + "{:.4f} by {}".format(*vis_bound(n, W8, N8, prunes=prunes["8m50"])))
+        parts += [f"{name} {d['ms'][n]:.4f} ms, bound "
+                  + "{:.4f} by {}".format(*vis_bound(n, d["W"], d["N"], prunes=d["prunes"]))
+                  for name, d in dense.items()]
+        parts.append(f"1m50 with the points in Morton order {morton_ms[n]:.4f} ms")
+        print(f"[times] {card} | {n} " + "; ".join(parts), flush=True)
     for n in ("pass_b_recompute", "bwd_fused_acc"):
         b8 = vis_bound(n, W8, N8, skips["8m50"])
         bd = {name: vis_bound(n, d["W"], d["N"], d["counts"]) for name, d in dense.items()}
@@ -965,8 +1123,8 @@ def main() -> int:
               + ", ".join(f"{k} {v:.2f}" for k, v in top), flush=True)
 
     def vis_entry(n):
-        b_ref = vis_bound(n, *shape_wn["ref"], skips["ref"])
-        b_1m = vis_bound(n, *shape_wn["1m50"], skips["1m50"])
+        b_ref = vis_bound(n, *shape_wn["ref"], skips["ref"], prunes["ref"])
+        b_1m = vis_bound(n, *shape_wn["1m50"], skips["1m50"], prunes["1m50"])
         e = {"name": n, "route": "cuda", "source": VIS_SOURCE, "replaces": REPLACES[n],
              "launches": (launches8 if n in UNCACHED else launches)[n], "max_abs_err": errs[n],
              "ms": stage_ms["ref"][n][0], "plain_ms": stage_ms["ref"][n][1],
@@ -974,11 +1132,13 @@ def main() -> int:
              "ms_1m50": stage_ms["1m50"][n][0], "plain_ms_1m50": stage_ms["1m50"][n][1],
              "bound_ms_1m50": b_1m[0], "bound_by_1m50": b_1m[1]}
         if n in UNCACHED:
-            b_8 = vis_bound(n, W8, N8, skips["8m50"])
+            b_8 = vis_bound(n, W8, N8, skips["8m50"], prunes["8m50"])
             e.update(ms_8m50=stage_ms["8m50"][n], bound_ms_8m50=b_8[0], bound_by_8m50=b_8[1])
-        if n in ("pass_b_recompute", "bwd_fused_acc"):
+        if n in morton_ms:
+            e["ms_1m50_morton"] = morton_ms[n]
+        if n in ("pass_a", *UNCACHED):
             for name, d in dense.items():
-                b = vis_bound(n, d["W"], d["N"], d["counts"])
+                b = vis_bound(n, d["W"], d["N"], d["counts"], d["prunes"])
                 e.update({f"ms_{name}": d["ms"][n], f"bound_ms_{name}": b[0],
                           f"bound_by_{name}": b[1]})
         return e
@@ -998,7 +1158,8 @@ def main() -> int:
               "peak_mib_8m50": peak8,
               "rig_ms": rend["rig_ms"], "rig_peak_mib": rend["peak_mib"],
               "render_dropped_splats": rend["dropped"],
-              "skip_counts": {**skips, **{name: d["counts"] for name, d in dense.items()}}}
+              "skip_counts": {**skips, **{name: d["counts"] for name, d in dense.items()}},
+              "prune_counts": {**prunes, **{name: d["prunes"] for name, d in dense.items()}}}
     for e in record["kernels"]:
         nums = [v for k, v in e.items() if k.endswith("ms") or k == "max_abs_err"]
         if not all(isinstance(x, (int, float)) and math.isfinite(x) for x in nums if x is not None):

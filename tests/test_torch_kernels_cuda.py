@@ -81,10 +81,10 @@ def test_pass_a_matches_plain(inputs):
     m, mx, cache = _kernels.pass_a(x["wp"], x["kp"], x["Pt"], x["V"], x["k"])
     m_r, mx_r, cache_r = fv.pass_a_ref(x["wp"], x["kp"], x["Pt"], x["V"], x["k"])
     assert _kernels.LAUNCHES["pass_a"] == before + 1
-    # FMA contraction: not bit-equal. atol 1e-30 absorbs denormal minima only.
-    _close(m, m_r, rtol=1e-5, atol=1e-30)
-    _close(mx, mx_r, rtol=1e-5, atol=1e-30)
-    _close(cache, cache_r, rtol=1e-5, atol=1e-7)
+    # the score is built from explicitly rounded operations in the plain
+    # version's order: bit-equal on the card
+    torch.cuda.synchronize()
+    assert torch.equal(m, m_r) and torch.equal(mx, mx_r) and torch.equal(cache, cache_r)
     # the min/max are taken over exactly the cached values
     ok = x["V"] > 0
     assert torch.equal(m, torch.where(ok, cache, torch.full_like(cache, 3e38)).amin(1))
@@ -176,16 +176,15 @@ def test_uncached_regime_launches_only_its_kernels(inputs):
         "pass_a", "pass_b", "bwd_stats", "bwd_apply"}
 
 
-def _skip_case(dev, name):
+def _skip_case(dev, name, W=50):
     """Inputs of K1′, K2′ and K5 that exercise their skips: "sparse" a seeded
-    uniform ±20 m cloud of 262,144 points on the 50-waypoint path of the
+    uniform ±20 m cloud of 262,144 points on the W-waypoint path of the
     8,388,608 × 50 shape (few warps take the gradient chain); "dense" 65,536
     points in view of 50 close waypoints (``in_view_case``: every warp takes
     it); "ties" the dense cloud with two copies of each waypoint's lowest-
     and highest-scoring point first (min and max ties with s ≠ 0); "one" and
     "ragged" the first 1 and 1,025 points of the tie cloud (a partial warp
     and block). Returns (wp, kp, pts_t, valid, g, k)."""
-    W = 50
     if name == "sparse":
         pts = np.random.default_rng(8).uniform(-20, 20, size=(262_144, 3)).astype(np.float32)
         t = np.linspace(0, 1, W, dtype=np.float32)
@@ -245,6 +244,81 @@ def test_skipping_kernels_are_reproducible(dev, name):
     lo_a, lo_b = (_kernels.pass_b_recompute(wp, kp, norm, Pt, k) for _ in range(2))
     torch.cuda.synchronize()
     assert torch.equal(a, b) and torch.equal(lo_a, lo_b)
+
+
+PASS_A_CASES = ["ref", "sparse", "dense", "one", "ragged", "w1", "w130", "all_invalid",
+                "some_invalid"]
+
+
+def _pass_a_case(dev, name, inputs):
+    """(wp, kp, pts_t, valid, k) for pass A: "ref" cloud 10 as the facade
+    pads it; "sparse", "dense", "one" and "ragged" as in ``_skip_case`` (the
+    dense cloud has no zero score: nothing may be pruned); "w1" and "w130"
+    the sparse cloud with 1 and 130 waypoints (more than one shared-memory
+    stage); "all_invalid" and "some_invalid" the sparse cloud with no valid
+    point and with every third point invalid."""
+    if name == "ref":
+        return tuple(inputs[n] for n in ("wp", "kp", "Pt", "V", "k"))
+    base = name if name in ("dense", "one", "ragged") else "sparse"
+    wp, kp, pts_t, valid, _, k = _skip_case(dev, base, W={"w1": 1, "w130": 130}.get(name, 50))
+    if name == "all_invalid":
+        valid = torch.zeros_like(valid)
+    elif name == "some_invalid":
+        valid = (torch.arange(len(valid), device=dev) % 3 != 0).float()
+    return wp, kp, pts_t, valid, k
+
+
+@pytest.mark.parametrize("name", PASS_A_CASES)
+def test_pass_a_kernels_equal_plain(dev, inputs, name):
+    """K1's min, max and cache and K1′'s min and max are the plain pass A's
+    bit for bit (so K1′'s are K1's), whatever pass A prunes."""
+    args = _pass_a_case(dev, name, inputs)
+    m, mx, cache = _kernels.pass_a(*args)
+    m1, mx1 = _kernels.pass_a_minmax(*args)
+    m_r, mx_r, cache_r = fv.pass_a_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(m, m_r) and torch.equal(mx, mx_r) and torch.equal(cache, cache_r)
+    assert torch.equal(m1, m_r) and torch.equal(mx1, mx_r)
+    wp, kp, pts_t, valid, k = args
+    masks = fv.prune_masks(wp, kp, pts_t, k, m_r, mx_r)
+    if name in ("sparse", "w130", "some_invalid"):  # each kind of pruning has pairs to take
+        assert bool(masks.zero.any()) and bool(masks.under_max.any())
+    elif name == "dense":  # every score is positive: neither kind may happen
+        assert bool((m_r > 0).all()) and not bool((masks.zero | masks.under_max).any())
+    elif name == "all_invalid":
+        assert bool((m == _kernels.BIG).all()) and bool((mx == -_kernels.BIG).all())
+
+
+@pytest.mark.parametrize("name", ["ref", "sparse", "dense"])
+def test_pass_a_kernels_are_reproducible(dev, inputs, name):
+    """Min and max do not depend on the order of the atomic merges: two
+    launches on the same inputs agree bit for bit."""
+    args = _pass_a_case(dev, name, inputs)
+    a, b = _kernels.pass_a(*args), _kernels.pass_a(*args)
+    a1, b1 = _kernels.pass_a_minmax(*args), _kernels.pass_a_minmax(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip((*a, *a1), (*b, *b1)))
+
+
+def test_pass_a_nan_waypoint_gives_nan_min_and_max(dev, inputs):
+    """A NaN waypoint's min and max are NaN, as the plain version's amin and
+    amax and the JAX twin's jnp.min and jnp.max give them (pinned on the CPU
+    in tests/test_torch_fused_vis_prune.py); the other waypoints are
+    untouched, and without a valid point the sentinels come back."""
+    wp, kp, pts_t, valid, k = _pass_a_case(dev, "sparse", inputs)
+    wp = wp.clone()
+    wp[7, 9:] = float("nan")
+    m_r, mx_r, cache_r = fv.pass_a_ref(wp, kp, pts_t, valid, k)
+    for got in (_kernels.pass_a(wp, kp, pts_t, valid, k)[:2],
+                _kernels.pass_a_minmax(wp, kp, pts_t, valid, k)):
+        for t, t_r in zip(got, (m_r, mx_r)):
+            assert torch.equal(torch.isnan(t), torch.arange(50, device=dev) == 7)
+            assert torch.equal(torch.isnan(t_r), torch.isnan(t))
+            assert torch.equal(t[~torch.isnan(t)], t_r[~torch.isnan(t_r)])
+    cache = _kernels.pass_a(wp, kp, pts_t, valid, k)[2]
+    assert bool(torch.isnan(cache[7]).all()) and torch.equal(cache[:7], cache_r[:7])
+    m0, mx0 = _kernels.pass_a_minmax(wp, kp, pts_t, torch.zeros_like(valid), k)
+    assert bool((m0 == _kernels.BIG).all()) and bool((mx0 == -_kernels.BIG).all())
 
 
 def test_wrappers_reject_bad_inputs(inputs):

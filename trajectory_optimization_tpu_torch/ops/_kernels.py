@@ -17,7 +17,8 @@ Nothing here runs at import time: the CPU tests import this module without
 ``nvcc`` or a card.
 
 Every wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty``, launches on the current stream, raises if the
+outputs with ``torch.empty`` (pass A's min/max preset by one copy, see
+``_minmax_out``), launches on the current stream, raises if the
 C entry point returns a CUDA error, and only then adds one to its entry in
 ``LAUNCHES``.
 """
@@ -42,6 +43,11 @@ _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*_ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")
 LINK_FLAGS = (*_ARCH, "-shared")
 SPLAT_TILE_H, SPLAT_TILE_W = 32, 128  # the tile of csrc/splat_render.cu (checked at load)
+# Pass A's pruning constants, those of csrc/fused_vis.cu (checked at load; the
+# reasons for their values are given there). With T0 = d²·inv_var: T0 ≥
+# PRUNE_ZERO_T makes the score exactly +0; T0 > −2·log(M) + PRUNE_MAX_MARGIN
+# puts it under a score M ≥ PRUNE_MAX_FLOOR already seen.
+PRUNE_ZERO_T, PRUNE_MAX_MARGIN, PRUNE_MAX_FLOOR = 210.0, 0.015625, 1.0e-30
 
 # One count per kernel, raised only where the wrapper launches its kernel.
 LAUNCHES = {
@@ -51,8 +57,10 @@ LAUNCHES = {
 }
 
 BWD_SLOTS = 40  # K5's sums per waypoint (the JAX twin's layout)
+BIG = 3.0e38  # pass A's min of a waypoint without valid points; its max is −BIG
 
 _lib = None
+_sentinels = {}  # per device, the (2, 1) column [BIG, −BIG] that presets pass A's outputs
 build_log = ""  # nvcc's output (ptxas register/spill report) of the last build, per source
 
 
@@ -155,6 +163,14 @@ def _load():
                lib.sr_splat_runs, lib.sr_splat_dense, lib.sr_tile_h, lib.sr_tile_w):
         fn.restype = I
     lib.sr_tile_h.argtypes = lib.sr_tile_w.argtypes = []
+    lib.fv_expf_zero_check.argtypes, lib.fv_expf_zero_check.restype = [P, P, P], I
+    consts = []
+    for fn in (lib.fv_prune_zero_t, lib.fv_prune_max_margin, lib.fv_prune_max_floor):
+        fn.argtypes, fn.restype = [], F
+        consts.append(fn())
+    if consts != [F(c).value for c in (PRUNE_ZERO_T, PRUNE_MAX_MARGIN, PRUNE_MAX_FLOOR)]:
+        raise RuntimeError(f"fused_vis.cu prunes with {consts}, the wrapper expects "
+                           f"{(PRUNE_ZERO_T, PRUNE_MAX_MARGIN, PRUNE_MAX_FLOOR)}")
     if (lib.sr_tile_h(), lib.sr_tile_w()) != (SPLAT_TILE_H, SPLAT_TILE_W):
         raise RuntimeError(f"splat_render.cu tiles are {lib.sr_tile_h()}x{lib.sr_tile_w()}, "
                            f"the wrapper expects {SPLAT_TILE_H}x{SPLAT_TILE_W}")
@@ -200,6 +216,17 @@ def _sizes(pts_t: torch.Tensor, wp: torch.Tensor):
     return N, W
 
 
+def _minmax_out(W: int, device) -> torch.Tensor:
+    """Pass A's (2, W) output, row 0 the minima and row 1 the maxima, preset
+    to what a waypoint without valid points returns (the kernel merges into
+    it with atomic min/max): the wrapper's one initialising op."""
+    col = _sentinels.get(device)
+    if col is None:
+        col = _sentinels[device] = torch.tensor([[BIG], [-BIG]], dtype=torch.float32,
+                                                device=device)
+    return col.repeat(1, W)  # always a copy (expand().contiguous() is col itself at W = 1)
+
+
 def pass_a(wp, kp, pts_t, valid, k):
     """K1: returns (m (W,), M (W,), scores (W, N))."""
     N, W = _sizes(pts_t, wp)
@@ -208,16 +235,14 @@ def pass_a(wp, kp, pts_t, valid, k):
         _check("wp", wp, (W, 12)), _check("kp", kp, (4,)),
     )
     lib = _load()
-    nb = _n_blocks(N)
     cache = torch.empty((W, N), dtype=torch.float32, device=pts_t.device)
-    pmin = torch.empty((nb, W), dtype=torch.float32, device=pts_t.device)
-    pmax = torch.empty((nb, W), dtype=torch.float32, device=pts_t.device)
+    m, mx = _minmax_out(W, pts_t.device).unbind(0)
     with torch.cuda.device(pts_t.device):
         rc = lib.fv_pass_a(*args, N, W, *_consts_args(k), cache.data_ptr(),
-                           pmin.data_ptr(), pmax.data_ptr(), _stream(pts_t))
+                           m.data_ptr(), mx.data_ptr(), _stream(pts_t))
     _raise_on(rc, "pass_a")
     LAUNCHES["pass_a"] += 1
-    return torch.amin(pmin, dim=0), torch.amax(pmax, dim=0), cache
+    return m, mx, cache
 
 
 def pass_b(norm, scores, eps):
@@ -275,15 +300,27 @@ def pass_a_minmax(wp, kp, pts_t, valid, k):
         _check("wp", wp, (W, 12)), _check("kp", kp, (4,)),
     )
     lib = _load()
-    nb = _n_blocks(N)
-    pmin = torch.empty((nb, W), dtype=torch.float32, device=pts_t.device)
-    pmax = torch.empty((nb, W), dtype=torch.float32, device=pts_t.device)
+    m, mx = _minmax_out(W, pts_t.device).unbind(0)
     with torch.cuda.device(pts_t.device):
-        rc = lib.fv_pass_a_minmax(*args, N, W, *_consts_args(k), pmin.data_ptr(),
-                                  pmax.data_ptr(), _stream(pts_t))
+        rc = lib.fv_pass_a_minmax(*args, N, W, *_consts_args(k), m.data_ptr(),
+                                  mx.data_ptr(), _stream(pts_t))
     _raise_on(rc, "pass_a_minmax")
     LAUNCHES["pass_a_minmax"] += 1
-    return torch.amin(pmin, dim=0), torch.amax(pmax, dim=0)
+    return m, mx
+
+
+def expf_zero_check(device) -> tuple[int, int]:
+    """The premise of pass A's exact-zero pruning, tried on the card: returns
+    (the number of floats x ≤ −PRUNE_ZERO_T / 2, every bit pattern down to
+    −inf; how many of them have expf(x) ≠ 0 in the kernels' build). Not a
+    kernel of any path: it has no entry in ``LAUNCHES``."""
+    lib = _load()
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    n = ctypes.c_ulonglong(0)
+    with torch.cuda.device(device):
+        rc = lib.fv_expf_zero_check(bad.data_ptr(), ctypes.addressof(n), _stream(bad))
+    _raise_on(rc, "expf_zero_check")
+    return int(n.value), int(bad.item())
 
 
 def pass_b_recompute(wp, kp, norm, pts_t, k):

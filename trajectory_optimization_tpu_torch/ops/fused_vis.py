@@ -29,7 +29,9 @@ inputs and outputs. The stage wrapper runs the plain version for CPU tensors
 only; for a CUDA tensor it launches the kernel (``ops._kernels``) or raises.
 K2′ and K5 skip the pairs whose terms are exactly zero; ``skip_masks`` gives
 their predicates in plain PyTorch, and ``warp_groups`` and
-``with_extreme_ties`` help count and test them.
+``with_extreme_ties`` help count and test them. Pass A (K1, K1′) finishes a
+pair after the score's distance term where that already decides that the
+pair changes neither min nor max; ``prune_masks`` gives those predicates.
 
 Layout: points as a contiguous SoA (3, N) f32, transposed once per problem;
 ``valid`` and the cotangent as (N,) f32; the waypoint table ``wp`` (W, 12) =
@@ -48,7 +50,7 @@ from trajectory_optimization_tpu_torch.ops import quat as quat_ops
 SCORE_CACHE_MAX_BYTES = 1 << 30  # the JAX twin's cache budget (pallas_vis.py)
 SCORE_CACHE_TILE = 32768  # the JAX twin pads N to its point tile (TILE_ROWS·LANES)
 SPAN_FLOOR = 1e-8
-_BIG = 3.0e38
+_BIG = _kernels.BIG
 
 
 class VisConsts(NamedTuple):
@@ -113,8 +115,9 @@ def _extras(wp, kp, pts_t, k: VisConsts):
     xu = torch.clamp(xu_raw, -20.0, 20.0)
     xv = torch.clamp(xv_raw, -20.0, 20.0)
     sig = torch.sigmoid(cz)
-    arg = -0.5 * (d2 * k.inv_var + xu * xu + xv * xv)
-    return arg, dict(ex=ex, ey=ey, ez=ez, u=u, v=v, inv_zd=inv_zd, xu=xu, xv=xv,
+    t0 = d2 * k.inv_var  # the distance term: arg ≤ −t0 / 2, what pass A prunes with
+    arg = -0.5 * (t0 + xu * xu + xv * xv)
+    return arg, dict(ex=ex, ey=ey, ez=ez, u=u, v=v, inv_zd=inv_zd, xu=xu, xv=xv, t0=t0,
                      xu_raw=xu_raw, xv_raw=xv_raw, sig=sig, fx=fx, fy=fy, cx0=cx0, cy0=cy0)
 
 
@@ -344,6 +347,31 @@ def skip_masks(wp, kp, norm, pts_t, valid, k: VisConsts) -> SkipMasks:
     eqmin, eqmax = _ties(norm, s, valid)
     nan = torch.isnan(s)
     return SkipMasks(active | nan, ((eqmin | eqmax) & (s != 0)) | nan, sm * norm[:, 1:2] > 0.5)
+
+
+class PruneMasks(NamedTuple):
+    """(W, N) bool masks of the pairs that pass A finishes after the score's
+    distance term t0 = d²·inv_var, disjoint."""
+
+    zero: torch.Tensor  # t0 ≥ zero_t: the score is exactly +0 (K1 caches the 0; K1′ takes it)
+    under_max: torch.Tensor  # K1′ only: the waypoint's min is 0 and t0 puts the score under M
+
+
+def prune_masks(wp, kp, pts_t, k: VisConsts, m, M, zero_t: float = _kernels.PRUNE_ZERO_T,
+                max_margin: float = _kernels.PRUNE_MAX_MARGIN) -> PruneMasks:
+    """The predicates of pass A's pruning in plain PyTorch, with the kernels'
+    constants. ``m`` and ``M`` (W,) are a waypoint's min and max so far: any
+    scores of its valid points, as the kernels' running values are, or the
+    final ones, which prune the most. Since s ≤ exp(arg) and arg ≤ −t0 / 2,
+    ``zero`` pairs have s = +0 exactly (for finite inputs; NaN fails every
+    test) and ``under_max`` pairs s ≤ M, where m = 0 means no score can lower
+    the min any more. Used to count the work that the kernels do and to test
+    that what they leave out cannot change min or max; not on the main path."""
+    t0 = _extras(wp, kp, pts_t, k)[1]["t0"]
+    zero = t0 >= zero_t
+    thr = torch.where((m == 0) & (M >= _kernels.PRUNE_MAX_FLOOR), -2.0 * torch.log(M) + max_margin,
+                      torch.full_like(M, float("inf")))
+    return PruneMasks(zero, ~zero & (t0 > thr[:, None]))
 
 
 def warp_groups(mask):
