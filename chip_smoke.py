@@ -8,7 +8,7 @@ Phases, each printing one line (any failure raises and exits non-zero):
 1. device — needs CUDA; prints ``nvidia-smi`` name and power limit; TF32 off.
 2. build — compiles every ``csrc/*.cu`` (``fused_vis.cu``, ``splat_render.cu``)
    with nvcc for sm_90a, in parallel, into one library; prints ptxas's
-   registers and spills (K1, K1′, K2′, K5, K6 and K7 on stdout). Then the
+   registers and spills (K1, K1′, K2′, K3, K4, K5, K6 and K7 on stdout). Then the
    premise of pass A's exact-zero pruning is tried on the card: ``expf(x)``
    is 0 for every float x ≤ −``PRUNE_ZERO_T``/2, all bit patterns, one launch.
 3. kernels — K1–K4 and the uncached regime's K1′, K2′ and K5 against their
@@ -25,6 +25,13 @@ Phases, each printing one line (any failure raises and exits non-zero):
    on a dense case (1,048,576 points in view of 50 close waypoints: every
    warp takes the chain) and a tie case (that cloud plus two copies of each
    waypoint's lowest- and highest-scoring point: ties with s ≠ 0).
+   K3 also leaves the need mask, one bit per pair that can add a nonzero
+   term to K4, and K4 computes only the flagged pairs: at every shape, the
+   dense and tie cases included, the mask is ``torch.equal`` to the plain
+   one, K4 on it matches the plain K4 that computes every pair and adds
+   its terms in float64 (rtol 2e-3 / atol 2e-3), two launches of each agree
+   bit for bit and a call is one device operation; per shape,
+   the share of pairs and of 32-point groups the mask flags.
    Pass A (K1, K1′) finishes a pair after the score's distance term where
    that decides it (``fused_vis.prune_masks``): at every shape, the dense and
    tie cases included (nothing is pruned there), K1's min, max and cache and
@@ -62,7 +69,7 @@ Phases, each printing one line (any failure raises and exits non-zero):
 
 The line before the last is the kernels' JSON record (all nine kernels, each
 with its bound: the larger of the bytes it must move over 3.35 TB/s and its
-operations over 67 TFLOP/s, K1's, K1′'s, K5's and K2′'s operations counted
+operations over 67 TFLOP/s, K1's, K1′'s, K4's, K5's and K2′'s work counted
 on the pairs these inputs need); the last line is ``{"ok": true, "device":
 {...}}``. Imports nothing of JAX.
 """
@@ -100,7 +107,11 @@ F32_OPS_PER_MS = 67e9  # H100 SXM f32 outside the tensor cores, published
 # Operations per (waypoint, point) of each fused-visibility kernel, counted
 # from its plain version (ops/fused_vis.py): every +, -, x, comparison,
 # clamp bound and select is 1, and so are exp, log and a division; sigmoid
-# is 3 (exp, add, division). The score (_extras + exp) is 59.
+# is 3 (exp, add, division). The score (_extras + exp) is 59. K4 runs its 141
+# only on the pairs that K3's need mask flags (``need_counts``), and reads,
+# beside the mask, the 4-byte score of each flagged pair and the 20 bytes of
+# x, y, z, g and valid of each point that some waypoint flags (each input
+# byte once).
 VIS_OPS = {"pass_b": 8, "bwd_stats": 30, "bwd_apply": 141}
 # Pass A (K1, K1′) needs a pair's whole score (59), its valid select and the
 # min and max (63 in all) only where the distance term does not decide the
@@ -138,16 +149,18 @@ def bound(nbytes: float, ops: float):
 def vis_bound(name: str, W: int, N: int, skips=None, prunes=None):
     """Each input read once and each output written once, per fused kernel;
     K5's and K2′'s operations on the pairs that ``skips`` (``skip_counts``
-    of these inputs) says they need, K1's and K1′'s on those that ``prunes``
-    (``prune_counts``) leaves."""
-    pts, cache = 12 * N, 4 * W * N
+    of these inputs) says they need, K4's operations and reads on the pairs
+    and points that K3's mask flags (``need_counts``, merged into ``skips``),
+    K1's and K1′'s on those that ``prunes`` (``prune_counts``) leaves."""
+    pts, cache, mask = 12 * N, 4 * W * N, 4 * W * (-(-N // 32))
     nbytes = {
         "pass_a": pts + 4 * N + 48 * W + cache + 8 * W,
         "pass_a_minmax": pts + 4 * N + 48 * W + 8 * W,
         "pass_b": cache + 16 * W + 4 * N,
         "pass_b_recompute": pts + 48 * W + 16 * W + 4 * N,
-        "bwd_stats": cache + 16 * W + 8 * N + 16 * W,
-        "bwd_apply": 48 * W + 24 * W + pts + 8 * N + cache + 48 * W,
+        "bwd_stats": cache + 16 * W + 8 * N + 16 * W + mask,
+        "bwd_apply": 48 * W + 24 * W + 48 * W + mask + (
+            4 * skips["k4_pairs"] + 20 * skips["k4_points"] if name == "bwd_apply" else 0),
         "bwd_fused_acc": 48 * W + 16 * W + pts + 8 * N + 160 * W,
     }[name]
     if name == "bwd_fused_acc":
@@ -155,6 +168,8 @@ def vis_bound(name: str, W: int, N: int, skips=None, prunes=None):
                + K5_OPS["tie"] * skips["tie"])
     elif name == "pass_b_recompute":
         ops = K2P_OPS["hot"] * W * N + K2P_OPS["unclipped"] * skips["unclipped"]
+    elif name == "bwd_apply":
+        ops = VIS_OPS[name] * skips["k4_pairs"]
     elif name in ("pass_a", "pass_a_minmax"):
         full = prunes["scored" if name == "pass_a" else "scored_valid"]
         seen = prunes["pairs" if name == "pass_a" else "valid_pairs"]
@@ -196,6 +211,27 @@ def skip_counts(masks):
             "need": int(need.sum()), "unclipped": int(masks.unclipped.sum()),
             "groups": W * (-(-N // 32)), "need_groups": groups(need),
             "unclipped_groups": groups(masks.unclipped)}
+
+
+def need_counts(need):
+    """Counts of K3's need mask (W, ceil(N / 32)) int32: the pairs it flags
+    (set bits), the (waypoint, 32-point group)s that hold one (nonzero words)
+    and the points that some waypoint flags."""
+    import torch
+
+    def set_bits(words):
+        return sum(int(((words >> b) & 1).sum()) for b in range(32))
+
+    any_waypoint = need[0].clone()
+    for row in need[1:]:
+        any_waypoint |= row
+    return {"k4_pairs": set_bits(need), "k4_groups": int(torch.count_nonzero(need)),
+            "k4_points": set_bits(any_waypoint)}
+
+
+def need_text(c):
+    return (f"K4's mask flags {c['k4_pairs'] / c['pairs']:.6f} of pairs, "
+            f"{c['k4_groups'] / c['groups']:.6f} of 32-point groups")
 
 
 def prune_counts(masks, valid):
@@ -512,6 +548,9 @@ def main() -> int:
     for kname, mangled in (("pass_a_kernel<true> (K1)", "pass_a_kernelILb1E"),
                            ("pass_a_kernel<false> (K1')", "pass_a_kernelILb0E"),
                            ("pass_b_recompute_kernel (K2')", "pass_b_recompute_kernel"),
+                           ("bwd_stats_kernel<true> (K3, 16-byte loads)", "bwd_stats_kernelILb1E"),
+                           ("bwd_stats_kernel<false> (K3, scalar loads)", "bwd_stats_kernelILb0E"),
+                           ("bwd_apply_kernel (K4)", "bwd_apply_kernel"),
                            ("bwd_fused_kernel (K5)", "bwd_fused_kernel"),
                            ("splat_runs_kernel (K6)", "splat_runs_kernel"),
                            ("splat_dense_kernel (K7)", "splat_dense_kernel")):
@@ -657,6 +696,62 @@ def main() -> int:
             same(f"{what} {name}, second launch against the first", got, want)
         return m, mx, cache, m_r, mx_r, cache_r
 
+    def cached_backward(name, wp, kp, Pt, V, g, k, cache, norm, eps):
+        """K3 and K4 on one cache against their plain versions: K3's sums
+        rtol 2e-3 / atol 2e-3, its tie counts and need mask exact; K4 on that
+        mask, rtol 2e-3 / atol 2e-3, against the plain K4 that computes every
+        pair and adds its f32 terms in float64 (on the dense and tie cases a
+        sum of order 1 comes from terms whose magnitudes add up to 1e6, and
+        an f32 sum of them is itself off by 5e-3 and more); a second launch
+        of each bit-equal to the first. Returns (K3's table, its mask, norm2,
+        K4's sums, the two max |err|, that plain K4's sums)."""
+        st, need = _kernels.bwd_stats(norm, cache, V, g, eps)
+        st_r, need_r = fv.bwd_stats_ref(norm, cache, V, g, eps)
+        e3 = close(f"K3 sums {name}", st[:, :2], st_r[:, :2], 2e-3, 2e-3)
+        if not torch.equal(st[:, 2:], st_r[:, 2:]):
+            fail(f"K3 tie counts {name}: {st[:, 2:].tolist()} vs {st_r[:, 2:].tolist()}")
+        same(f"K3 need mask {name} against the plain mask", need, need_r)
+        del need_r
+        alpha = st[:, 0] / torch.clamp(st[:, 2], min=1.0)
+        beta = st[:, 1] / torch.clamp(st[:, 3], min=1.0)
+        norm2 = torch.cat([norm, alpha[:, None], beta[:, None]], dim=1).contiguous()
+        sums = _kernels.bwd_apply(wp, kp, norm2, Pt, V, g, cache, need, k)
+        sums_r = fv.bwd_apply_ref(wp, kp, norm2, Pt, V, g, cache, need, k, sum_dtype=torch.float64)
+        e4 = close(f"K4 sums {name}", sums, sums_r, 2e-3, 2e-3)
+        st2, need2 = _kernels.bwd_stats(norm, cache, V, g, eps)
+        sums2 = _kernels.bwd_apply(wp, kp, norm2, Pt, V, g, cache, need, k)
+        sync()
+        for what, got, want in (("K3 table", st2, st), ("K3 need mask", need2, need),
+                                ("K4 sums", sums2, sums)):
+            same(f"{what} {name}, second launch against the first", got, want)
+        return st, need, norm2, sums, e3, e4, sums_r
+
+    def kernel_device_ms(fn, kernel, reps=10):
+        """Mean device time in ms of the launches whose name holds ``kernel``
+        in a torch.profiler trace of ``reps`` calls of fn (the kernel alone,
+        without the wrapper's host time that the CUDA-event times include
+        where it is the longer); None if the trace holds no such activity."""
+        fn()
+        sync()
+
+        def run():
+            for _ in range(reps):
+                fn()
+
+        for _ in range(3):  # a trace now and then comes back without its device activity
+            spans = [e.time_range.end - e.time_range.start for e in traced(run, sync)[0].events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+            if spans:
+                return sum(spans) / len(spans) / 1e3
+        return None
+
+    def cached_bwd_device_ms(wp, kp, Pt, V, g, k, cache, norm, norm2, need, eps):
+        return {"bwd_stats": kernel_device_ms(
+                    lambda: _kernels.bwd_stats(norm, cache, V, g, eps), "bwd_stats_kernel"),
+                "bwd_apply": kernel_device_ms(
+                    lambda: _kernels.bwd_apply(wp, kp, norm2, Pt, V, g, cache, need, k),
+                    "bwd_apply_kernel")}
+
     def device_ops(fn):
         """Device operations (kernels, copies) of one call of fn, from a
         torch.profiler trace; 0 if the trace holds no device activity."""
@@ -666,7 +761,7 @@ def main() -> int:
 
     cases = [shape_case("ref", cloud10, path10), shape_case("1m50", big_pts, big_path)]
     errs = {k: 0.0 for k in VIS}
-    stage_ms, shape_wn, skips, prunes = {}, {}, {}, {}
+    stage_ms, shape_wn, skips, prunes, dev_ms = {}, {}, {}, {}, {}
 
     # ---- 3. kernels against their plain versions ---------------------------
     for c in cases:
@@ -695,22 +790,11 @@ def main() -> int:
 
         g = criterion_cotangent(lo, c)
 
-        # K3: sums rtol 2e-3 / atol 2e-3; tie counts exact (same cache, same norm).
-        st = _kernels.bwd_stats(norm, cache, V, g, prob.eps)
-        st_r = fv.bwd_stats_ref(norm, cache, V, g, prob.eps)
-        e3 = close(f"K3 sums {c['name']}", st[:, :2], st_r[:, :2], 2e-3, 2e-3)
-        if not torch.equal(st[:, 2:], st_r[:, 2:]):
-            fail(f"K3 tie counts {c['name']}: {st[:, 2:].tolist()} vs {st_r[:, 2:].tolist()}")
+        # K3 and K4 (same cache, same norm): see cached_backward.
+        st, need, norm2, sums, e3, e4, _ = cached_backward(c["name"], wp, kp, Pt, V, g, k, cache,
+                                                           norm, prob.eps)
         errs["bwd_stats"] = max(errs["bwd_stats"], e3)
-
-        alpha = st[:, 0] / torch.clamp(st[:, 2], min=1.0)
-        beta = st[:, 1] / torch.clamp(st[:, 3], min=1.0)
-        norm2 = torch.cat([norm, alpha[:, None], beta[:, None]], dim=1).contiguous()
-        # K4: sums rtol 2e-3 / atol 2e-3.
-        sums = _kernels.bwd_apply(wp, kp, norm2, Pt, V, g, cache, k)
-        sums_r = fv.bwd_apply_ref(wp, kp, norm2, Pt, V, g, cache, k)
-        errs["bwd_apply"] = max(errs["bwd_apply"], close(
-            f"K4 sums {c['name']}", sums, sums_r, 2e-3, 2e-3))
+        errs["bwd_apply"] = max(errs["bwd_apply"], e4)
 
         # K1′: the same score arithmetic as K1 without the cache, so its
         # min/max are K1's bit for bit; against the plain K1 as K1 is.
@@ -742,7 +826,8 @@ def main() -> int:
         # linearity: the single pass, combined, is K4 with α and β from K3
         close(f"K5 combined vs K4 {c['name']}", fv.fused_acc_to_sums(acc, W), sums, 2e-3, 2e-3)
         del acc_r
-        skips[c["name"]] = skip_counts(fv.skip_masks(wp, kp, norm, Pt, V, k))
+        skips[c["name"]] = {**skip_counts(fv.skip_masks(wp, kp, norm, Pt, V, k)),
+                            **need_counts(need)}
 
         # the whole fused_lo_sum in both regimes against the plain autodiff
         # path: forward rtol 1e-4 / atol 2e-4, gradient w.r.t. quats and trans
@@ -793,8 +878,9 @@ def main() -> int:
                        cuda_ms(lambda: fv.pass_b_ref(norm, cache, prob.eps), reps)),
             "bwd_stats": (cuda_ms(lambda: _kernels.bwd_stats(norm, cache, V, g, prob.eps), reps),
                           cuda_ms(lambda: fv.bwd_stats_ref(norm, cache, V, g, prob.eps), reps)),
-            "bwd_apply": (cuda_ms(lambda: _kernels.bwd_apply(wp, kp, norm2, Pt, V, g, cache, k), reps),
-                          cuda_ms(lambda: fv.bwd_apply_ref(wp, kp, norm2, Pt, V, g, cache, k), reps)),
+            "bwd_apply": (
+                cuda_ms(lambda: _kernels.bwd_apply(wp, kp, norm2, Pt, V, g, cache, need, k), reps),
+                cuda_ms(lambda: fv.bwd_apply_ref(wp, kp, norm2, Pt, V, g, cache, need, k), reps)),
             "pass_a_minmax": (cuda_ms(lambda: _kernels.pass_a_minmax(wp, kp, Pt, V, k), reps),
                               cuda_ms(lambda: fv.pass_a_minmax_ref(wp, kp, Pt, V, k), reps)),
             "pass_b_recompute": (
@@ -804,6 +890,8 @@ def main() -> int:
                 cuda_ms(lambda: _kernels.bwd_fused_acc(wp, kp, norm, Pt, V, g, k), reps),
                 cuda_ms(lambda: fv.bwd_fused_acc_ref(wp, kp, norm, Pt, V, g, k), reps)),
         }
+        dev_ms[c["name"]] = cached_bwd_device_ms(wp, kp, Pt, V, g, k, cache, norm, norm2, need,
+                                                 prob.eps)
         if c["name"] == "1m50":
             # the same cloud in a coherent (Morton) order: the pruned pairs
             # then fill whole warps, K1's exact zeros included. Same set of
@@ -824,25 +912,34 @@ def main() -> int:
             del Pt_s, V_s, order
         print(f"[kernels] {c['name']} N={N} W={W}: K1-K4, K1', K2', K5 and fused_lo_sum (both "
               f"regimes) match their plain versions; K1 and K1' bit-equal to the plain pass A and "
-              f"to a second launch, K5 tie counts == K3's; "
+              f"to a second launch, K5 tie counts == K3's; K3's need mask == the plain mask, K3 "
+              f"and K4 bit-equal to a second launch; "
               f"max|err| " + ", ".join(f"{n}={v:.2e}" for n, v in errs.items())
-              + f"; {prune_text(prunes[c['name']])}; {skip_text(skips[c['name']])}", flush=True)
+              + f"; {prune_text(prunes[c['name']])}; {skip_text(skips[c['name']])}; "
+              f"{need_text(skips[c['name']])}", flush=True)
         if c["name"] == "ref":
-            # a pass A call is its kernel and at most one initialising operation
-            for n, fn in (("pass_a", _kernels.pass_a), ("pass_a_minmax", _kernels.pass_a_minmax)):
-                n_ops = device_ops(lambda: fn(wp, kp, Pt, V, k))
-                if n_ops > 2:
-                    fail(f"{n}: {n_ops} device operations in one call, expected at most 2")
+            # a pass A call is its kernel and at most one initialising
+            # operation; a K3 or K4 call is its kernel and nothing else
+            for n, fn, most in (
+                    ("pass_a", lambda: _kernels.pass_a(wp, kp, Pt, V, k), 2),
+                    ("pass_a_minmax", lambda: _kernels.pass_a_minmax(wp, kp, Pt, V, k), 2),
+                    ("bwd_stats", lambda: _kernels.bwd_stats(norm, cache, V, g, prob.eps), 1),
+                    ("bwd_apply",
+                     lambda: _kernels.bwd_apply(wp, kp, norm2, Pt, V, g, cache, need, k), 1)):
+                n_ops = device_ops(fn)
+                if n_ops > most:
+                    fail(f"{n}: {n_ops} device operations in one call, expected at most {most}")
                 print(f"[kernels] {n}: " + (f"{n_ops} device operations per call" if n_ops else
                       "device operations per call not measured (no device activity in the trace)"),
                       flush=True)
-        del cache
+        del cache, need
         torch.cuda.empty_cache()
 
-    # ---- 3b. K1, K1′, K5 and K2′ where they skip little: dense and tie cases --
-    # K5 sums rtol 2e-3 / atol 2e-3 and tie counts exactly equal, each plain
-    # version on the min/max of its own recompute; lo rtol 1e-4 / atol 2e-4;
-    # two launches of each kernel on the same inputs bit-equal.
+    # ---- 3b. the kernels where they skip little: dense and tie cases ----------
+    # K3 and K4 as above (cached_backward), on K1's cache of the case; K5 sums
+    # rtol 2e-3 / atol 2e-3 and tie counts exactly equal, each plain version on the min/max of its own
+    # recompute; lo rtol 1e-4 / atol 2e-4; two launches of each kernel on the
+    # same inputs bit-equal.
     kp0, k0 = kernel_inputs(cases[0])[3:]
     dense_pts, dense_q, dense_path = in_view_case(1_048_576, 50)
     R_c = quat_ops.to_matrix(quat_ops.normalize(torch.as_tensor(dense_q, device=dev)))
@@ -858,7 +955,7 @@ def main() -> int:
         g_c = torch.as_tensor(np.random.default_rng(1).normal(size=N_c).astype(np.float32),
                               device=dev)
         m_c, mx_c, cache_c, m_cr, mx_cr, cache_cr = pass_a_equal(name, wp_c, kp0, Pt_c, V_c, k0)
-        del cache_c, cache_cr
+        del cache_cr
         prune_c = prune_counts(fv.prune_masks(wp_c, kp0, Pt_c, k0, m_c, mx_c), V_c)
         if prune_c["scored"] != prune_c["pairs"] or prune_c["scored_valid"] != prune_c["pairs"]:
             fail(f"{name}: pass A would prune where every score is positive: {prune_c}")
@@ -881,7 +978,24 @@ def main() -> int:
             fail(f"dense: only {counts['need_groups']} of {counts['groups']} groups take K5's chain")
         if name == "ties" and not (bool((m_c > 0).all()) and bool((acc_c[:, 38:] >= 2).all())):
             fail(f"ties: m {m_c.min():.3e}, tie counts {acc_c[:, 38:].min():.0f}: no ties with s != 0")
+        st_c, need_c, norm2_c, sums_c, e3, e4, sums_cr = cached_backward(
+            name, wp_c, kp0, Pt_c, V_c, g_c, k0, cache_c, norm_c, k0.eps)
+        errs["bwd_stats"] = max(errs["bwd_stats"], e3)
+        errs["bwd_apply"] = max(errs["bwd_apply"], e4)
+        if not torch.equal(acc_c[:, 38:], st_c[:, 2:]):
+            fail(f"K5 tie counts {name}: {acc_c[:, 38:].tolist()} vs K3 {st_c[:, 2:].tolist()}")
+        # K5 adds in f32, so its sums, combined, carry the summation error
+        # that K4 and its reference are free of: reported, not held
+        k5_off = float((fv.fused_acc_to_sums(acc_c, len(dense_q)).double() - sums_cr).abs().max())
+        counts.update(need_counts(need_c))
+        if name == "dense" and counts["k4_groups"] != counts["groups"]:
+            fail(f"dense: K3's mask flags only {counts['k4_groups']} of {counts['groups']} groups")
+        dev_ms[name] = cached_bwd_device_ms(wp_c, kp0, Pt_c, V_c, g_c, k0, cache_c, norm_c, norm2_c,
+                                            need_c, k0.eps)
         dense[name] = {"counts": counts, "prunes": prune_c, "W": len(dense_q), "N": N_c, "ms": {
+            "bwd_stats": cuda_ms(lambda: _kernels.bwd_stats(norm_c, cache_c, V_c, g_c, k0.eps), 10),
+            "bwd_apply": cuda_ms(lambda: _kernels.bwd_apply(wp_c, kp0, norm2_c, Pt_c, V_c, g_c,
+                                                            cache_c, need_c, k0), 10),
             "pass_a": cuda_ms(lambda: _kernels.pass_a(wp_c, kp0, Pt_c, V_c, k0), 10),
             "pass_a_minmax": cuda_ms(lambda: _kernels.pass_a_minmax(wp_c, kp0, Pt_c, V_c, k0), 10),
             "pass_b_recompute": cuda_ms(
@@ -892,8 +1006,11 @@ def main() -> int:
               f"A (nothing pruned), K5 and K2' match their plain "
               f"versions, K5 tie counts equal, two launches bit-equal; m_w > 0 at "
               f"{int((m_c > 0).sum())} waypoints, tie counts >= {acc_c[:, 38:].min():.0f}; "
-              f"{skip_text(counts)}", flush=True)
-        del Pt_c, V_c, g_c, acc_c, acc_cr, lo_c
+              f"{skip_text(counts)}; K3 and K4 match their plain versions on K1's cache (need mask "
+              f"exact, K4 within 2e-3 of its plain terms added in float64, max |err| {e4:.3e}; K5 "
+              f"combined, added in f32, is {k5_off:.3e} from them; two launches bit-equal), "
+              f"{need_text(counts)}", flush=True)
+        del Pt_c, V_c, g_c, acc_c, acc_cr, lo_c, cache_c, need_c, st_c, sums_c, norm2_c, sums_cr
         torch.cuda.empty_cache()
     del wp_c, dense_pt
 
@@ -1092,6 +1209,25 @@ def main() -> int:
                   for name, d in dense.items()]
         parts.append(f"1m50 with the points in Morton order {morton_ms[n]:.4f} ms")
         print(f"[times] {card} | {n} " + "; ".join(parts), flush=True)
+    cached_bwd = {sh: {n: (stage_ms[sh][n][0], vis_bound(n, *shape_wn[sh], skips[sh]))
+                       for n in ("bwd_stats", "bwd_apply")} for sh in ("ref", "1m50")}
+    for name, d in dense.items():
+        cached_bwd[name] = {n: (d["ms"][n], vis_bound(n, d["W"], d["N"], d["counts"]))
+                            for n in ("bwd_stats", "bwd_apply")}
+        shape_wn[name] = (d["W"], d["N"])
+    for n in ("bwd_stats", "bwd_apply"):
+        print(f"[times] {card} | {n} " + "; ".join(
+            f"{sh} {v[n][0]:.4f} ms (the kernel alone "
+            + ("not measured" if dev_ms[sh][n] is None else f"{dev_ms[sh][n]:.4f}")
+            + f"), bound {v[n][1][0]:.4f} by {v[n][1][1]}" for sh, v in cached_bwd.items()),
+            flush=True)
+    # the pair against a yardstick that does not move with the design: one
+    # read of the (W, N) score cache at the card's memory rate
+    joint = {sh: (v["bwd_stats"][0] + v["bwd_apply"][0],
+                  4 * shape_wn[sh][0] * shape_wn[sh][1] / HBM_BYTES_PER_MS)
+             for sh, v in cached_bwd.items()}
+    print(f"[times] {card} | K3 + K4 against one read of the score cache: " + "; ".join(
+        f"{sh} {ms:.4f} ms, cache read {b:.4f} ms" for sh, (ms, b) in joint.items()), flush=True)
     for n in ("pass_b_recompute", "bwd_fused_acc"):
         b8 = vis_bound(n, W8, N8, skips["8m50"])
         bd = {name: vis_bound(n, d["W"], d["N"], d["counts"]) for name, d in dense.items()}
@@ -1136,7 +1272,7 @@ def main() -> int:
             e.update(ms_8m50=stage_ms["8m50"][n], bound_ms_8m50=b_8[0], bound_by_8m50=b_8[1])
         if n in morton_ms:
             e["ms_1m50_morton"] = morton_ms[n]
-        if n in ("pass_a", *UNCACHED):
+        if n in ("pass_a", "bwd_stats", "bwd_apply", *UNCACHED):
             for name, d in dense.items():
                 b = vis_bound(n, d["W"], d["N"], d["counts"], d["prunes"])
                 e.update({f"ms_{name}": d["ms"][n], f"bound_ms_{name}": b[0],
@@ -1156,6 +1292,9 @@ def main() -> int:
     record = {"kernels": [vis_entry(n) for n in VIS] + [splat_entry(n) for n in SPLAT],
               "step_ms": {f"{a}/{b}": v for (a, b), v in step_ms.items()},
               "peak_mib_8m50": peak8,
+              "cached_backward_ms": {sh: {"k3_plus_k4": ms, "cache_read_bound": b,
+                                          "kernel_alone": dev_ms[sh]}
+                                     for sh, (ms, b) in joint.items()},
               "rig_ms": rend["rig_ms"], "rig_peak_mib": rend["peak_mib"],
               "render_dropped_splats": rend["dropped"],
               "skip_counts": {**skips, **{name: d["counts"] for name, d in dense.items()}},

@@ -145,7 +145,7 @@ def test_pass_b_matches_pallas_stage(stages):
 def test_bwd_stats_matches_pallas_stage(stages):
     jx, tt = stages
     st = fv.bwd_stats_ref(torch.as_tensor(jx["norm"]), torch.as_tensor(jx["scores"]),
-                          tt["valid"], tt["g"], EPS).numpy()
+                          tt["valid"], tt["g"], EPS)[0].numpy()
     np.testing.assert_allclose(st[:, :2], jx["st"][:, :2], **GRAD)
     np.testing.assert_array_equal(st[:, 2:], jx["st"][:, 2:])  # same inputs: exact tie counts
     assert st[:, 2].max() > 1  # zero-score min ties are the common case
@@ -153,8 +153,10 @@ def test_bwd_stats_matches_pallas_stage(stages):
 
 def test_bwd_apply_matches_pallas_stage(stages):
     jx, tt = stages
+    scores = torch.as_tensor(jx["scores"])
+    need = fv.bwd_stats_ref(torch.as_tensor(jx["norm"]), scores, tt["valid"], tt["g"], EPS)[1]
     sums = fv.bwd_apply_ref(tt["wp"], tt["kp"], torch.as_tensor(jx["norm2"]), tt["pts_t"],
-                            tt["valid"], tt["g"], torch.as_tensor(jx["scores"]), tt["k"])
+                            tt["valid"], tt["g"], scores, need, tt["k"])
     np.testing.assert_allclose(sums.numpy(), jx["sums"], **GRAD)
 
 

@@ -158,11 +158,11 @@ def test_fused_acc_linearity_with_cached_backward(stages):
     norm = fv.make_norm(m, mx)
     acc = fv.bwd_fused_acc_ref(tt["wp"], tt["kp"], norm, tt["pts_t"], tt["valid"], tt["g"],
                                tt["k"])
-    st = fv.bwd_stats_ref(norm, scores, tt["valid"], tt["g"], EPS)
+    st, need = fv.bwd_stats_ref(norm, scores, tt["valid"], tt["g"], EPS)
     assert torch.equal(acc[:, 38:], st[:, 2:])  # the same recompute: the same ties
     norm2 = torch.cat([norm, st[:, :2] / st[:, 2:].clamp(min=1.0)], dim=1)
     sums = fv.bwd_apply_ref(tt["wp"], tt["kp"], norm2, tt["pts_t"], tt["valid"], tt["g"], scores,
-                            tt["k"])
+                            need, tt["k"])
     np.testing.assert_allclose(fv.fused_acc_to_sums(acc, len(norm)).numpy(), sums.numpy(),
                                **GRAD)
 

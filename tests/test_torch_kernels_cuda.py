@@ -96,12 +96,13 @@ def test_later_stages_match_plain(inputs):
     m, mx, cache = _kernels.pass_a(x["wp"], x["kp"], x["Pt"], x["V"], x["k"])
     norm = fv.make_norm(m, mx)
     _close(_kernels.pass_b(norm, cache, EPS), fv.pass_b_ref(norm, cache, EPS), **FWD)
-    st = _kernels.bwd_stats(norm, cache, x["V"], x["g"], EPS)
-    st_r = fv.bwd_stats_ref(norm, cache, x["V"], x["g"], EPS)
+    st, need = _kernels.bwd_stats(norm, cache, x["V"], x["g"], EPS)
+    st_r, need_r = fv.bwd_stats_ref(norm, cache, x["V"], x["g"], EPS)
     _close(st[:, :2], st_r[:, :2], **GRAD)
     assert torch.equal(st[:, 2:], st_r[:, 2:])  # same cache and norm: exact tie counts
+    assert torch.equal(need, need_r)  # and the same need mask, word for word
     norm2 = torch.cat([norm, (st[:, :2] / st[:, 2:].clamp(min=1.0))], dim=1).contiguous()
-    args = (x["wp"], x["kp"], norm2, x["Pt"], x["V"], x["g"], cache, x["k"])
+    args = (x["wp"], x["kp"], norm2, x["Pt"], x["V"], x["g"], cache, need, x["k"])
     _close(_kernels.bwd_apply(*args), fv.bwd_apply_ref(*args), **GRAD)
 
 
@@ -137,10 +138,11 @@ def test_uncached_stages_match_plain(inputs):
     norm_r = fv.make_norm(*fv.pass_a_minmax_ref(*args))
     acc_r = fv.bwd_fused_acc_ref(x["wp"], x["kp"], norm_r, x["Pt"], x["V"], x["g"], x["k"])
     _close(acc[:, :38], acc_r[:, :38], **GRAD)
-    st = _kernels.bwd_stats(norm, cache, x["V"], x["g"], EPS)
+    st, need = _kernels.bwd_stats(norm, cache, x["V"], x["g"], EPS)
     assert torch.equal(acc[:, 38:], st[:, 2:])  # K3's tie counts, exactly
     norm2 = torch.cat([norm, (st[:, :2] / st[:, 2:].clamp(min=1.0))], dim=1).contiguous()
-    sums = _kernels.bwd_apply(x["wp"], x["kp"], norm2, x["Pt"], x["V"], x["g"], cache, x["k"])
+    sums = _kernels.bwd_apply(x["wp"], x["kp"], norm2, x["Pt"], x["V"], x["g"], cache, need,
+                              x["k"])
     _close(fv.fused_acc_to_sums(acc, len(norm)), sums, **GRAD)
 
 
@@ -319,6 +321,123 @@ def test_pass_a_nan_waypoint_gives_nan_min_and_max(dev, inputs):
     assert bool(torch.isnan(cache[7]).all()) and torch.equal(cache[:7], cache_r[:7])
     m0, mx0 = _kernels.pass_a_minmax(wp, kp, pts_t, torch.zeros_like(valid), k)
     assert bool((m0 == _kernels.BIG).all()) and bool((mx0 == -_kernels.BIG).all())
+
+
+CACHED_BWD_CASES = ["ref", "sparse", "dense", "ties", "one", "ragged", "ragged4", "w1", "w130",
+                    "some_invalid", "unaligned"]
+
+
+def _cached_bwd_case(dev, name, inputs):
+    """(wp, kp, pts_t, valid, g, k, cache, norm) for K3 and K4: the cases of
+    ``_pass_a_case`` and ``_skip_case`` ("ragged": N = 1,025, not a multiple
+    of 4, so K3 takes its scalar path), "ragged4" the first 1,028 points of
+    the tie cloud (the 16-byte path with a partial tile and a ragged last
+    mask word) and "unaligned" the sparse cloud with a score cache that
+    starts 4 bytes off a 16-byte boundary (the scalar path at N % 4 == 0)."""
+    if name == "ref":
+        wp, kp, pts_t, valid, k = (inputs[n] for n in ("wp", "kp", "Pt", "V", "k"))
+        g = inputs["g"]
+    elif name == "ragged4":
+        wp, kp, pts_t, valid, g, k = _skip_case(dev, "ties")
+        pts_t, valid, g = pts_t[:, :1028].contiguous(), valid[:1028].clone(), g[:1028].clone()
+    else:
+        base = name if name in ("dense", "ties", "one", "ragged") else "sparse"
+        wp, kp, pts_t, valid, g, k = _skip_case(dev, base, W={"w1": 1, "w130": 130}.get(name, 50))
+        if name == "some_invalid":
+            valid = (torch.arange(len(valid), device=dev) % 3 != 0).float()
+    m, mx, cache = _kernels.pass_a(wp, kp, pts_t, valid, k)
+    if name == "unaligned":
+        flat = torch.empty(cache.numel() + 1, device=dev)
+        flat[1:] = cache.reshape(-1)
+        cache = flat[1:].view(cache.shape)
+        assert cache.is_contiguous() and cache.data_ptr() % 16 == 4
+    return wp, kp, pts_t, valid, g, k, cache, fv.make_norm(m, mx)
+
+
+@pytest.mark.parametrize("name", CACHED_BWD_CASES)
+def test_cached_backward_kernels_match_plain(dev, inputs, name):
+    """K3's sums at the gradient bound, its tie counts and its need mask
+    exactly; K4 on that mask at the gradient bound against the plain K4 that
+    computes every pair; a second launch of each bit-equal to the first; the
+    arrival counters left at zero."""
+    wp, kp, Pt, V, g, k, cache, norm = _cached_bwd_case(dev, name, inputs)
+    before = dict(_kernels.LAUNCHES)
+    st, need = _kernels.bwd_stats(norm, cache, V, g, EPS)
+    st_r, need_r = fv.bwd_stats_ref(norm, cache, V, g, EPS)
+    _close(st[:, :2], st_r[:, :2], **GRAD)
+    assert torch.equal(st[:, 2:], st_r[:, 2:]) and torch.equal(need, need_r)
+    norm2 = torch.cat([norm, st[:, :2] / st[:, 2:].clamp(min=1.0)], dim=1).contiguous()
+    args = (wp, kp, norm2, Pt, V, g, cache, need, k)
+    sums = _kernels.bwd_apply(*args)
+    _close(sums, fv.bwd_apply_ref(*args), **GRAD)
+    assert _kernels.LAUNCHES["bwd_stats"] == before["bwd_stats"] + 1
+    assert _kernels.LAUNCHES["bwd_apply"] == before["bwd_apply"] + 1
+    st2, need2 = _kernels.bwd_stats(norm, cache, V, g, EPS)
+    sums2 = _kernels.bwd_apply(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(st, st2) and torch.equal(need, need2) and torch.equal(sums, sums2)
+    assert all(not bool(arrivals.any()) for arrivals, _ in _kernels._reduction_scratch.values())
+    groups = fv.warp_groups(fv.unpack_need(need, cache.shape[1])).float().mean().item()
+    if name == "sparse":
+        assert 0 < groups < 0.1
+    elif name == "dense":
+        assert groups == 1.0
+    elif name in ("ties", "one", "ragged", "ragged4"):  # ties with s != 0: K4 must chain them
+        assert bool((norm[:, 0] > 0).all()) and bool((st[:, 2:] >= 1).all())
+
+
+def test_cached_backward_scalar_path_equals_vector_path(dev, inputs):
+    """K3's two load paths see the same pairs: the same mask and counts bit
+    for bit, the float sums at the gradient bound (another summation order)."""
+    wp, kp, Pt, V, g, k, cache, norm = _cached_bwd_case(dev, "sparse", inputs)
+    off = _cached_bwd_case(dev, "unaligned", inputs)[6]
+    assert torch.equal(off, cache)
+    st, need = _kernels.bwd_stats(norm, cache, V, g, EPS)
+    st_s, need_s = _kernels.bwd_stats(norm, off, V, g, EPS)
+    assert torch.equal(need, need_s) and torch.equal(st[:, 2:], st_s[:, 2:])
+    _close(st_s[:, :2], st[:, :2], **GRAD)
+
+
+@pytest.mark.parametrize("what", ["alpha_inf", "beta_nan", "nan_score", "g_nan"])
+def test_cached_backward_nan_rule(dev, inputs, what):
+    """Where the plain K4 gives NaN the kernel does, and nowhere else: a
+    waypoint whose α or β is not finite has all 12 sums NaN though its mask
+    leaves nearly every pair out; a NaN score is flagged by K3 and a NaN
+    cotangent at a flagged pair reaches K4's sums (pinned on the CPU in
+    tests/test_torch_fused_vis_cached_bwd.py)."""
+    wp, kp, Pt, V, g, k, cache, norm = _cached_bwd_case(dev, "sparse", inputs)
+    if what == "nan_score":
+        cache = cache.clone()
+        cache[3, 12345] = float("nan")
+    if what == "g_nan":
+        mask = fv.unpack_need(_kernels.bwd_stats(norm, cache, V, g, EPS)[1], cache.shape[1])
+        g = g.clone()
+        g[int(torch.nonzero(mask[3])[0])] = float("nan")
+    st, need = _kernels.bwd_stats(norm, cache, V, g, EPS)
+    st_r, need_r = fv.bwd_stats_ref(norm, cache, V, g, EPS)
+    assert torch.equal(need, need_r) and torch.equal(torch.isnan(st), torch.isnan(st_r))
+    norm2 = torch.cat([norm, st[:, :2] / st[:, 2:].clamp(min=1.0)], dim=1).contiguous()
+    if what == "alpha_inf":
+        norm2[3, 4] = float("inf")
+    elif what == "beta_nan":
+        norm2[3, 5] = float("nan")
+    args = (wp, kp, norm2, Pt, V, g, cache, need, k)
+    sums, sums_r = _kernels.bwd_apply(*args), fv.bwd_apply_ref(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(sums_r[3]).all()) and not bool(torch.isnan(sums_r).all())
+    assert torch.equal(torch.isnan(sums), torch.isnan(sums_r))
+    ok = ~torch.isnan(sums_r)
+    _close(sums[ok], sums_r[ok], **GRAD)
+
+
+def test_cached_backward_wrappers_reject_bad_need(dev, inputs):
+    wp, kp, Pt, V, g, k, cache, norm = _cached_bwd_case(dev, "ref", inputs)
+    st, need = _kernels.bwd_stats(norm, cache, V, g, EPS)
+    norm2 = torch.cat([norm, st[:, :2]], dim=1).contiguous()
+    with pytest.raises(ValueError, match="int32"):
+        _kernels.bwd_apply(wp, kp, norm2, Pt, V, g, cache, need.long(), k)
+    with pytest.raises(ValueError, match="shape"):
+        _kernels.bwd_apply(wp, kp, norm2, Pt, V, g, cache, need[:, :-1].contiguous(), k)
 
 
 def test_wrappers_reject_bad_inputs(inputs):

@@ -144,10 +144,68 @@ def test_backend_resolution(problem_data):
     prob = tt.TrajProblem(INTR.width, INTR.height)
     assert tt._resolve_backend(prob, pts) == "torch"  # auto: plain path for CPU tensors
     assert tt._resolve_backend(dataclasses.replace(prob, backend="kernel"), pts) == "kernel"
+    # the JAX package's backend names are accepted for their twins
+    assert tt._resolve_backend(dataclasses.replace(prob, backend="pallas"), pts) == "kernel"
+    assert tt._resolve_backend(dataclasses.replace(prob, backend="xla"), pts) == "torch"
     with pytest.raises(ValueError, match="backend"):
-        tt._resolve_backend(dataclasses.replace(prob, backend="pallas"), pts)
+        tt._resolve_backend(dataclasses.replace(prob, backend="triton"), pts)
     with pytest.raises(NotImplementedError, match="soft_hpr"):
         tt._resolve_backend(dataclasses.replace(prob, soft_hpr=True), pts)
+
+
+def test_problem_fields_match_jax():
+    """Same fields, order and defaults as the JAX package's TrajProblem, so a
+    caller's keywords build either; the soft-HPR knobs raise the port's
+    NotImplementedError only together with soft_hpr=True."""
+    fields_j = [(f.name, f.default) for f in dataclasses.fields(jt.TrajProblem)]
+    fields_t = [(f.name, f.default) for f in dataclasses.fields(tt.TrajProblem)]
+    assert fields_t == fields_j
+    pts = torch.zeros(4, 3)
+    knobs = dict(soft_hpr_dense_max=1024, hpr_cap=256, hpr_safety=2.0)
+    prob = tt.TrajProblem(INTR.width, INTR.height, **knobs)
+    assert tt._resolve_backend(prob, pts) == "torch"
+    with pytest.raises(NotImplementedError, match="soft_hpr"):
+        tt._resolve_backend(dataclasses.replace(prob, soft_hpr=True), pts)
+
+
+@pytest.mark.parametrize("with_valid", [True, False])
+def test_plain_backend_checkpoint_keeps_the_bits(problem_data, with_valid):
+    """The plain backend rematerialises its (W, N) intermediates in the
+    backward pass (torch.utils.checkpoint, as the JAX XLA path uses
+    jax.checkpoint): loss, rewards and gradients are bit-equal to the same
+    chain run without the checkpoint, and no (W, N) tensor is saved."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # bit comparisons: one thread, restored below
+    try:
+        pts, valid, poses, quats, p0, q0 = problem_data
+        prob = tt.TrajProblem(INTR.width, INTR.height, wps_step=2, backend="torch")
+        P, K = torch.as_tensor(pts), INTR.matrix()
+        V = torch.as_tensor(valid) if with_valid else None
+        sel = slice(None, None, prob.wps_step)
+
+        def run(wrapped):
+            params = {k: v.requires_grad_(True) for k, v in tt.init_traj_params(poses, quats).items()}
+            saved = []
+            with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t.shape) or t,
+                                                          lambda t: t):
+                if wrapped:
+                    loss, aux = tt.traj_forward(params, P, K, torch.as_tensor(p0), torch.as_tensor(q0),
+                                                prob, valid=V)
+                else:
+                    lo = tt.plain_lo_sum(P, params["quats"][sel], params["poses"][sel], K, prob, V)
+                    loss, aux = tt.traj_criterion(lo, params, torch.as_tensor(p0), prob, valid=V)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            return loss.detach(), aux["rewards"].detach(), grads, saved
+
+        loss_c, rewards_c, grads_c, saved_c = run(True)
+        loss_p, rewards_p, grads_p, saved_p = run(False)
+        assert torch.equal(loss_c, loss_p) and torch.equal(rewards_c, rewards_p)
+        assert all(torch.equal(a, b) for a, b in zip(grads_c, grads_p))
+        W, N = len(poses[sel]), len(pts)
+        assert any(tuple(s) == (W, N) for s in saved_p)
+        assert not any(len(s) == 2 and s[0] == W and s[1] == N for s in saved_c)
+    finally:
+        torch.set_num_threads(n_threads)
 
 
 def test_init_params_match_jax(path10):

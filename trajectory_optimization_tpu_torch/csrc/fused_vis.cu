@@ -13,11 +13,14 @@
 // norm is (W, 4) = [m, inv_d, gate, M]; norm2 (W, 6) adds alpha and beta.
 // The ragged edge i >= N is masked in the kernel.
 //
-// Grid for K3, K4, K5: blockIdx.x over blocks of kBlockPts points (kPPT per
-// thread, neighbouring threads on neighbouring points), blockIdx.y over
-// chunks of kWChunk waypoints, a loop over the chunk's waypoints inside the
-// block. Per-block results go to (n_blocks, W[, slots]) partials that the
-// wrapper reduces with torch.sum: no float atomics, so a run is reproducible
+// Grid for K5: blockIdx.x over blocks of kBlockPts points (kPPT per thread,
+// neighbouring threads on neighbouring points), blockIdx.y over chunks of
+// kWChunk waypoints, a loop over the chunk's waypoints inside the block;
+// per-block results go to (n_blocks, W, 40) partials that the wrapper reduces
+// with torch.sum. K3 walks several point tiles per block and waypoint chunk,
+// K4 walks the need mask that K3 leaves (one warp per waypoint and range of
+// mask words); both finish their partials themselves, in the last block to
+// arrive (last_to_arrive). No float atomics anywhere, so a run is reproducible
 // bit for bit. K2 is one thread per point and K2' one thread per kPPT points,
 // looping over all W in order. Pass A (K1, K1') is a persistent grid sized to
 // the card: each block walks over point tiles, reads a tile's points once,
@@ -37,16 +40,17 @@
 // whose PyTorch ops each round once, so on the card the two agree bit for
 // bit as well. The gradient chain after the score keeps FMA contraction.
 //
-// The cached K2, K3 and K4 are bound by device-memory bandwidth, not
-// arithmetic: at 1M points x 50 waypoints each reads the 200 MB cache that K1
-// wrote, against ~40 flops and at most 2 exp per (w, i). The design answers
-// that only by touching each cache element once per kernel with coalesced
-// accesses and keeping the point coordinates of a block in registers across
-// its waypoint chunk. K2' and K5 read 16-20 B per point (and waypoint chunk)
-// and are bound by the recompute arithmetic instead. They compute only what
-// can be nonzero: outside the strict clip window (0.5, 1 - eps) a pair's log
-// term and direct gradient terms are exactly zero, as is a min or max tie's
-// term when its score is 0, and on a large map that is nearly every pair.
+// The cached K2 and K3 are bound by device-memory bandwidth, not arithmetic:
+// at 1M points x 50 waypoints each reads the 200 MB cache that K1 wrote,
+// against a few operations per (w, i). K3 answers with 16-byte loads started
+// ahead of their use and per-lane sums that are reduced once per block; it
+// also leaves one bit per pair that says whether the pair can add a nonzero
+// term to K4, so K4 reads that mask (W * N / 8 bytes) and only the pairs it
+// flags. K2' and K5 read 16-20 B per point (and waypoint chunk) and are bound
+// by the recompute arithmetic instead. K2', K4 and K5 compute only what can be
+// nonzero: outside the strict clip window (0.5, 1 - eps) a pair's log term
+// and direct gradient terms are exactly zero, as is a min or max tie's term
+// when its score is 0, and on a large map that is nearly every pair.
 // Pass A is bound by the score's arithmetic too (K1 also by its cache write)
 // and needs only min and max, so it finishes a pair after the score's first
 // 27 operations wherever those already decide that the pair changes neither
@@ -388,142 +392,497 @@ pass_b_kernel(const float* __restrict__ cache, const float* __restrict__ norm,
   lo[i] = acc;
 }
 
+// The last block of a group to arrive (one group per arrival counter) finishes
+// the group's reduction. Every block of the group writes its partial sums,
+// fences, and takes a ticket from the group's counter with an integer atomic;
+// the block that draws the last ticket sees every partial, sums them in a
+// fixed order (sum_parts) and puts the counter back to 0 for the next call.
+// No float atomics, no second launch, and two runs agree bit for bit.
+// Must be reached by all threads of the block; the threads that wrote the
+// block's partials have each passed a __threadfence() after their stores.
+__device__ __forceinline__ bool last_to_arrive(int* counter, int n_blocks) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(counter, 1) == n_blocks - 1;
+  }
+  __syncthreads();
+  if (last) __threadfence();  // the other blocks' partials, not a stale line
+  return last;
+}
+
+// One output of a final reduction: kSubLanes neighbouring lanes share it,
+// lane `sub` sums the partials sub, sub + kSubLanes, ... in that order and a
+// fixed shuffle tree adds the lanes up. Every lane of the warp must call it
+// (with n_parts == 0 where it has no output). Partials are doubles, sums and
+// counts alike (a count is exact in a double), and the result is rounded to
+// f32 by the caller, once.
+constexpr int kSubLanes = 8;
+
+__device__ __forceinline__ double sum_parts(const double* part, int n_parts, size_t stride) {
+  const int sub = threadIdx.x % kSubLanes;
+  double f = 0.0;
+  for (int x = sub; x < n_parts; x += kSubLanes)
+    f += __ldcg(part + (size_t)x * stride);  // from L2: written by other blocks
+#pragma unroll
+  for (int o = kSubLanes / 2; o > 0; o >>= 1) f += __shfl_xor_sync(kFullWarp, f, o);
+  return f;
+}
+
 // K3. Replaces pallas_vis.py _bwd_stats_kernel (backward B1, cached).
-// Bound by the cache read plus 4 B of g per point and chunk. Slots per w:
-// [sum c_pn*dpn/dm, sum c_pn*dpn/dM, #(s == m), #(s == M)], counts over
-// valid points; (n_blocks, W, 4) partials.
+// Outputs per w: [sum c_pn*dpn/dm, sum c_pn*dpn/dM, #(s == m), #(s == M)],
+// counts over valid points, and the need mask for K4: bit l of word j of row
+// w is set iff pair (w, 32 j + l) can add a nonzero term there, i.e. it lies
+// inside the strict clip window (c_pn != 0), or its score is not finite, or
+// it is a valid min or max tie with s != 0. Every other pair's term is
+// total * s * f with total == 0 or s == 0 and f finite: exactly zero. The
+// mask does not depend on g. Every word of need is written, bits of points
+// i >= N are 0.
+//
+// Bound by the one read of the (W, N) cache (plus the N/8 bytes of mask per
+// waypoint it writes), with ~12 operations per pair to hide under it. What
+// the design does:
+//  - A block owns kWChunk waypoints and walks point tiles blockIdx.x, +
+//    gridDim.x, ...; the grid is one wave of resident blocks. Scores are
+//    loaded kStatsStage waypoints at a time (16 bytes per thread and
+//    waypoint on the vector path) into one of two register buffers: while a
+//    stage is worked on, the next stage's 64 bytes per thread are in flight.
+//  - Nearly every warp of a large map holds only scores far under the clip
+//    window. Per waypoint, window_floor gives the exact floor of the window
+//    in score space; a warp whose |s| all lie under it has need word 0 and
+//    only its ties with a min of 0 to count: 4 operations per pair
+//    instead of 13, after one vote.
+//  - Tie counts are per-lane integers that live across all of the block's
+//    tiles and are reduced over the warp once per block.
+//  - The two float sums are zero unless a pair is inside the clip window or
+//    its score is not finite, so a warp votes (on the need bits it has just
+//    made) and takes them only where one of its lanes needs them. They are
+//    kept per thread and waypoint as doubles in shared memory, out of the
+//    registers of the common path, and rounded to f32 once per block: sums
+//    that cancel then depend on the summation order by far less than an f32
+//    rounding, which the 400-step optimization is sensitive to.
+//  - kVec: a thread holds 4 neighbouring points and loads float4 (N % 4 == 0
+//    and 16-byte aligned pointers, decided by the launcher); a warp then
+//    covers 4 mask words, 8 lanes each, put together with 3 shuffles. The
+//    scalar path holds points tid, tid + 256, ... and a ballot is the word.
+//  - The (gridDim.x, W, 4) partials are finished by the last block of each
+//    waypoint chunk to arrive (last_to_arrive).
+constexpr int kStatsStage = 4;  // waypoints whose loads are started together
+constexpr float kFltMax = 3.402823466e+38f;
+static_assert(kThreads / kSubLanes == kWChunk * 4, "one final-reduction output per 8 lanes");
+static_assert(kBlockPts == 1024 && kPPT == 4, "a tile is 32 mask words, 4 per warp");
+
+// The smallest non-negative float s with fl(fl(s - m) * inv_d) > 0.5, the
+// floor of the clip window (+inf if there is none). The rounded subtraction
+// and the multiplication by a positive factor are monotone in s, so no score
+// with |s| below it is inside the window; found by bisection on the bits.
+// 0, under which nothing lies, where inv_d is not positive and finite or m is
+// not finite.
+__device__ float window_floor(float m, float inv_d) {
+  if (!(inv_d > 0.0f && inv_d <= kFltMax && fabsf(m) <= kFltMax)) return 0.0f;
+  unsigned lo = 0u, up = 0x7f800000u;  // the answer's bits lie in [lo, up]; up is +inf
+  while (lo < up) {
+    const unsigned mid = lo + (up - lo) / 2;
+    if ((__uint_as_float(mid) - m) * inv_d > 0.5f)
+      up = mid;
+    else
+      lo = mid + 1;
+  }
+  return __uint_as_float(lo);
+}
+
+template <int kS0>
+struct Stage {
+  static constexpr int value = kS0;
+};
+static_assert(kWChunk == 2 * kStatsStage, "a chunk is two stages");
+
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 bwd_stats_kernel(const float* __restrict__ norm, const float* __restrict__ cache,
                  const float* __restrict__ valid, const float* __restrict__ g,
-                 int N, int W, float hi, float* __restrict__ part) {
-  __shared__ float ssum[kWarps][kWChunk][4];
+                 int N, int W, float hi, int n_words, double* part, int* arrivals,
+                 float* __restrict__ out, unsigned* __restrict__ need) {
+  __shared__ __align__(16) float snorm[kWChunk][4];
+  __shared__ float sfloor[kWChunk];  // see the fast path in process
+  __shared__ int ssame[kWChunk];
+  __shared__ double ssum[kWarps][kWChunk][4];
+  __shared__ double sacc[2][kWChunk][kThreads];  // [dm, dM] per waypoint and thread
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int base = blockIdx.x * kBlockPts;
   const int w0 = blockIdx.y * kWChunk;
   const int nw = min(kWChunk, W - w0);
-
-  float gg[kPPT];
-  bool inb[kPPT], ok[kPPT];
+  if (tid < nw * 4) (&snorm[0][0])[tid] = norm[4 * (size_t)w0 + tid];
+  if (tid < nw) {
+    // Scores with |s| under the waypoint's floor are outside the clip window
+    // and finite. If besides they can tie the min only where it is 0 (no
+    // need bit) and the max only where both are 0, a warp of such scores has
+    // nothing to do but count its min ties: the floor is kept, else 0.
+    const float m = norm[4 * (size_t)(w0 + tid)], inv_d = norm[4 * (size_t)(w0 + tid) + 1];
+    const float mxv = norm[4 * (size_t)(w0 + tid) + 3];
+    const float floor_s = window_floor(m, inv_d);
+    const bool min_quiet = m == 0.0f || !(fabsf(m) < floor_s);
+    const bool max_quiet = (m == 0.0f && mxv == 0.0f) || !(fabsf(mxv) < floor_s);
+    sfloor[tid] = min_quiet && max_quiet ? floor_s : 0.0f;
+    ssame[tid] = m == 0.0f && mxv == 0.0f;  // then a score of 0 ties both
+  }
 #pragma unroll
-  for (int j = 0; j < kPPT; ++j) {
-    const int i = base + j * kThreads + tid;
-    inb[j] = i < N;
-    gg[j] = inb[j] ? g[i] : 0.0f;
-    ok[j] = inb[j] && valid[i] > 0.0f;
+  for (int wl = 0; wl < kWChunk; ++wl) sacc[0][wl][tid] = sacc[1][wl][tid] = 0.0;
+  __syncthreads();
+  const int n_tiles = (N + kBlockPts - 1) / kBlockPts;
+
+  int n_min[kWChunk], n_max[kWChunk];
+#pragma unroll
+  for (int wl = 0; wl < kWChunk; ++wl) n_min[wl] = n_max[wl] = 0;
+
+  // The thread's kPPT points of a tile: neighbours (kVec) or a block's width
+  // apart. g and valid of those points, and whether they exist:
+  struct Meta {
+    float gg[kPPT];
+    bool inb[kPPT], ok[kPPT];
+  };
+  constexpr int kStep = kVec ? 1 : kThreads;
+  const auto first_of = [&](int tile) {
+    return tile * kBlockPts + (kVec ? 128 * warp + 4 * lane : tid);
+  };
+  const auto load_meta = [&](int tile, Meta& mt) {
+    const int first = first_of(tile);
+    if constexpr (kVec) {
+      const bool in = first < N;  // N % 4 == 0: all four or none
+      const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float4 g4 = in ? *reinterpret_cast<const float4*>(g + first) : zero;
+      const float4 v4 = in ? *reinterpret_cast<const float4*>(valid + first) : zero;
+      mt.gg[0] = g4.x, mt.gg[1] = g4.y, mt.gg[2] = g4.z, mt.gg[3] = g4.w;
+      const float vv[kPPT] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+      for (int c = 0; c < kPPT; ++c) mt.inb[c] = in, mt.ok[c] = in && vv[c] > 0.0f;
+    } else {
+#pragma unroll
+      for (int c = 0; c < kPPT; ++c) {
+        const int i = first + c * kStep;
+        mt.inb[c] = i < N;
+        mt.gg[c] = mt.inb[c] ? g[i] : 0.0f;
+        mt.ok[c] = mt.inb[c] && valid[i] > 0.0f;
+      }
+    }
+  };
+  // The scores of waypoints s0 .. s0 + kStatsStage - 1 of the chunk at those
+  // points: all loads started before any is used.
+  const auto load_rows = [&](int tile, int s0, float (&s)[kStatsStage][kPPT]) {
+    const int first = first_of(tile);
+#pragma unroll
+    for (int q = 0; q < kStatsStage; ++q) {
+      const bool row_ok = s0 + q < nw;
+      const float* row = cache + (size_t)(w0 + (row_ok ? s0 + q : 0)) * N;
+      if constexpr (kVec) {
+        const float4 s4 = row_ok && first < N ? *reinterpret_cast<const float4*>(row + first)
+                                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        s[q][0] = s4.x, s[q][1] = s4.y, s[q][2] = s4.z, s[q][3] = s4.w;
+      } else {
+#pragma unroll
+        for (int c = 0; c < kPPT; ++c) {
+          const int i = first + c * kStep;
+          s[q][c] = row_ok && i < N ? row[i] : 0.0f;
+        }
+      }
+    }
+  };
+  // Waypoints kS0 .. of the chunk on one tile: counts, need words, float sums.
+  const auto process = [&](auto s0_const, int tile, const float (&s)[kStatsStage][kPPT],
+                           const Meta& mt) {
+    constexpr int kS0 = decltype(s0_const)::value;
+#pragma unroll
+    for (int q = 0; q < kStatsStage; ++q) {
+      const int wl = kS0 + q;
+      if (wl >= nw) break;
+      const float4 nrm = *reinterpret_cast<const float4*>(snorm[wl]);
+      const float m = nrm.x, inv_d = nrm.y, gate = nrm.z, mxv = nrm.w;
+      unsigned* need_row = need + (size_t)(w0 + wl) * n_words;
+      // The fast path, taken by nearly every warp of a large map: all its
+      // scores lie under the floor, so every need bit is 0 and only min ties
+      // (and max ties, where m == M == 0) are counted. NaN and inf fail it.
+      const float floor_s = sfloor[wl];
+      bool quiet = true;
+      int ties = 0;
+#pragma unroll
+      for (int c = 0; c < kPPT; ++c) {
+        quiet &= fabsf(s[q][c]) < floor_s;
+        ties += mt.ok[c] && s[q][c] == m;
+      }
+      n_min[wl] += ties;
+      if (__all_sync(kFullWarp, quiet)) {
+        n_max[wl] += ssame[wl] ? ties : 0;
+        if constexpr (kVec) {
+          const int j = tile * (kBlockPts / 32) + 4 * warp + (lane >> 3);
+          if ((lane & 7) == 0 && j < n_words) need_row[j] = 0u;
+        } else {
+          const int j = tile * (kBlockPts / 32) + lane * kWarps + warp;
+          if (lane < kPPT && j < n_words) need_row[j] = 0u;
+        }
+        continue;
+      }
+      // a tie has s != 0 exactly when the min or max it ties is not 0
+      const bool m_nz = m != 0.0f, mx_nz = mxv != 0.0f;
+      unsigned nib = 0;  // the need bits of the thread's kPPT points
+#pragma unroll
+      for (int c = 0; c < kPPT; ++c) {
+        const float sv = s[q][c];
+        const float pn_raw = (sv - m) * inv_d;
+        const bool act = mt.inb[c] && ((pn_raw > 0.5f && pn_raw < hi) || !(fabsf(sv) <= kFltMax));
+        const bool eqmin = mt.ok[c] && sv == m, eqmax = mt.ok[c] && sv == mxv;
+        n_max[wl] += eqmax;
+        nib |= (act || (eqmin && m_nz) || (eqmax && mx_nz)) ? 1u << c : 0u;
+      }
+      // the float sums: only pairs inside the window or not finite add to
+      // them, and those have their need bit set (a tie adds an exact 0)
+      if (__any_sync(kFullWarp, nib != 0u)) {
+        float t0 = 0.0f, t1 = 0.0f;
+#pragma unroll
+        for (int c = 0; c < kPPT; ++c) {
+          // each operation rounded on its own, in the plain version's order:
+          // the terms do not depend on what the compiler contracts
+          const float sm = s[q][c] - m;
+          const float c_pn = pn_cotangent(sm * inv_d, mt.gg[c], hi);
+          const float curve = mul(mul(sm, inv_d), inv_d);  // d pn / d span, but for its sign
+          const float dm = mul(c_pn, add(-inv_d, mul(curve, gate)));
+          const float dM = mul(c_pn, mul(-curve, gate));
+          t0 = add(t0, mt.inb[c] ? dm : 0.0f);
+          t1 = add(t1, mt.inb[c] ? dM : 0.0f);
+        }
+        sacc[0][wl][tid] += static_cast<double>(t0);
+        sacc[1][wl][tid] += static_cast<double>(t1);
+      }
+      if constexpr (kVec) {
+        unsigned word = nib << (4 * (lane & 7));
+        word |= __shfl_xor_sync(kFullWarp, word, 1);
+        word |= __shfl_xor_sync(kFullWarp, word, 2);
+        word |= __shfl_xor_sync(kFullWarp, word, 4);
+        const int j = tile * (kBlockPts / 32) + 4 * warp + (lane >> 3);
+        if ((lane & 7) == 0 && j < n_words) need_row[j] = word;
+      } else {
+        unsigned word = 0;
+#pragma unroll
+        for (int c = 0; c < kPPT; ++c) {
+          const unsigned b = __ballot_sync(kFullWarp, (nib >> c) & 1u);
+          if (lane == c) word = b;
+        }
+        const int j = tile * (kBlockPts / 32) + lane * kWarps + warp;
+        if (lane < kPPT && j < n_words) need_row[j] = word;
+      }
+    }
+  };
+
+  // Two buffers of scores: while one stage is worked on, the next stage's
+  // loads (the chunk's other kStatsStage waypoints, or the next tile's first)
+  // are in flight, so the memory system never waits for the arithmetic.
+  float sa[kStatsStage][kPPT], sb[kStatsStage][kPPT];
+  Meta mt, mt_next;
+  int tile = blockIdx.x;
+  if (tile < n_tiles) {
+    load_meta(tile, mt);
+    load_rows(tile, 0, sa);
+  }
+  for (; tile < n_tiles; tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    if (nw > kStatsStage) load_rows(tile, kStatsStage, sb);
+    process(Stage<0>{}, tile, sa, mt);
+    if (next < n_tiles) {
+      load_meta(next, mt_next);
+      load_rows(next, 0, sa);
+    }
+    if (nw > kStatsStage) process(Stage<kStatsStage>{}, tile, sb, mt);
+    mt = mt_next;
   }
 
-  for (int wl = 0; wl < nw; ++wl) {
-    const int w = w0 + wl;
-    const float m = norm[4 * w], inv_d = norm[4 * w + 1];
-    const float gate = norm[4 * w + 2], mxv = norm[4 * w + 3];
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
 #pragma unroll
-    for (int j = 0; j < kPPT; ++j) {
-      if (!inb[j]) continue;
-      const float s = cache[(size_t)w * N + base + j * kThreads + tid];
-      const float sm = s - m;
-      const float c_pn = pn_cotangent(sm * inv_d, gg[j], hi);
-      a0 += c_pn * (-inv_d + sm * inv_d * inv_d * gate);
-      a1 += c_pn * (-(sm * inv_d * inv_d) * gate);
-      a2 += (ok[j] && s == m) ? 1.0f : 0.0f;
-      a3 += (ok[j] && s == mxv) ? 1.0f : 0.0f;
+  for (int wl = 0; wl < kWChunk; ++wl) {
+    if (wl >= nw) break;
+    double r0 = sacc[0][wl][tid], r1 = sacc[1][wl][tid];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      r0 += __shfl_xor_sync(kFullWarp, r0, o);
+      r1 += __shfl_xor_sync(kFullWarp, r1, o);
     }
-    a0 = warp_sum(a0);
-    a1 = warp_sum(a1);
-    a2 = warp_sum(a2);
-    a3 = warp_sum(a3);
+    const int c0 = __reduce_add_sync(kFullWarp, n_min[wl]);
+    const int c1 = __reduce_add_sync(kFullWarp, n_max[wl]);
     if (lane == 0) {
-      ssum[warp][wl][0] = a0;
-      ssum[warp][wl][1] = a1;
-      ssum[warp][wl][2] = a2;
-      ssum[warp][wl][3] = a3;
+      ssum[warp][wl][0] = r0;
+      ssum[warp][wl][1] = r1;
+      ssum[warp][wl][2] = c0;
+      ssum[warp][wl][3] = c1;
     }
   }
   __syncthreads();
   if (tid < nw * 4) {
-    const int wl = tid >> 2, c = tid & 3;
-    float acc = 0.0f;
-    for (int q = 0; q < kWarps; ++q) acc += ssum[q][wl][c];
-    part[((size_t)blockIdx.x * W + w0 + wl) * 4 + c] = acc;
+    double f = 0.0;
+    for (int q = 0; q < kWarps; ++q) f += ssum[q][tid >> 2][tid & 3];
+    part[((size_t)blockIdx.x * W + w0) * 4 + tid] = f;
+    __threadfence();
   }
+  if (!last_to_arrive(arrivals + blockIdx.y, gridDim.x)) return;
+  const int o = tid / kSubLanes;  // output wl * 4 + c of this waypoint chunk
+  const double r = sum_parts(part + (size_t)w0 * 4 + o, o < nw * 4 ? gridDim.x : 0, (size_t)W * 4);
+  if (tid % kSubLanes == 0 && o < nw * 4) out[(size_t)w0 * 4 + o] = static_cast<float>(r);
+  if (tid == 0) arrivals[blockIdx.y] = 0;
 }
 
 // K4. Replaces pallas_vis.py _bwd_apply_kernel (backward B2, cached).
-// Bound by the cache read (the score is read back, not recomputed: no
-// score exp) plus 20 B per point and chunk; ~80 flops and one exp (the
-// sigmoid) per element. The cotangent c_pn*inv_d + alpha*[s==m] +
-// beta*[s==M] is chained through the camera transform (_tile_dcam: the +-20
-// clamp gated strictly, the z floor ignored) into 12 sums per w:
-// [sum dc_c, sum dc_c*px, sum dc_c*py, sum dc_c*pz] for c = x, y, z;
-// (n_blocks, W, 12) partials.
+// The cotangent total = c_pn*inv_d + alpha*[s==m] + beta*[s==M] is chained
+// through the camera transform (_tile_dcam: the +-20 clamp gated strictly,
+// the z floor ignored) into 12 sums per w: [sum dc_c, sum dc_c*px, sum
+// dc_c*py, sum dc_c*pz] for c = x, y, z; the score is read back from the
+// cache, not recomputed, so the tie tests see the bits K3 saw.
+//
+// A pair's term is total * s * f, and K3 has left a bit per pair that says
+// whether it can be nonzero (see there). So this kernel walks the mask, not
+// the cache: it is bound by the W * N / 8 bytes of mask plus, per flagged
+// pair, the chain's ~141 operations and the 28 bytes of score, point, g and
+// valid. What the design does:
+//  - A warp owns one waypoint and a contiguous range of mask words, so the
+//    waypoint's row of wp and norm2 and the 12 sums stay in registers. It
+//    reads the range 32 words at a time (coalesced) and skips a batch
+//    without a set bit after one vote.
+//  - Flagged pairs are compacted before the chain runs: the lanes write the
+//    point indices of their words' set bits into the warp's queue in shared
+//    memory (a prefix sum over the lanes gives each its place, so the order
+//    is that of the points), and the warp takes 32 indices at a time, one
+//    pair per lane. On a large map a flagged 32-point group holds one or two
+//    pairs, so without this the chain would run with one lane in 32 at work;
+//    on a dense cloud the indices are neighbours and the loads coalesce.
+//  - The range (words per warp, a multiple of 32) is chosen by the launcher
+//    so that the card is filled whether the rows are short (the reference
+//    cloud: 1,280 words per row) or long.
+//  - A block's 8 warps are 8 neighbouring ranges of one waypoint; their sums
+//    are added in warp order into one partial per block, and the last block
+//    of the waypoint to arrive adds the partials (last_to_arrive).
+//  - The 12 sums cancel heavily (a result of order 1 from terms whose
+//    magnitudes add up to 1e6 on a dense cloud), and a lane may add hundreds
+//    of terms. The terms are the f32 chain's (dc_c and its products with
+//    the point, each rounded to f32 as the plain version's are); they are
+//    added in double, by the lane and by everything above it (the warp, the
+//    block, the partials), and the result is rounded to f32 once, at the
+//    end: it is the sum of the terms to an f32 rounding of the result,
+//    whatever the order, where an f32 sum is off by roundings of the
+//    magnitudes.
+//  - alpha or beta not finite: total is NaN for every pair of the waypoint
+//    (alpha * 0), flagged or not, so the final reduction writes NaN to all
+//    12 sums, as the full computation gives.
+constexpr int kQueue = 32 * 32 + 32;  // a batch's pairs and what the last one left
+
 __global__ void __launch_bounds__(kThreads)
 bwd_apply_kernel(const float* __restrict__ wp, const float* __restrict__ kp,
                  const float* __restrict__ norm2, const float* __restrict__ pts,
                  const float* __restrict__ valid, const float* __restrict__ g,
-                 const float* __restrict__ cache, int N, int W, Consts k,
-                 float hi, float* __restrict__ part) {
-  __shared__ float ssum[kWarps][kWChunk][12];
+                 const float* __restrict__ cache, const unsigned* __restrict__ need,
+                 int N, int W, Consts k, float hi, int n_words, int range, double* part,
+                 int* arrivals, float* __restrict__ out) {
+  __shared__ double ssum[kWarps][12];
+  __shared__ int squeue[kWarps][kQueue];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int base = blockIdx.x * kBlockPts;
-  const int w0 = blockIdx.y * kWChunk;
-  const int nw = min(kWChunk, W - w0);
+  const int w = blockIdx.y;
   const Cam cam{kp[0], kp[1], kp[2], kp[3]};
+  const float* nrow = norm2 + 6 * (size_t)w;
+  const float m = nrow[0], inv_d = nrow[1], mxv = nrow[3], alpha = nrow[4], beta = nrow[5];
+  float wrow[12];
+#pragma unroll
+  for (int c = 0; c < 12; ++c) wrow[c] = wp[12 * (size_t)w + c];
+  const unsigned* need_row = need + (size_t)w * n_words;
+  const float* cache_row = cache + (size_t)w * N;
+  const long long r0 = ((long long)blockIdx.x * kWarps + warp) * range;
+  const int r1 = static_cast<int>(min(r0 + range, (long long)n_words));
+  int* queue = squeue[warp];
 
-  float px[kPPT], py[kPPT], pz[kPPT], gg[kPPT];
-  bool inb[kPPT], ok[kPPT];
+  double sum[12];  // the lane's 12 sums
 #pragma unroll
-  for (int j = 0; j < kPPT; ++j) {
-    const int i = base + j * kThreads + tid;
-    inb[j] = i < N;
-    px[j] = inb[j] ? pts[i] : 0.0f;
-    py[j] = inb[j] ? pts[(size_t)N + i] : 0.0f;
-    pz[j] = inb[j] ? pts[2 * (size_t)N + i] : 0.0f;
-    gg[j] = inb[j] ? g[i] : 0.0f;
-    ok[j] = inb[j] && valid[i] > 0.0f;
-  }
+  for (int c = 0; c < 12; ++c) sum[c] = 0.0;
+  int head = 0, count = 0;  // the same in every lane of the warp
 
-  for (int wl = 0; wl < nw; ++wl) {
-    const int w = w0 + wl;
-    const float* wrow = wp + 12 * w;
-    const float* nrow = norm2 + 6 * w;
-    const float m = nrow[0], inv_d = nrow[1], mxv = nrow[3];
-    const float alpha = nrow[4], beta = nrow[5];
-    float acc[12];
-#pragma unroll
-    for (int c = 0; c < 12; ++c) acc[c] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kPPT; ++j) {
-      if (!inb[j]) continue;
-      const float s = cache[(size_t)w * N + base + j * kThreads + tid];
-      const Extras e = tile_extras(px[j], py[j], pz[j], wrow, cam, k);
-      const float c_pn = pn_cotangent((s - m) * inv_d, gg[j], hi);
-      const float eqmin = (ok[j] && s == m) ? 1.0f : 0.0f;
-      const float eqmax = (ok[j] && s == mxv) ? 1.0f : 0.0f;
+  // The first n (<= 32) queued pairs, one per lane, through the chain.
+  const auto take = [&](int n) {
+    int slot = head + lane;
+    slot = slot >= kQueue ? slot - kQueue : slot;
+    const int i = queue[slot];
+    __syncwarp();  // every lane has read its slot before a later batch is queued over it
+    if (lane < n) {
+      const float s = cache_row[i];
+      const float px = pts[i], py = pts[(size_t)N + i], pz = pts[2 * (size_t)N + i];
+      const bool ok = valid[i] > 0.0f;
+      const Extras e = tile_extras(px, py, pz, wrow, cam, k);
+      const float c_pn = pn_cotangent((s - m) * inv_d, g[i], hi);
+      const float eqmin = (ok && s == m) ? 1.0f : 0.0f;
+      const float eqmax = (ok && s == mxv) ? 1.0f : 0.0f;
       const float total = c_pn * inv_d + alpha * eqmin + beta * eqmax;
       const DcamFactors f = dcam_factors(e, cam, k);
       const float cs = total * s;
       const float dc[3] = {cs * f.bx, cs * f.by, cs * f.bz};
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        acc[4 * c + 0] += dc[c];
-        acc[4 * c + 1] += dc[c] * px[j];
-        acc[4 * c + 2] += dc[c] * py[j];
-        acc[4 * c + 3] += dc[c] * pz[j];
+        sum[4 * c + 0] += static_cast<double>(dc[c]);
+        sum[4 * c + 1] += static_cast<double>(mul(dc[c], px));
+        sum[4 * c + 2] += static_cast<double>(mul(dc[c], py));
+        sum[4 * c + 3] += static_cast<double>(mul(dc[c], pz));
       }
     }
+    head = head + n >= kQueue ? head + n - kQueue : head + n;
+    count -= n;
+  };
+
+  constexpr int kAhead = 4;  // batches of 32 mask words whose loads are started together
+  for (long long q00 = r0; q00 < r1; q00 += 32 * kAhead) {
+    unsigned words[kAhead];
 #pragma unroll
-    for (int c = 0; c < 12; ++c) {
-      const float r = warp_sum(acc[c]);
-      if (lane == 0) ssum[warp][wl][c] = r;
+    for (int a = 0; a < kAhead; ++a) {
+      const long long q = q00 + 32 * a + lane;
+      words[a] = q < r1 ? need_row[q] : 0u;
+    }
+#pragma unroll 1  // one copy of the chain
+    for (int a = 0; a < kAhead; ++a) {
+      const unsigned word = a == 0 ? words[0] : a == 1 ? words[1] : a == 2 ? words[2] : words[3];
+      if (!__any_sync(kFullWarp, word != 0u)) continue;
+      // each lane's place in the queue: after the pairs of the lanes before it
+      const int mine = __popc(word);
+      int before = mine;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(kFullWarp, before, o);
+        if (lane >= o) before += v;
+      }
+      const int total = __shfl_sync(kFullWarp, before, 31);
+      int slot = head + count + before - mine;
+      slot = slot >= kQueue ? slot - kQueue : slot;
+      const int first = (static_cast<int>(q00) + 32 * a + lane) * 32;
+      for (unsigned bits = word; bits; bits &= bits - 1) {
+        queue[slot] = first + __ffs(bits) - 1;
+        slot = slot + 1 == kQueue ? 0 : slot + 1;
+      }
+      __syncwarp();
+      count += total;
+      while (count >= 32) take(32);
     }
   }
-  __syncthreads();
-  if (tid < nw * 12) {
-    const int wl = tid / 12, c = tid % 12;
-    float acc = 0.0f;
-    for (int q = 0; q < kWarps; ++q) acc += ssum[q][wl][c];
-    part[((size_t)blockIdx.x * W + w0 + wl) * 12 + c] = acc;
+  if (count > 0) take(count);
+#pragma unroll
+  for (int c = 0; c < 12; ++c) {
+    double r = sum[c];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) r += __shfl_xor_sync(kFullWarp, r, o);
+    if (lane == 0) ssum[warp][c] = r;
   }
+  __syncthreads();
+  double* wpart = part + (size_t)w * gridDim.x * 12;
+  if (tid < 12) {
+    double f = 0.0;
+    for (int q = 0; q < kWarps; ++q) f += ssum[q][tid];
+    wpart[(size_t)blockIdx.x * 12 + tid] = f;
+    __threadfence();
+  }
+  if (!last_to_arrive(arrivals + w, gridDim.x)) return;
+  const int o = tid / kSubLanes;
+  const float r = static_cast<float>(sum_parts(wpart + o, o < 12 ? gridDim.x : 0, 12));
+  const bool poisoned = !(fabsf(alpha) <= kFltMax) || !(fabsf(beta) <= kFltMax);
+  if (tid % kSubLanes == 0 && o < 12)
+    out[(size_t)w * 12 + o] = poisoned ? __int_as_float(kNanMaxBits) : r;
+  if (tid == 0) arrivals[w] = 0;
 }
 
 // K2'. Replaces pallas_vis.py _losum_kernel (pass B recomputing the
@@ -762,6 +1121,77 @@ int launch_pass_a(const float* pts, const float* valid, const float* wp, const f
   return static_cast<int>(cudaGetLastError());
 }
 
+// The card's SM count, asked once per device (0 and an error code on failure).
+int sm_count(cudaError_t* err) {
+  static int sms[kMaxDevices] = {};
+  int dev = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err != cudaSuccess) return 0;
+  if (dev < kMaxDevices && sms[dev] > 0) return sms[dev];
+  int n = 0;
+  *err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  if (*err != cudaSuccess || n <= 0) return 0;
+  if (dev < kMaxDevices) sms[dev] = n;
+  return n;
+}
+
+inline int mask_words(int N) { return (N + 31) / 32; }
+
+// How many blocks of K3 the card holds at once (SMs x resident blocks of the
+// kernel with fewer of them, asked once per device); 0 and an error code on
+// failure.
+int stats_resident(cudaError_t* err) {
+  static int resident[kMaxDevices] = {};
+  int dev = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err != cudaSuccess) return 0;
+  if (dev < kMaxDevices && resident[dev] > 0) return resident[dev];
+  const int sms = sm_count(err);
+  if (sms <= 0) return 0;
+  int vec = 0, scalar = 0;
+  *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&vec, bwd_stats_kernel<true>, kThreads, 0);
+  if (*err == cudaSuccess)
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&scalar, bwd_stats_kernel<false>,
+                                                         kThreads, 0);
+  if (*err != cudaSuccess) return 0;
+  const int cap = max(1, sms * min(vec, scalar));
+  if (dev < kMaxDevices) resident[dev] = cap;
+  return cap;
+}
+
+// K3's grid: gridDim.y waypoint chunks; gridDim.x blocks share the point
+// tiles of a chunk, as many blocks in all as the card holds at once (one
+// wave, no tail), each walking the same number of tiles, give or take one.
+// Few tiles: one block each.
+dim3 stats_grid(int N, int W, int resident) {
+  const int n_tiles = (N + kBlockPts - 1) / kBlockPts;
+  const int ny = (W + kWChunk - 1) / kWChunk;
+  const int nx_cap = max(1, resident / ny);
+  const int rounds = (n_tiles + nx_cap - 1) / nx_cap;
+  return dim3((n_tiles + rounds - 1) / rounds, ny);
+}
+
+// K4's geometry: words of mask per warp (a multiple of 32, at least 32 and
+// at most 1024), sized so that the W rows give about 64 warps per SM, two
+// rounds of a full card: short rows (the reference cloud) are cut into many
+// small ranges so that the card is filled, long rows into ranges that
+// amortise the warp's set-up and its 12 reductions. gridDim.x blocks of
+// kWarps ranges per waypoint, gridDim.y = W.
+struct ApplyGeom {
+  int range;
+  dim3 grid;
+};
+
+ApplyGeom apply_geom(int N, int W, int sms) {
+  const long long words = (long long)W * mask_words(N);
+  long long range = (words / (64LL * sms) + 31) / 32 * 32;
+  range = range < 32 ? 32 : (range > 1024 ? 1024 : range);
+  const int n_ranges = static_cast<int>((mask_words(N) + range - 1) / range);
+  return ApplyGeom{static_cast<int>(range), dim3((n_ranges + kWarps - 1) / kWarps, W)};
+}
+
+inline bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
+
 }  // namespace
 
 extern "C" {
@@ -788,22 +1218,43 @@ int fv_pass_b(const float* cache, const float* norm, int N, int W, float hi,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3 and K4. arrivals: at least W ints, all 0 between calls (the kernels
+// restore them). part: scratch for the blocks' partial sums, part_doubles
+// doubles of it; if the grid needs more, nothing is launched and the number
+// needed comes back negated (a CUDA error code comes back as it is).
 int fv_bwd_stats(const float* norm, const float* cache, const float* valid,
-                 const float* g, int N, int W, float hi, float* part,
-                 void* stream) {
-  bwd_stats_kernel<<<chunk_grid(N, W), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      norm, cache, valid, g, N, W, hi, part);
+                 const float* g, int N, int W, float hi, double* part, int part_doubles,
+                 int* arrivals, float* out, int* need, void* stream) {
+  cudaError_t err;
+  const int cap = stats_resident(&err);
+  if (cap <= 0) return static_cast<int>(err);
+  const dim3 grid = stats_grid(N, W, cap);
+  const long long needed = 4LL * grid.x * W;
+  if (needed > part_doubles) return static_cast<int>(-needed);
+  const bool vec = N % 4 == 0 && aligned16(cache) && aligned16(valid) && aligned16(g);
+  const auto kernel = vec ? bwd_stats_kernel<true> : bwd_stats_kernel<false>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      norm, cache, valid, g, N, W, hi, mask_words(N), part, arrivals, out,
+      reinterpret_cast<unsigned*>(need));
   return static_cast<int>(cudaGetLastError());
 }
 
 int fv_bwd_apply(const float* wp, const float* kp, const float* norm2,
                  const float* pts, const float* valid, const float* g,
-                 const float* cache, int N, int W, float c0, float inv_var,
-                 float img_w, float img_h, float eps, float inv_w, float inv_h,
-                 float hi, float* part, void* stream) {
-  bwd_apply_kernel<<<chunk_grid(N, W), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      wp, kp, norm2, pts, valid, g, cache, N, W,
-      make_consts(c0, inv_var, img_w, img_h, eps, inv_w, inv_h), hi, part);
+                 const float* cache, const int* need, int N, int W, float c0,
+                 float inv_var, float img_w, float img_h, float eps, float inv_w,
+                 float inv_h, float hi, double* part, int part_doubles, int* arrivals,
+                 float* out, void* stream) {
+  cudaError_t err;
+  const int sms = sm_count(&err);
+  if (sms <= 0) return static_cast<int>(err);
+  const ApplyGeom geom = apply_geom(N, W, sms);
+  const long long needed = 12LL * geom.grid.x * W;
+  if (needed > part_doubles) return static_cast<int>(-needed);
+  bwd_apply_kernel<<<geom.grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      wp, kp, norm2, pts, valid, g, cache, reinterpret_cast<const unsigned*>(need), N, W,
+      make_consts(c0, inv_var, img_w, img_h, eps, inv_w, inv_h), hi, mask_words(N), geom.range,
+      part, arrivals, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,8 +16,11 @@ log-odds fusion is a sum over it:
 Backends of ``traj_forward``: ``"kernel"`` runs the fused K1–K4 family
 (``ops.fused_vis``: CUDA kernels for CUDA tensors, their plain versions for
 CPU tensors, hand-derived backward either way); ``"torch"`` is the plain
-autodiff path, the twin of the JAX package's XLA path; ``"auto"`` picks
-``"kernel"`` for CUDA tensors and ``"torch"`` for CPU tensors.
+autodiff path, the twin of the JAX package's XLA path (like it, it
+rematerialises its (W, N) intermediates in the backward pass instead of
+saving them); ``"auto"`` picks ``"kernel"`` for CUDA tensors and ``"torch"``
+for CPU tensors. The JAX package's names ``"pallas"`` and ``"xla"`` are
+accepted for ``"kernel"`` and ``"torch"``.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from trajectory_optimization_tpu_torch.ops.fused_vis import fused_lo_sum
 from trajectory_optimization_tpu_torch.ops.numerics import safe_norm
@@ -35,6 +39,7 @@ from trajectory_optimization_tpu_torch.ops.trajectory import mean_segment_angle,
 Params = Dict[str, torch.Tensor]
 
 BACKENDS = ("auto", "kernel", "torch")
+BACKEND_ALIASES = {"pallas": "kernel", "xla": "torch"}  # the JAX package's names
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,9 +54,14 @@ class TrajProblem:
     length_weight: float = 0.02
     eps: float = 1e-6
     wps_step: int = 1  # evaluate visibility at every wps_step-th waypoint
-    backend: str = "auto"  # one of BACKENDS
-    # Differentiable Katz occlusion inside the loss: not ported yet.
+    backend: str = "auto"  # one of BACKENDS, or a key of BACKEND_ALIASES
+    # Differentiable Katz occlusion inside the loss: not ported yet. Its three
+    # knobs are the JAX package's fields with its defaults, so that a caller
+    # who sets them builds the same problem; they are read with soft_hpr only.
     soft_hpr: bool = False
+    soft_hpr_dense_max: int = 32768
+    hpr_cap: int = 512
+    hpr_safety: float = 3.0
 
 
 def waypoint_stride(poses0: np.ndarray, vis_wps_dist: float = 0.5) -> int:
@@ -110,11 +120,22 @@ def _resolve_backend(problem: TrajProblem, points: torch.Tensor) -> str:
             "TrajProblem(soft_hpr=True): the differentiable HPR inside the loss "
             "(ops/hpr.py) is not ported yet (ROADMAP.md Q1 item 9)"
         )
-    if problem.backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}, got {problem.backend!r}")
-    if problem.backend == "auto":
+    backend = BACKEND_ALIASES.get(problem.backend, problem.backend)
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS + tuple(BACKEND_ALIASES)}, "
+                         f"got {problem.backend!r}")
+    if backend == "auto":
         return "kernel" if points.is_cuda else "torch"
-    return problem.backend
+    return backend
+
+
+def plain_lo_sum(points, quats_sel, poses_sel, K, problem: TrajProblem, valid=None):
+    """The plain path's score → log-odds → sum over waypoints, (N,)."""
+    p = waypoint_scores(
+        points, quats_sel, poses_sel, K, problem.img_width, problem.img_height,
+        min_dist=problem.min_dist, max_dist=problem.max_dist, eps=problem.eps,
+    )  # (W_sel, N)
+    return torch.sum(observation_logodds(p, problem.eps, valid), dim=0)
 
 
 def traj_forward(
@@ -152,11 +173,12 @@ def traj_forward(
             valid=valid, points_t=points_t,
         )
     else:
-        p = waypoint_scores(
-            points, quats[sel], poses[sel], K, problem.img_width, problem.img_height,
-            min_dist=problem.min_dist, max_dist=problem.max_dist, eps=problem.eps,
-        )  # (W_sel, N)
-        lo_sum = torch.sum(observation_logodds(p, problem.eps, valid), dim=0)
+        # Checkpointed as the JAX twin's XLA path is: the dozens of (W, N)
+        # intermediates are recomputed in the backward pass, not kept from the
+        # forward. The same operations run either way, so loss and gradients
+        # keep their bits.
+        lo_sum = checkpoint(plain_lo_sum, points, quats[sel], poses[sel], K, problem, valid,
+                            use_reentrant=False, preserve_rng_state=False)  # no randomness
     return traj_criterion(lo_sum, params, poses0, problem, valid=valid)
 
 

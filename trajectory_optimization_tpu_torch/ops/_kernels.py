@@ -20,7 +20,10 @@ Every wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` (pass A's min/max preset by one copy, see
 ``_minmax_out``), launches on the current stream, raises if the
 C entry point returns a CUDA error, and only then adds one to its entry in
-``LAUNCHES``.
+``LAUNCHES``. K3 and K4 finish their own partial sums in the last block to
+arrive; the partials and the arrival counters, which the kernels leave
+zeroed, live in a scratch that is made once per device and stream
+(``_launch_reduced``).
 """
 from __future__ import annotations
 
@@ -61,6 +64,7 @@ BIG = 3.0e38  # pass A's min of a waypoint without valid points; its max is −B
 
 _lib = None
 _sentinels = {}  # per device, the (2, 1) column [BIG, −BIG] that presets pass A's outputs
+_reduction_scratch = {}  # per (device, stream), K3's and K4's (arrival counters, partial sums)
 build_log = ""  # nvcc's output (ptxas register/spill report) of the last build, per source
 
 
@@ -151,8 +155,8 @@ def _load():
     lib.fv_error_string.argtypes, lib.fv_error_string.restype = [I], ctypes.c_char_p
     lib.fv_pass_a.argtypes = [P, P, P, P, I, I] + [F] * 7 + [P, P, P, P]
     lib.fv_pass_b.argtypes = [P, P, I, I, F, P, P]
-    lib.fv_bwd_stats.argtypes = [P, P, P, P, I, I, F, P, P]
-    lib.fv_bwd_apply.argtypes = [P] * 7 + [I, I] + [F] * 8 + [P, P]
+    lib.fv_bwd_stats.argtypes = [P, P, P, P, I, I, F, P, I, P, P, P, P]
+    lib.fv_bwd_apply.argtypes = [P] * 8 + [I, I] + [F] * 8 + [P, I, P, P, P]
     lib.fv_pass_a_minmax.argtypes = [P, P, P, P, I, I] + [F] * 7 + [P, P, P]
     lib.fv_pass_b_recompute.argtypes = [P, P, P, P, I, I] + [F] * 8 + [P, P]
     lib.fv_bwd_fused_acc.argtypes = [P] * 6 + [I, I] + [F] * 8 + [P, P]
@@ -258,38 +262,74 @@ def pass_b(norm, scores, eps):
     return lo
 
 
+def need_words(N: int) -> int:
+    """Words per row of K3's need mask: one bit per point, 32 to a word."""
+    return -(-N // 32)
+
+
+def _launch_reduced(fn, args, W: int, device, stream: int, tail) -> int:
+    """Launch K3 or K4, ``fn(*args, part, len(part), arrivals, *tail)``, with
+    the scratch of this device and stream: at least W zeroed int32 arrival
+    counters (the kernels put back the zeros they find, so they are zeroed
+    once, when they are made) and a float64 buffer for the blocks' partial
+    sums, which the launcher sizes: it launches nothing and returns the
+    doubles it needs, negated, while the buffer is too small. Calls on one
+    stream run one after the other, so they share the scratch."""
+    arrivals, part = _reduction_scratch.get((device, stream), (None, None))
+    if arrivals is None or arrivals.numel() < W:
+        arrivals = torch.zeros(max(W, 4096), dtype=torch.int32, device=device)
+    if part is None:
+        part = torch.empty(0, dtype=torch.float64, device=device)
+    while (rc := fn(*args, part.data_ptr(), part.numel(), arrivals.data_ptr(), *tail)) < 0:
+        part = torch.empty(-rc, dtype=torch.float64, device=device)
+    _reduction_scratch[(device, stream)] = (arrivals, part)
+    return rc
+
+
 def bwd_stats(norm, scores, valid, g, eps):
-    """K3: returns (W, 4) sums over points."""
+    """K3: returns ((W, 4) sums over points, need (W, ceil(N / 32)) int32:
+    bit l of word j of row w is set iff pair (w, 32 j + l) can add a nonzero
+    term to K4)."""
     W, N = scores.shape
+    if N == 0 or W == 0:
+        raise ValueError(f"empty problem: N={N}, W={W}")
     args = (
         _check("norm", norm, (W, 4)), _check("scores", scores, (W, N)),
         _check("valid", valid, (N,)), _check("g", g, (N,)),
     )
     lib = _load()
-    part = torch.empty((_n_blocks(N), W, 4), dtype=torch.float32, device=scores.device)
-    with torch.cuda.device(scores.device):
-        rc = lib.fv_bwd_stats(*args, N, W, 1.0 - eps, part.data_ptr(), _stream(scores))
+    dev = scores.device
+    with torch.cuda.device(dev):
+        stream = _stream(scores)
+        out = torch.empty((W, 4), dtype=torch.float32, device=dev)
+        need = torch.empty((W, need_words(N)), dtype=torch.int32, device=dev)
+        rc = _launch_reduced(lib.fv_bwd_stats, (*args, N, W, 1.0 - eps), W, dev, stream,
+                             (out.data_ptr(), need.data_ptr(), stream))
     _raise_on(rc, "bwd_stats")
     LAUNCHES["bwd_stats"] += 1
-    return torch.sum(part, dim=0)
+    return out, need
 
 
-def bwd_apply(wp, kp, norm2, pts_t, valid, g, scores, k):
-    """K4: returns (W, 3, 4) camera-plane sums."""
+def bwd_apply(wp, kp, norm2, pts_t, valid, g, scores, need, k):
+    """K4: returns (W, 3, 4) camera-plane sums. ``need`` is K3's mask of the
+    same scores, norm and valid: pairs whose bit is clear are not read."""
     N, W = _sizes(pts_t, wp)
     args = (
         _check("wp", wp, (W, 12)), _check("kp", kp, (4,)), _check("norm2", norm2, (W, 6)),
         _check("pts_t", pts_t, (3, N)), _check("valid", valid, (N,)),
         _check("g", g, (N,)), _check("scores", scores, (W, N)),
+        _check("need", need, (W, need_words(N)), torch.int32),
     )
     lib = _load()
-    part = torch.empty((_n_blocks(N), W, 12), dtype=torch.float32, device=pts_t.device)
-    with torch.cuda.device(pts_t.device):
-        rc = lib.fv_bwd_apply(*args, N, W, *_consts_args(k), 1.0 - k.eps,
-                              part.data_ptr(), _stream(pts_t))
+    dev = pts_t.device
+    with torch.cuda.device(dev):
+        stream = _stream(pts_t)
+        out = torch.empty((W, 3, 4), dtype=torch.float32, device=dev)
+        rc = _launch_reduced(lib.fv_bwd_apply, (*args, N, W, *_consts_args(k), 1.0 - k.eps), W,
+                             dev, stream, (out.data_ptr(), stream))
     _raise_on(rc, "bwd_apply")
     LAUNCHES["bwd_apply"] += 1
-    return torch.sum(part, dim=0).reshape(W, 3, 4)
+    return out
 
 
 def pass_a_minmax(wp, kp, pts_t, valid, k):

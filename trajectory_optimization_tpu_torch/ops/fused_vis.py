@@ -15,8 +15,10 @@ Score-cache regime, while the (W, N) f32 cache fits ``SCORE_CACHE_MAX_BYTES``
 
   K1 ``pass_a``     scores → (W, N) cache + per-waypoint masked min/max
   K2 ``pass_b``     cache → (N,) log-odds sum
-  K3 ``bwd_stats``  per-waypoint Σ c_pn·∂pn/∂m, Σ c_pn·∂pn/∂M and tie counts
-  K4 ``bwd_apply``  combined cotangent chained to 12 camera-plane sums per w
+  K3 ``bwd_stats``  per-waypoint Σ c_pn·∂pn/∂m, Σ c_pn·∂pn/∂M and tie counts,
+                    and the need mask: one bit per pair that K4 must compute
+  K4 ``bwd_apply``  combined cotangent chained to 12 camera-plane sums per w,
+                    over the pairs the need mask flags
 
 Uncached regime, above the budget; no stage holds a (W, N) tensor:
 
@@ -29,7 +31,9 @@ inputs and outputs. The stage wrapper runs the plain version for CPU tensors
 only; for a CUDA tensor it launches the kernel (``ops._kernels``) or raises.
 K2′ and K5 skip the pairs whose terms are exactly zero; ``skip_masks`` gives
 their predicates in plain PyTorch, and ``warp_groups`` and
-``with_extreme_ties`` help count and test them. Pass A (K1, K1′) finishes a
+``with_extreme_ties`` help count and test them. K4 skips the same pairs, told
+by the mask that K3 takes on the cached scores (``need_mask``, packed 32
+pairs to an int32 word by ``pack_need``). Pass A (K1, K1′) finishes a
 pair after the score's distance term where that already decides that the
 pair changes neither min nor max; ``prune_masks`` gives those predicates.
 
@@ -145,11 +149,12 @@ def _scores(wp, kp, pts_t, k: VisConsts):
     return e["sig"] * torch.exp(arg), e
 
 
-def _plane_sums(dcs, pts_t):
+def _plane_sums(dcs, pts_t, sum_dtype=None):
     """(dcx, dcy, dcz), each (W, N) → (W, 12): [Σdc_c, Σdc_c·px, Σdc_c·py,
-    Σdc_c·pz] for c = x, y, z."""
-    return torch.cat([torch.stack([dc.sum(1), (dc * pts_t[0]).sum(1), (dc * pts_t[1]).sum(1),
-                                   (dc * pts_t[2]).sum(1)], dim=1) for dc in dcs], dim=1)
+    Σdc_c·pz] for c = x, y, z; with ``sum_dtype`` the same terms are added
+    in that type."""
+    return torch.stack([(dc if axis is None else dc * pts_t[axis]).sum(1, dtype=sum_dtype)
+                        for dc in dcs for axis in (None, 0, 1, 2)], dim=1)
 
 
 def _pn_terms(norm, scores, g, eps):
@@ -267,11 +272,43 @@ def _minmax_pathway(norm, scores, valid, g, eps):
     return c_pn, dm, dM, eqmin, eqmax
 
 
+def need_mask(norm, scores, valid, eps):
+    """(W, N) bool: the pairs that can add a nonzero term to K4. A pair's
+    term there is total·s·f with f finite, and total = c_pn·inv_d + α·1[s=m]
+    + β·1[s=M] is zero unless the pair lies inside the strict clip window or
+    is a valid min or max tie, so with finite α and β the term is exactly
+    zero unless the pair is inside the window, or ties with s ≠ 0, or its
+    score is not finite. The predicate ``direct | tie`` of ``skip_masks``,
+    taken on the cached scores (with ±inf, which pass A never caches, flagged
+    as NaN is); it does not depend on the cotangent."""
+    pn_raw = (scores - norm[:, 0:1]) * norm[:, 1:2]
+    active = (pn_raw > 0.5) & (pn_raw < 1.0 - eps)
+    eqmin, eqmax = _ties(norm, scores, valid)
+    return active | ~torch.isfinite(scores) | ((eqmin | eqmax) & (scores != 0))
+
+
+def pack_need(mask):
+    """(W, N) bool → (W, ⌈N/32⌉) int32: bit l of word j of row w is
+    mask[w, 32 j + l]; the bits past N in the last word are 0."""
+    W, N = mask.shape
+    bits = torch.nn.functional.pad(mask, (0, (-N) % 32)).reshape(W, -1, 32).to(torch.int64)
+    words = (bits << torch.arange(32, device=mask.device)).sum(-1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def unpack_need(need, N: int):
+    """(W, ⌈N/32⌉) int32 → (W, N) bool, the inverse of ``pack_need``."""
+    bits = (need.to(torch.int64)[:, :, None] >> torch.arange(32, device=need.device)) & 1
+    return bits.reshape(need.shape[0], -1)[:, :N].bool()
+
+
 def bwd_stats_ref(norm, scores, valid, g, eps):
-    """Plain K3. Returns (W, 4): [Σ c_pn·∂pn/∂m, Σ c_pn·∂pn/∂M, #(s = m),
-    #(s = M)], the counts over valid points only."""
+    """Plain K3. Returns the (W, 4) table [Σ c_pn·∂pn/∂m, Σ c_pn·∂pn/∂M,
+    #(s = m), #(s = M)], the counts over valid points only, and the need
+    mask for K4 (``need_mask``, packed by ``pack_need``)."""
     _, dm, dM, eqmin, eqmax = _minmax_pathway(norm, scores, valid, g, eps)
-    return torch.stack([dm.sum(1), dM.sum(1), eqmin.sum(1), eqmax.sum(1)], dim=1)
+    table = torch.stack([dm.sum(1), dM.sum(1), eqmin.sum(1), eqmax.sum(1)], dim=1)
+    return table, pack_need(need_mask(norm, scores, valid, eps))
 
 
 def bwd_stats(norm, scores, valid, g, eps):
@@ -285,22 +322,54 @@ def bwd_stats(norm, scores, valid, g, eps):
 # ---------------------------------------------------------------------------
 
 
-def bwd_apply_ref(wp, kp, norm2, pts_t, valid, g, scores, k: VisConsts):
-    """Plain K4. The cotangent c_pn·inv_d + α·1[s=m] + β·1[s=M] is chained
-    through the camera transform (reading s from the cache, not recomputing
-    it). Returns (W, 3, 4): [c, (Σdc_c, Σdc_c·px, Σdc_c·py, Σdc_c·pz)]."""
-    _, c_pn, _ = _pn_terms(norm2, scores, g, k.eps)
+def _check_need(need, W: int, N: int):
+    shape = (W, _kernels.need_words(N))
+    if need.dtype != torch.int32 or tuple(need.shape) != shape:
+        raise ValueError(f"need: expected int32 of shape {shape}, got {need.dtype} of shape "
+                         f"{tuple(need.shape)}")
+
+
+def _apply_total(norm2, scores, valid, g, eps):
+    """K4's score cotangent per (w, i): c_pn·inv_d + α·1[s=m] + β·1[s=M]."""
+    _, c_pn, _ = _pn_terms(norm2, scores, g, eps)
     inv_d, alpha, beta = norm2[:, 1:2], norm2[:, 4:5], norm2[:, 5:6]
     eqmin, eqmax = (t.to(scores.dtype) for t in _ties(norm2, scores, valid))
-    total = c_pn * inv_d + alpha * eqmin + beta * eqmax
+    return c_pn * inv_d + alpha * eqmin + beta * eqmax
+
+
+def bwd_apply_ref(wp, kp, norm2, pts_t, valid, g, scores, need, k: VisConsts, sum_dtype=None):
+    """Plain K4. The cotangent c_pn·inv_d + α·1[s=m] + β·1[s=M] is chained
+    through the camera transform (reading s from the cache, not recomputing
+    it). Computes every pair: ``need`` (K3's mask) is only checked for its
+    type and shape, so this is the yardstick for what the mask leaves out.
+    Returns (W, 3, 4): [c, (Σdc_c, Σdc_c·px, Σdc_c·py, Σdc_c·pz)], of
+    ``sum_dtype`` if given: the same f32 terms, added in that type (float64
+    where a summation order must not show: on a cloud in view of every
+    waypoint the 12 sums cancel by six orders of magnitude)."""
+    _check_need(need, *scores.shape)
+    total = _apply_total(norm2, scores, valid, g, k.eps)
     _, e = _extras(wp, kp, pts_t, k)
-    return _plane_sums(_dcam(total, scores, e, k), pts_t).reshape(-1, 3, 4)
+    return _plane_sums(_dcam(total, scores, e, k), pts_t, sum_dtype).reshape(-1, 3, 4)
 
 
-def bwd_apply(wp, kp, norm2, pts_t, valid, g, scores, k: VisConsts):
+def bwd_apply_masked_ref(wp, kp, norm2, pts_t, valid, g, scores, need, k: VisConsts):
+    """Plain K4 as the kernel computes it: every pair whose bit in ``need``
+    is clear adds nothing. Where α or β is not finite, every pair of the
+    waypoint has a NaN cotangent in the full version (α·0), flagged or not,
+    so all 12 sums of that waypoint are NaN here as well."""
+    _check_need(need, *scores.shape)
+    total = _apply_total(norm2, scores, valid, g, k.eps)
+    total = torch.where(unpack_need(need, scores.shape[1]), total, torch.zeros_like(total))
+    _, e = _extras(wp, kp, pts_t, k)
+    sums = _plane_sums(_dcam(total, scores, e, k), pts_t)
+    poisoned = ~torch.isfinite(norm2[:, 4:6]).all(dim=1, keepdim=True)
+    return torch.where(poisoned, torch.full_like(sums, float("nan")), sums).reshape(-1, 3, 4)
+
+
+def bwd_apply(wp, kp, norm2, pts_t, valid, g, scores, need, k: VisConsts):
     if _on_cpu(scores):
-        return bwd_apply_ref(wp, kp, norm2, pts_t, valid, g, scores, k)
-    return _kernels.bwd_apply(wp, kp, norm2, pts_t, valid, g, scores, k)
+        return bwd_apply_ref(wp, kp, norm2, pts_t, valid, g, scores, need, k)
+    return _kernels.bwd_apply(wp, kp, norm2, pts_t, valid, g, scores, need, k)
 
 
 # ---------------------------------------------------------------------------
@@ -427,8 +496,9 @@ class FusedLoSum(torch.autograd.Function):
     """wp (W, 12) → lo (N,), differentiable w.r.t. wp only.
 
     Score-cache regime: forward K1 → ``make_norm`` → K2, backward K3 → α, β
-    → K4; the backward reads the saved ``norm`` and score cache, so the tie
-    tests ``s == m`` see the very values the min/max were taken over.
+    → K4 on the pairs K3's need mask flags; the backward reads the saved
+    ``norm`` and score cache, so the tie tests ``s == m`` see the very values
+    the min/max were taken over.
     Uncached regime: forward K1′ → ``make_norm`` → K2′, backward K5 →
     ``fused_acc_to_sums``; K5's recomputed scores are the bits K1′ took the
     min/max over. Both end in ``sums_to_param_grads``.
@@ -459,11 +529,11 @@ class FusedLoSum(torch.autograd.Function):
             acc = bwd_fused_acc(wp, kp, norm, pts_t, valid, g, k)
             sums = fused_acc_to_sums(acc, wp.shape[0])
         else:
-            st = bwd_stats(norm, scores, valid, g, k.eps)
+            st, need = bwd_stats(norm, scores, valid, g, k.eps)
             alpha = st[:, 0] / torch.clamp(st[:, 2], min=1.0)
             beta = st[:, 1] / torch.clamp(st[:, 3], min=1.0)
             norm2 = torch.cat([norm, alpha[:, None], beta[:, None]], dim=1).contiguous()
-            sums = bwd_apply(wp, kp, norm2, pts_t, valid, g, scores, k)
+            sums = bwd_apply(wp, kp, norm2, pts_t, valid, g, scores, need, k)
         return sums_to_param_grads(wp, sums), None, None, None, None
 
 
