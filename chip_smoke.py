@@ -43,8 +43,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
    where pruned pairs fill whole warps, and are timed there.
 4. slice — ``TrajectoryOptimizer.optimize`` on cloud 10 for 400 steps through
    the cached kernels (launch counters reset just before, read just after),
-   the same run on the plain backend, 20 steps of 1M × 50, and 20 steps of
-   8,388,608 points × 50 waypoints (8m50), whose 1.68 GB of scores exceed
+   the same run on the plain backend, ``TrajectoryOptimizer.evaluate`` of
+   the optimized path (K1 and K2 once each) beside the plain backend's, 20
+   steps of 1M × 50, and 20 steps of 8,388,608 points × 50 waypoints
+   (8m50), whose 1.68 GB of scores exceed
    the cache budget. Before that run, its first forward (K1′ → K2′) and K5
    on its cotangent are held against their plain versions run in chunks of
    waypoints, and 8m50's stage and step times are taken while the problem
@@ -55,7 +57,13 @@ Phases, each printing one line (any failure raises and exits non-zero):
    equal to the CPU prologue's, on the visible set of one camera of the
    six-camera ring over cloud 10 and over the 8,388,608-point cloud, each
    with both backends forced; each image also against the plain scatter
-   renderer to the 0.1% pixel pin.
+   renderer to the 0.1% pixel pin. Then the edge cases of
+   ``utils.data.splat_cases`` at the reference camera, both backends:
+   equal depths across tile, band and bin borders (ties across K6's two runs
+   and K7's copies), footprints of r = 0.5 and r = 4 on the image's edges,
+   and a cloud whose every tile exceeds the dense path's cap of 2,048
+   (``n_dropped`` > 0). Every kernel is launched twice on each input and
+   the two images must be equal.
 6. render slice — ``PointsProcessorNode(device="cuda")`` (``hpr_backend=
    "none"``) driven over the bus with the six-camera ring at the reference
    camera (1232x1616), once per cloud (counts reset just before, read just
@@ -64,7 +72,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
    all background; batched and serial counts within max(3, 1%).
 7. times — per-stage and per-step ms, kernel and plain, peak memory, and
    the device's busy share of a step from a 20-step ``torch.profiler`` trace;
-   K6/K7 ms beside their plain versions and bounds, the splat prologue's ms,
+   K6/K7 ms through the wrapper and the kernel alone (``torch.profiler``)
+   beside their plain versions, bounds, share of the bound and the first
+   design's times from PERF.md, the splat prologue's ms,
    ms per ``process_all`` call and its peak memory for both clouds.
 
 The line before the last is the kernels' JSON record (all nine kernels, each
@@ -99,6 +109,7 @@ REPLACES = {
 }
 VIS = tuple(REPLACES)[:7]
 SPLAT = ("splat_runs", "splat_dense")
+SPLAT_KERNELS = {"splat_runs_kernel": "splat_runs", "splat_dense_kernel": "splat_dense"}
 CACHED = ("pass_a", "pass_b", "bwd_stats", "bwd_apply")  # the score-cache regime's path
 UNCACHED = ("pass_a_minmax", "pass_b_recompute", "bwd_fused_acc")  # above the cache budget
 N_8M = 8_388_608
@@ -283,6 +294,10 @@ def ptxas_report(log: str):
 RING = [(6 + 3 * math.cos(2 * math.pi * i / 6), 2 + 3 * math.sin(2 * math.pi * i / 6), -2.0)
         for i in range(6)]  # the six-camera ring of tests/test_nodes.py, facing world +z
 MAX_E = 2048  # render_point_cloud_tiles' default per-tile cap
+# K6/K7 through the wrapper in their first design (PERF.md §6, NVIDIA H100
+# 80GB HBM3, 700 W), printed beside this run's times and never compared with them
+FIRST_SPLAT_MS = {("cloud10", "splat_runs"): 0.0365, ("8m", "splat_runs"): 0.9883,
+                ("8m", "splat_dense"): 0.4626, ("cloud10", "splat_dense"): 0.0255}
 PIN = 1e-3  # share of pixels that may differ from the scatter renderer (equal depths)
 
 
@@ -343,7 +358,7 @@ def trace_call(fn, sync):
             [(e.key, e.self_cpu_time_total / 1e3) for e in top])
 
 
-def render_checks(dev, intr, clouds, cuda_ms, sync):
+def render_checks(dev, intr, clouds, cuda_ms, kernel_ms, sync):
     """Phases 5 and 6: K6/K7 against their plain versions, then the points
     processor's rig over each cloud. Returns the numbers for [times] and the
     record."""
@@ -359,7 +374,7 @@ def render_checks(dev, intr, clouds, cuda_ms, sync):
     from trajectory_optimization_tpu_torch.ops import tile_render as tr
     from trajectory_optimization_tpu_torch.ops.render import render_point_cloud
     from trajectory_optimization_tpu_torch.utils.config import PointsProcessorConfig
-    from trajectory_optimization_tpu_torch.utils.data import pad_points
+    from trajectory_optimization_tpu_torch.utils.data import pad_points, splat_cases
 
     H, W = int(intr.height), int(intr.width)
     tiles_y, tiles_x = tr.tile_grid(H, W)
@@ -384,9 +399,38 @@ def render_checks(dev, intr, clouds, cuda_ms, sync):
     def cloud_msg(pts):
         return CloudMsg(Header(stamp=0.0, frame_id="world"), pts)
 
+    def blend_both(P, kw, what):
+        """The prologue on the card, then the kernel twice and its plain
+        version on its output: both launches ``torch.equal`` to the plain
+        image, n_dropped equal to the CPU prologue's. Returns (kernel name,
+        kernel call, plain call, args, prologue outputs, max |err|)."""
+        use_runs, offsets, entries, dropped = tr.splat_prologue(P, Kd, H, W, **kw)
+        kname = "splat_runs" if use_runs else "splat_dense"
+        if use_runs:
+            args = (offsets, entries, tiles_y, tiles_x, 1.0)
+            kern, plain = _kernels.splat_runs, tr.splat_runs_ref
+        else:
+            args = (offsets, entries, kw.get("max_entries_per_tile", MAX_E), tiles_y, tiles_x, 1.0)
+            kern, plain = _kernels.splat_dense, tr.splat_dense_ref
+        got, again, want = kern(*args), kern(*args), plain(*args)
+        sync()
+        if not torch.equal(got, want):
+            fail(f"{kname} {what}: {int((got != want).sum())} values differ from the plain "
+                 f"version (max |err| {float((got - want).abs().max()):.3e})")
+        if not torch.equal(again, got):
+            fail(f"{kname} {what}: a second launch differs from the first")
+        # n_dropped of the card's prologue == the CPU prologue's, exactly
+        dropped_cpu = tr.splat_prologue(P.cpu(), Kd.cpu(), H, W, **{
+            k: (v.cpu() if torch.is_tensor(v) else v) for k, v in kw.items()})[3]
+        if int(dropped) != int(dropped_cpu):
+            fail(f"{kname} {what}: n_dropped {int(dropped)} on the card, "
+                 f"{int(dropped_cpu)} on the CPU")
+        return kname, kern, plain, args, (use_runs, offsets, entries, dropped), float(
+            (got - want).abs().max())
+
     res = {"err": {n: 0.0 for n in SPLAT}, "ms": {}, "plain_ms": {}, "bound": {}, "work": {},
-           "prologue_ms": {}, "visible": {}, "launches": {}, "rig_ms": {}, "rig_first_s": {},
-           "peak_mib": {}, "dropped": {}, "trace": {}}
+           "kernel_ms": {}, "edge": {}, "prologue_ms": {}, "visible": {}, "launches": {},
+           "rig_ms": {}, "rig_first_s": {}, "peak_mib": {}, "dropped": {}, "trace": {}}
 
     # ---- 5. K6 and K7 against their plain versions, on the card ------------
     _, probe = make_node(render=False)
@@ -397,26 +441,9 @@ def render_checks(dev, intr, clouds, cuda_ms, sync):
         P, V = torch.as_tensor(padded, device=dev), torch.as_tensor(valid, device=dev)
         for backend in ("runs", "dense"):
             kw = dict(valid=V, backend=backend, **clip)
-            use_runs, offsets, entries, dropped = tr.splat_prologue(P, Kd, H, W, **kw)
-            kname = "splat_runs" if use_runs else "splat_dense"
-            if use_runs:
-                args = (offsets, entries, tiles_y, tiles_x, 1.0)
-                kern, plain = _kernels.splat_runs, tr.splat_runs_ref
-            else:
-                args = (offsets, entries, MAX_E, tiles_y, tiles_x, 1.0)
-                kern, plain = _kernels.splat_dense, tr.splat_dense_ref
-            got, want = kern(*args), plain(*args)
-            sync()
-            if not torch.equal(got, want):
-                fail(f"{kname} {name}: {int((got != want).sum())} values differ from the plain "
-                     f"version (max |err| {float((got - want).abs().max()):.3e})")
-            res["err"][kname] = max(res["err"][kname], float((got - want).abs().max()))
-            # n_dropped of the card's prologue == the CPU prologue's, exactly
-            dropped_cpu = tr.splat_prologue(P.cpu(), Kd.cpu(), H, W, valid=V.cpu(),
-                                            backend=backend, **clip)[3]
-            if int(dropped) != int(dropped_cpu):
-                fail(f"{kname} {name}: n_dropped {int(dropped)} on the card, "
-                     f"{int(dropped_cpu)} on the CPU")
+            kname, kern, plain, args, (use_runs, offsets, entries, dropped), err = blend_both(
+                P, kw, name)
+            res["err"][kname] = max(res["err"][kname], err)
             img = tr.render_point_cloud_tiles(P, Kd, H, W, **kw)
             ref = render_point_cloud(P, Kd, H, W, valid=V, **clip)
             n_diff = int(((img - ref).abs().amax(dim=2) > 1e-3).sum())
@@ -424,6 +451,7 @@ def render_checks(dev, intr, clouds, cuda_ms, sync):
                 fail(f"{kname} {name}: {n_diff} pixels differ from the scatter renderer")
             key = (name, kname)
             res["ms"][key] = cuda_ms(lambda: kern(*args), 20)
+            res["kernel_ms"][key] = kernel_ms(lambda: kern(*args), f"{kname}_kernel")
             res["plain_ms"][key] = cuda_ms(lambda: plain(*args), 1)
             res["prologue_ms"][(name, backend)] = cuda_ms(
                 lambda: tr.splat_prologue(P, Kd, H, W, **kw), 10)
@@ -431,9 +459,28 @@ def render_checks(dev, intr, clouds, cuda_ms, sync):
             res["bound"][key] = bound(res["work"][key][0], SPLAT_OPS * res["work"][key][1])
             print(f"[kernels] {kname} {name} cam0: {len(visible)} visible points padded to "
                   f"{len(padded)}, backend={backend}: image == plain version (torch.equal), "
+                  f"a second launch == the first, "
                   f"n_dropped {int(dropped)} == CPU prologue's; {n_diff} of {H * W} pixels differ "
                   f"from the scatter renderer (pin {PIN:.1%})", flush=True)
-            del got, want, img, ref
+            del img, ref
+    # the edge cases: ties across tile, band and bin borders, r = 0.5 and 4
+    # on the image's edges, every tile over the dense path's cap
+    for cname, (pts, kw_c) in splat_cases(intr.matrix_np(), H, W).items():
+        P = torch.as_tensor(pts, device=dev)
+        for backend in ("runs", "dense"):
+            kname, _, _, _, (_, offsets, entries, dropped), err = blend_both(
+                P, dict(backend=backend, **clip, **kw_c), cname)
+            res["err"][kname] = max(res["err"][kname], err)
+            counts = (offsets[1:] - offsets[:-1])[: tiles_y * tiles_x]
+            if cname == "over_cap" and kname == "splat_dense" and not (
+                    bool((counts > MAX_E).all()) and int(dropped) > 0):
+                fail(f"over_cap: {int((counts <= MAX_E).sum())} tiles within the cap, "
+                     f"n_dropped {int(dropped)}")
+            res["edge"][(cname, kname)] = (len(entries), int(dropped))
+        print(f"[kernels] edge case {cname} ({len(pts)} points, {W}x{H}): K6 and K7 images == "
+              f"plain versions (torch.equal), second launches == first, n_dropped "
+              f"{res['edge'][(cname, 'splat_dense')][1]} == CPU prologue's", flush=True)
+        del P
     del probe
     gc.collect()  # a node and its bus reference each other
 
@@ -545,6 +592,7 @@ def main() -> int:
         if "entry function" in line or "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}", file=sys.stderr)
     regs = ptxas_report(_kernels.build_log)
+    splat_regs = {}
     for kname, mangled in (("pass_a_kernel<true> (K1)", "pass_a_kernelILb1E"),
                            ("pass_a_kernel<false> (K1')", "pass_a_kernelILb0E"),
                            ("pass_b_recompute_kernel (K2')", "pass_b_recompute_kernel"),
@@ -560,6 +608,11 @@ def main() -> int:
         r, st, ld = found[0]
         print(f"[build] {kname}: {r} registers, {st} bytes spill stores, {ld} bytes spill loads",
               flush=True)
+        if mangled in SPLAT_KERNELS:
+            splat_regs[SPLAT_KERNELS[mangled]] = (r, st, ld)
+    resident = _kernels.splat_resident_blocks()
+    print("[build] resident blocks per SM (one per 32x128 tile): " + ", ".join(
+        f"{n} {resident[n]}" for n in SPLAT), flush=True)
 
     n_tried, n_nonzero = _kernels.expf_zero_check(dev)
     if n_nonzero or n_tried < 1_000_000_000:
@@ -1051,6 +1104,32 @@ def main() -> int:
           f"{res_k.visibility_gain:.4f}, smoothness gain {res_k.smoothness_gain:.4f}, mean_reward "
           f"{mr_k:.6f} (plain {mr_t:.6f}); launches {launches}", flush=True)
 
+    # TrajectoryOptimizer.evaluate of the optimized path, with the initial
+    # path's stride: one no-grad forward, K1 and K2 once each, beside the
+    # plain backend's (forward rtol 1e-4 / atol 2e-4; a point's census may
+    # flip where its reward sits within that of 0.5)
+    stride10 = waypoint_stride(path10, 0.5)
+    _kernels.reset_launches()
+    ev_k = opt.evaluate(cloud10, res_k.poses, res_k.quats_wxyz, wps_step=stride10)
+    sync()
+    ev_launches = {n: v for n, v in _kernels.LAUNCHES.items() if v}
+    ev_t = TrajectoryOptimizer(lr_pose=0.1, lr_quat=0.02, backend="torch", device=dev).evaluate(
+        cloud10, res_k.poses, res_k.quats_wxyz, wps_step=stride10)
+    if ev_launches != {"pass_a": 1, "pass_b": 1}:
+        fail(f"evaluate on cloud 10 launched {ev_launches}; expected K1 and K2 once each")
+    off_half = [np.abs(r.astype(np.float64) - 0.5) for r in (ev_k.rewards, ev_t.rewards)]
+    near_half = int(np.sum(np.any([(d > 0) & (d <= 2.5e-4) for d in off_half], axis=0)))
+    if not (ev_k.rewards.shape == (len(cloud10),) and np.all(np.isfinite(ev_k.rewards))
+            and abs(ev_k.n_observed - ev_t.n_observed) <= near_half
+            and abs(ev_k.mean_reward - ev_t.mean_reward) <= 2e-4 + 1e-4 * abs(ev_t.mean_reward)):
+        fail(f"evaluate on cloud 10: n_observed {ev_k.n_observed}, mean_reward "
+             f"{ev_k.mean_reward:.7f}; plain {ev_t.n_observed}, {ev_t.mean_reward:.7f}")
+    print(f"[slice] evaluate cloud10 (optimized path, wps_step {stride10}): n_observed "
+          f"{ev_k.n_observed} of {len(cloud10)}, mean_reward {ev_k.mean_reward:.7f}, length "
+          f"{ev_k.length:.4f}, mean_angle {ev_k.mean_angle:.4f}; backend=\"torch\": n_observed "
+          f"{ev_t.n_observed}, mean_reward {ev_t.mean_reward:.7f}; launches {ev_launches}",
+          flush=True)
+
     big = cases[1]
     res_big = opt.optimize(big_pts, big_path, n_steps=20)
     if not (np.all(np.isfinite(res_big.poses)) and np.isfinite(res_big.loss) and res_big.n_iters == 20):
@@ -1168,7 +1247,8 @@ def main() -> int:
     # ---- 5.-6. the render path: K6, K7 and the points processor ------------
     del res8
     torch.cuda.empty_cache()
-    rend = render_checks(dev, intr, {"cloud10": cloud10, "8m": pts8}, cuda_ms, sync)
+    rend = render_checks(dev, intr, {"cloud10": cloud10, "8m": pts8}, cuda_ms, kernel_device_ms,
+                         sync)
     del pts8
 
     # ---- 7. times ----------------------------------------------------------
@@ -1239,12 +1319,23 @@ def main() -> int:
               + ", ".join(f"{name} {d['ms']['pass_a_minmax']:.4f}" for name, d in dense.items())
               + " ms", flush=True)
 
+    def alone(key):
+        ms = rend["kernel_ms"][key]
+        return "not measured" if ms is None else f"{ms:.4f}"
+
+    def share(key):
+        ms = rend["kernel_ms"][key] or rend["ms"][key]
+        return f"{100 * rend['bound'][key][0] / ms:.1f}%"
+
     for name in ("cloud10", "8m"):
         n_vis, n_pad = rend["visible"][name]
         print(f"[times] {card} | render {name} cam0 ({n_vis} visible, padded {n_pad}): "
               + ", ".join(
-                  f"{k} {rend['ms'][(name, k)]:.4f} ms (plain {rend['plain_ms'][(name, k)]:.4f}, "
-                  f"bound {rend['bound'][(name, k)][0]:.4f} by {rend['bound'][(name, k)][1]}: "
+                  f"{k} {rend['ms'][(name, k)]:.4f} ms, the kernel alone {alone((name, k))} "
+                  f"(first design {FIRST_SPLAT_MS[(name, k)]:.4f}; plain "
+                  f"{rend['plain_ms'][(name, k)]:.4f}, "
+                  f"bound {rend['bound'][(name, k)][0]:.4f} by {rend['bound'][(name, k)][1]}, "
+                  f"{share((name, k))} of it: "
                   f"{rend['work'][(name, k)][0] / 1e6:.1f} MB, "
                   f"{rend['work'][(name, k)][1]} covered pairs)" for k in SPLAT)
               + "; prologue ms " + ", ".join(f"{b} {rend['prologue_ms'][(name, b)]:.4f}"
@@ -1285,7 +1376,10 @@ def main() -> int:
                 "launches": rend["launches"][main][n], "max_abs_err": rend["err"][n],
                 "ms": rend["ms"][(main, n)], "plain_ms": rend["plain_ms"][(main, n)],
                 "bound_ms": rend["bound"][(main, n)][0], "bound_by": rend["bound"][(main, n)][1],
-                "library_ms": None, f"ms_{other}": rend["ms"][(other, n)],
+                "library_ms": None, "kernel_alone_ms": rend["kernel_ms"][(main, n)],
+                "registers": splat_regs[n][0], "resident_blocks_per_sm": resident[n],
+                f"ms_{other}": rend["ms"][(other, n)],
+                f"kernel_alone_ms_{other}": rend["kernel_ms"][(other, n)],
                 f"plain_ms_{other}": rend["plain_ms"][(other, n)],
                 f"bound_ms_{other}": rend["bound"][(other, n)][0]}
 

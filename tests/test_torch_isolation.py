@@ -79,3 +79,16 @@ def test_library_name_follows_every_source(tmp_path):
     assert len(seen) == len(copies) + 1  # each source's change gives a new name
     assert _kernels.library_path(copies) == base
     assert base.parent == _kernels.BUILD_DIR
+
+
+def test_a_cached_library_keeps_its_build_log(tmp_path, monkeypatch):
+    """build() of sources already built compiles nothing and hands back the
+    first build's nvcc report, from which chip_smoke.py reads each kernel's
+    registers: the script runs twice in one checkout."""
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_kernels, "build_log", "")
+    out = _kernels.library_path()
+    out.write_bytes(b"")
+    out.with_suffix(".log").write_text("== splat_render.cu\nptxas info    : Used 47 registers")
+    assert _kernels.build() == out
+    assert _kernels.build_log.endswith("Used 47 registers")

@@ -9,6 +9,7 @@ JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -28,6 +29,7 @@ from trajectory_optimization_tpu_torch.utils.data import (  # noqa: E402
     load_path,
     load_point_cloud,
     pad_points,
+    splat_cases,
 )
 from trajectory_optimization_tpu_torch.utils.intrinsics import default_intrinsics  # noqa: E402
 
@@ -545,3 +547,46 @@ def test_splat_wrappers_reject_bad_inputs(dev):
         _kernels.splat_dense(offsets, torch.zeros((8, 5), device=dev).t(), 8, 1, 3, 1.0)
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.splat_runs(offsets.cpu(), entries.cpu(), 1, 3, 1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _edge_cases(size):
+    """``utils.data.splat_cases`` on a small image (cap 64) or at the
+    reference camera (cap 2048, the renderer's default)."""
+    if size == "small":
+        return SMALL_K, 100, 130, splat_cases(SMALL_K, 100, 130, cap=64)
+    K = INTR.matrix_np()
+    H, W = int(INTR.height), int(INTR.width)
+    return K, H, W, splat_cases(K, H, W)
+
+
+@pytest.mark.parametrize("backend", ["runs", "dense"])
+@pytest.mark.parametrize("name", ["ties", "edges_r05", "edges_r4", "over_cap"])
+@pytest.mark.parametrize("size", ["small", "reference"])
+def test_splat_kernels_equal_plain_on_edge_cases(dev, size, name, backend):
+    """Equal depths across tile, band and bin borders; r = 0.5 and r = 4 on
+    the image's edges; every tile over the dense path's cap: images
+    ``torch.equal`` to the plain versions, n_dropped equal to the CPU
+    prologue's, and a second launch equal to the first."""
+    K, H, W, cases = _edge_cases(size)
+    pts, kw = cases[name]
+    P, Kt = torch.as_tensor(pts, device=dev), torch.as_tensor(K, device=dev)
+    use_runs, offsets, entries, dropped = tr.splat_prologue(P, Kt, H, W, znear=1.0, zfar=15.0,
+                                                            backend=backend, **kw)
+    ty, tx = tr.tile_grid(H, W)
+    if use_runs:
+        args = (offsets, entries, ty, tx, 1.0)
+        kern, plain = _kernels.splat_runs, tr.splat_runs_ref
+    else:
+        args = (offsets, entries, kw.get("max_entries_per_tile", 2048), ty, tx, 1.0)
+        kern, plain = _kernels.splat_dense, tr.splat_dense_ref
+    got, again, want = kern(*args), kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, got)
+    assert bool((got < 1.0).any())
+    cpu = tr.splat_prologue(torch.as_tensor(pts), torch.as_tensor(K), H, W, znear=1.0, zfar=15.0,
+                            backend=backend, **kw)[3]
+    assert int(dropped) == int(cpu)
+    if name == "over_cap" and backend == "dense":
+        counts = (offsets[1:] - offsets[:-1])[: ty * tx]
+        assert bool((counts > args[2]).all()) and int(dropped) > 0

@@ -2,8 +2,9 @@
 
 Twin of ``trajectory_optimization_tpu/api.py`` (``TrajResult``,
 ``TrajectoryOptimizer.optimize``): automatic padding and shape bucketing
-(one cached runner per bucket), warm start from a previous solution, and a
-structured result. ``evaluate`` and ``PoseOptimizer`` come in later work.
+(one cached runner per bucket), warm start from a previous solution, a
+structured result, and ``evaluate`` of a fixed path (``models.evaluate``).
+``PoseOptimizer`` comes in later work.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from trajectory_optimization_tpu_torch.models.evaluate import TrajEvalResult, evaluate_trajectory
 from trajectory_optimization_tpu_torch.models.traj import (
     TrajProblem,
     init_traj_params,
@@ -112,7 +114,12 @@ class TrajectoryOptimizer:
             smoothness_gain=smooth0 / max(loss_smooth, 1e-9),
         )
 
-    def _traj_problem(self, path) -> TrajProblem:
+    def _traj_problem(self, path, wps_step=None) -> TrajProblem:
+        """The one place the facade builds its TrajProblem, so that optimize
+        and evaluate build identical problems. ``wps_step`` overrides the
+        stride computed from ``path`` (pass the initial path's stride when
+        evaluating an optimized path, so that both censuses select the same
+        waypoints)."""
         return TrajProblem(
             img_width=self.intr.width,
             img_height=self.intr.height,
@@ -120,7 +127,27 @@ class TrajectoryOptimizer:
             max_dist=self.max_dist,
             smoothness_weight=self.smoothness_weight,
             length_weight=self.length_weight,
-            wps_step=waypoint_stride(path, self.vis_wps_dist),
+            wps_step=int(wps_step) if wps_step is not None
+            else waypoint_stride(path, self.vis_wps_dist),
             soft_hpr=self.soft_hpr,
             backend=self.backend,
         )
+
+    def evaluate(self, points, path, quats_wxyz=None, *, wps_step=None) -> TrajEvalResult:
+        """Score a fixed path (the reference README's "Trajectory
+        Evaluation"): one no-grad forward on ``device`` returning the
+        observed-point census and the fused rewards, with the padding of
+        ``optimize``. When comparing an optimized path with its initial one,
+        pass the initial path's ``wps_step`` (``models.traj.waypoint_stride``)
+        to both calls."""
+        points = np.asarray(points, np.float32)
+        path = np.asarray(path, np.float32)
+        if quats_wxyz is None:
+            quats_wxyz = identity_quaternions(len(path))
+        padded, valid = pad_points(points)
+        res = evaluate_trajectory(
+            padded, path, np.asarray(quats_wxyz, np.float32), self.intr.matrix_np(),
+            self._traj_problem(path, wps_step), valid=valid, device=self.device,
+        )
+        res.rewards = res.rewards[: len(points)]
+        return res

@@ -9,7 +9,8 @@
 //
 // Plain PyTorch versions with the same inputs and outputs are splat_runs_ref
 // and splat_dense_ref in trajectory_optimization_tpu_torch/ops/tile_render.py,
-// which also builds the inputs (the prologue).
+// which also builds the inputs (the prologue) and models this kernel's cull
+// (band_cull).
 //
 // Inputs: offsets (n_tiles + 1,) i32 into entries (M, 8) f32, rows
 // [round(u), round(v), z, r^2, r, g, b, 0] sorted stably by bin. K6 bins
@@ -20,27 +21,51 @@
 // entries the JAX twin packs into its (n_tiles, MAX_E, 8) block, read in
 // place. Output: planar R, G, B, (3, Hp, Wp) f32; the wrapper crops.
 //
-// Design: one block of 256 threads per 32x128 tile. Thread t owns column
-// t % 128 and the 16 rows t / 128 + 2k, keeping their depth and colour in
-// registers (64 floats); each output pixel is written once, with neighbouring
-// threads on neighbouring addresses. The scan range goes through shared
-// memory 256 entries (8 KB) at a time, and every thread tests every staged
-// entry against its pixels in scan order with the JAX blend rule
-// (_blend_body, pallas_render.py:76-92): covered iff dr*dr + dc*dc <= r^2,
-// taken iff z < zbuf (strict), starting from z = 3.0e38 and the background.
-// dr and dc are integer-valued, so dr*dr + dc*dc is exact with or without
-// FMA contraction while it is below 2^24 (and far above r^2 <= 16 beyond
-// that): the coverage test is exact and the images equal the plain
-// version's bit for bit. A thread skips an entry at once when
-// dc*dc > r^2 (then no dr can cover); that skip is exact too. No atomics.
+// The blend rule is the JAX twin's (_blend_body, pallas_render.py:76-92):
+// a pixel is covered iff dr*dr + dc*dc <= r^2; an entry takes it iff
+// z < zbuf, strictly, starting from z = 3.0e38 and the background, so among
+// equal depths the first entry in scan order wins.
+//
+// Design: one block of 8 warps per 32x128 tile. Warp w owns the band of
+// columns [16w, 16w + 16) of the tile, all 32 rows, and nothing else: the
+// tile's z-buffer and the index of each pixel's winning entry live in
+// shared memory (8 bytes a pixel; colours are gathered once, at the end),
+// and no two warps touch one pixel, so the warps never wait for each other.
+// (Bands of 16 columns ran faster than bands of 32 or 8 on K7 at 8m and K6
+// at cloud 10: more warps in flight, at the cost of more entries that reach
+// two bands.)
+// - Cull once per warp, 32 entries at a time. Each lane loads one entry of
+//   the scan range and tests its footprint against the band: the distance
+//   from (u, v) to the band's pixel box, (dr0, dc0), must satisfy
+//   dr0^2 + dc0^2 <= r^2. u and v are integer-valued, so the box's nearest
+//   pixel is at exactly that distance: the test keeps an entry iff it covers
+//   a pixel of the band, and dropping the others is exact. A ballot gives
+//   the survivors in scan order; the warp blends them one after the other
+//   (lowest lane first), so equal depths keep the first in scan order. An
+//   entry reaches 1-2 of the 8 bands; K6's entries of the four scanned bins
+//   that miss the tile reach none.
+// - Blend only the footprint. The survivor's box, its 2S+1 rows and columns
+//   around (v, u) with S = floor(sqrtf(r^2)), clipped to the band, is spread
+//   over the 32 lanes, one pixel per lane (81 pixels, 3 rounds, at r = 4).
+//   A pixel outside the box has |dr| or |dc| > S >= floor(sqrt(r^2)) (sqrtf
+//   is correctly rounded and monotone, so it never falls below an integer
+//   that the true root reaches), and dr and dc are integers, so it is not
+//   covered: skipping it is exact. Within one entry each pixel goes to one
+//   lane; __syncwarp orders consecutive entries.
+// - dr and dc are integer-valued, so dr*dr + dc*dc is exact with or without
+//   FMA contraction while it is below 2^24 (and far above r^2 beyond that):
+//   the coverage test is exact and the images equal the plain version's bit
+//   for bit. No atomics.
+// The shared row stride is 128 + 9 floats: pixel (y, x) falls in bank
+// (9y + x) mod 32, so the 32 pixels of a 9-wide box row-major round hit 32
+// distinct banks.
 //
 // Bound on this card: at the reference camera (1616x1232, 510 tiles,
 // Hp x Wp = 1632 x 1280) the image write alone is 3 x 1632 x 1280 x 4 B =
 // 25.1 MB, ~7.5 us at 3.35 TB/s, against a few bytes per entry read and a
-// handful of operations per covered pixel: bytes bound it. This brute-force
-// scan does more work than the covered pixels need (every thread looks at
-// every entry of its tile's scan range, ~4 bins' worth for K6); making it
-// fast is later work.
+// handful of operations per covered pixel: bytes bound it. The time goes to
+// issuing instructions: ~25 per lane round of the cull, ~20 per round of a
+// survivor's box.
 
 #include <cuda_runtime.h>
 
@@ -48,14 +73,18 @@ namespace {
 
 constexpr int kTileH = 32;
 constexpr int kTileW = 128;
-constexpr int kThreads = 256;
-constexpr int kRowStep = kThreads / kTileW;  // rows between a thread's pixels
-constexpr int kPix = kTileH / kRowStep;      // pixels per thread
-constexpr int kChunk = kThreads;             // entries staged per round
+constexpr int kBandW = 16;                // columns per warp
+constexpr int kWarps = kTileW / kBandW;   // warps per tile
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStride = kTileW + 9;       // shared floats per tile row (bank spread)
 constexpr float kFar = 3.0e38f;
+constexpr unsigned kAll = 0xffffffffu;
+
+static_assert(kBandW <= 32 && 32 % kBandW == 0, "a band is at most one lane per column");
+static_assert(kTileH <= 32, "box offsets and sizes are packed in 5 bits");
 
 struct Run {
-  long long lo;
+  int lo;
   int n;
 };
 
@@ -63,55 +92,93 @@ struct Run {
 __device__ __forceinline__ void blend_tile(const float4* __restrict__ entries, Run a, Run b,
                                            int ty, int tx, float bg, float* __restrict__ out,
                                            long long plane, int Wp) {
-  __shared__ float4 s_geo[kChunk];  // u, v, z, r^2
-  __shared__ float4 s_rgb[kChunk];  // r, g, b, 0
-  const int col = threadIdx.x % kTileW;
-  const int row0 = threadIdx.x / kTileW;
-  const float fcol = static_cast<float>(tx * kTileW + col);
-  const int y0 = ty * kTileH + row0;
-  float zb[kPix], cr[kPix], cg[kPix], cb[kPix];
-#pragma unroll
-  for (int i = 0; i < kPix; ++i) {
-    zb[i] = kFar;
-    cr[i] = bg;
-    cg[i] = bg;
-    cb[i] = bg;
+  __shared__ float s_z[kTileH * kStride];
+  __shared__ int s_win[kTileH * kStride];  // winning entry's row in entries, -1: background
+  const int lane = threadIdx.x & 31;
+  const int band = threadIdx.x >> 5;
+  const int bx = band * kBandW;                       // band's first column in the tile
+  constexpr int kRowStep = 32 / kBandW;               // rows between a lane's pixels
+  const int my_x = bx + lane % kBandW, my_y0 = lane / kBandW;
+  for (int y = my_y0; y < kTileH; y += kRowStep) {
+    s_z[y * kStride + my_x] = kFar;
+    s_win[y * kStride + my_x] = -1;
   }
+  __syncwarp();
+
+  // the band's pixel box, in image coordinates (small integers: exact)
+  const float x0 = static_cast<float>(tx * kTileW + bx), x1 = x0 + (kBandW - 1);
+  const float y0 = static_cast<float>(ty * kTileH), y1 = y0 + (kTileH - 1);
   const int total = a.n + b.n;
-  for (int base = 0; base < total; base += kChunk) {
-    const int k = base + static_cast<int>(threadIdx.x);
-    if (k < total) {
-      const long long e = k < a.n ? a.lo + k : b.lo + (k - a.n);
-      s_geo[threadIdx.x] = entries[2 * e];
-      s_rgb[threadIdx.x] = entries[2 * e + 1];
-    }
-    __syncthreads();
-    const int m = min(kChunk, total - base);
-    for (int j = 0; j < m; ++j) {
-      const float4 g = s_geo[j];
-      const float dc = fcol - g.x;
-      const float dc2 = dc * dc;
-      if (dc2 > g.w) continue;
-      const float4 c = s_rgb[j];
-#pragma unroll
-      for (int i = 0; i < kPix; ++i) {
-        const float dr = static_cast<float>(y0 + kRowStep * i) - g.y;
-        if (dr * dr + dc2 <= g.w && g.z < zb[i]) {
-          zb[i] = g.z;
-          cr[i] = c.x;
-          cg[i] = c.y;
-          cb[i] = c.z;
+  // lane's entry of the round starting at base: (row in entries, u v z r^2);
+  // r^2 < 0 past the end covers nothing
+  auto fetch = [&](int base, int& e, float4& g) {
+    const int k = base + lane;
+    e = k < a.n ? a.lo + k : b.lo + (k - a.n);
+    g = k < total ? __ldg(entries + 2 * static_cast<long long>(e))
+                  : make_float4(0.f, 0.f, 0.f, -1.f);
+  };
+  int e_next;
+  float4 g_next;
+  fetch(0, e_next, g_next);
+  for (int base = 0; base < total; base += 32) {
+    const int e = e_next;
+    const float4 g = g_next;
+    if (base + 32 < total) fetch(base + 32, e_next, g_next);  // in flight during the blend
+    const float dc0 = fmaxf(fmaxf(x0 - g.x, 0.f), g.x - x1);
+    const float dr0 = fmaxf(fmaxf(y0 - g.y, 0.f), g.y - y1);
+    const float s = floorf(sqrtf(g.w));
+    const int c_lo = static_cast<int>(fmaxf(g.x - s, x0) - x0);
+    const int c_hi = static_cast<int>(fminf(g.x + s, x1) - x0);
+    const int r_lo = static_cast<int>(fmaxf(g.y - s, y0) - y0);
+    const int r_hi = static_cast<int>(fminf(g.y + s, y1) - y0);
+    const bool keep = dr0 * dr0 + dc0 * dc0 <= g.w && c_hi >= c_lo && r_hi >= r_lo;
+    const int bw = c_hi - c_lo + 1;
+    const int box = c_lo | (r_lo << 5) | ((bw - 1) << 10) | ((r_hi - r_lo) << 15);
+    const float inv_bw = 1.0f / static_cast<float>(max(bw, 1));
+    unsigned m = __ballot_sync(kAll, keep);
+    while (m) {
+      const int src = __ffs(m) - 1;
+      m &= m - 1;
+      const float u = __shfl_sync(kAll, g.x, src), v = __shfl_sync(kAll, g.y, src);
+      const float z = __shfl_sync(kAll, g.z, src), r2 = __shfl_sync(kAll, g.w, src);
+      const int win = __shfl_sync(kAll, e, src), bx_s = __shfl_sync(kAll, box, src);
+      const float inv = __shfl_sync(kAll, inv_bw, src);
+      const int cl = bx_s & 31, rl = (bx_s >> 5) & 31;
+      const int w = ((bx_s >> 10) & 31) + 1, n = w * (((bx_s >> 15) & 31) + 1);
+      for (int q = lane; q < n; q += 32) {
+        // q = dy * w + dx; (q + 0.5) / w is at least 0.5 / w from an
+        // integer, far above the product's rounding error at q < 1024
+        const int dy = static_cast<int>((static_cast<float>(q) + 0.5f) * inv);
+        const int dx = q - dy * w;
+        const float dr = (y0 + static_cast<float>(rl + dy)) - v;
+        const float dc = (x0 + static_cast<float>(cl + dx)) - u;
+        if (dr * dr + dc * dc <= r2) {
+          const int p = (rl + dy) * kStride + bx + cl + dx;
+          if (z < s_z[p]) {
+            s_z[p] = z;
+            s_win[p] = win;
+          }
         }
       }
+      __syncwarp();
     }
-    __syncthreads();
   }
-#pragma unroll
-  for (int i = 0; i < kPix; ++i) {
-    const long long p = static_cast<long long>(y0 + kRowStep * i) * Wp + tx * kTileW + col;
-    out[p] = cr[i];
-    out[plane + p] = cg[i];
-    out[2 * plane + p] = cb[i];
+
+  const long long col = static_cast<long long>(tx) * kTileW + my_x;
+#pragma unroll 4
+  for (int y = my_y0; y < kTileH; y += kRowStep) {
+    const int win = s_win[y * kStride + my_x];
+    float cr = bg, cg = bg, cb = bg;
+    if (win >= 0) {
+      const float4 c = __ldg(entries + 2 * static_cast<long long>(win) + 1);
+      cr = c.x;
+      cg = c.y;
+      cb = c.z;
+    }
+    const long long p = static_cast<long long>(ty * kTileH + y) * Wp + col;
+    out[p] = cr;
+    out[plane + p] = cg;
+    out[2 * plane + p] = cb;
   }
 }
 
@@ -151,6 +218,19 @@ extern "C" {
 
 int sr_tile_h() { return kTileH; }
 int sr_tile_w() { return kTileW; }
+int sr_band_w() { return kBandW; }
+
+// Blocks of K6 (dense = 0) or K7 (dense = 1) that one SM holds at once, as
+// the runtime computes it from the kernel's registers and shared memory;
+// a negated CUDA error code on failure.
+int sr_resident_blocks(int dense) {
+  int n = 0;
+  const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, dense ? reinterpret_cast<const void*>(splat_dense_kernel)
+                : reinterpret_cast<const void*>(splat_runs_kernel),
+      kThreads, 0);
+  return rc == cudaSuccess ? n : -static_cast<int>(rc);
+}
 
 int sr_splat_runs(const int* offsets, const float* entries, int tiles_y, int tiles_x,
                   float bg, float* out, void* stream) {

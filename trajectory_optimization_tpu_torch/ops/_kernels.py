@@ -45,7 +45,9 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*_ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")
 LINK_FLAGS = (*_ARCH, "-shared")
-SPLAT_TILE_H, SPLAT_TILE_W = 32, 128  # the tile of csrc/splat_render.cu (checked at load)
+# the tile of csrc/splat_render.cu and the band of columns each warp owns
+# (checked at load)
+SPLAT_TILE_H, SPLAT_TILE_W, SPLAT_BAND_W = 32, 128, 16
 # Pass A's pruning constants, those of csrc/fused_vis.cu (checked at load; the
 # reasons for their values are given there). With T0 = d²·inv_var: T0 ≥
 # PRUNE_ZERO_T makes the score exactly +0; T0 > −2·log(M) + PRUNE_MAX_MARGIN
@@ -65,7 +67,7 @@ BIG = 3.0e38  # pass A's min of a waypoint without valid points; its max is −B
 _lib = None
 _sentinels = {}  # per device, the (2, 1) column [BIG, −BIG] that presets pass A's outputs
 _reduction_scratch = {}  # per (device, stream), K3's and K4's (arrival counters, partial sums)
-build_log = ""  # nvcc's output (ptxas register/spill report) of the last build, per source
+build_log = ""  # nvcc's output (ptxas register/spill report) of the library's build, per source
 
 
 def reset_launches() -> None:
@@ -110,7 +112,9 @@ def build() -> Path:
     return the library's path."""
     global build_log
     out = library_path()
+    log_file = out.with_suffix(".log")  # the build's nvcc output, kept beside the library
     if out.exists():
+        build_log = log_file.read_text() if log_file.exists() else ""
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
@@ -139,6 +143,8 @@ def build() -> Path:
                               capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        (work / log_file.name).write_text(build_log)
+        os.replace(work / log_file.name, log_file)
         os.replace(tmp, out)  # atomic: concurrent builders never load half a file
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -164,9 +170,11 @@ def _load():
     lib.sr_splat_dense.argtypes = [P, P, I, I, I, F, P, P]
     for fn in (lib.fv_pass_a, lib.fv_pass_b, lib.fv_bwd_stats, lib.fv_bwd_apply,
                lib.fv_pass_a_minmax, lib.fv_pass_b_recompute, lib.fv_bwd_fused_acc,
-               lib.sr_splat_runs, lib.sr_splat_dense, lib.sr_tile_h, lib.sr_tile_w):
+               lib.sr_splat_runs, lib.sr_splat_dense, lib.sr_tile_h, lib.sr_tile_w,
+               lib.sr_band_w, lib.sr_resident_blocks):
         fn.restype = I
-    lib.sr_tile_h.argtypes = lib.sr_tile_w.argtypes = []
+    lib.sr_tile_h.argtypes = lib.sr_tile_w.argtypes = lib.sr_band_w.argtypes = []
+    lib.sr_resident_blocks.argtypes = [I]
     lib.fv_expf_zero_check.argtypes, lib.fv_expf_zero_check.restype = [P, P, P], I
     consts = []
     for fn in (lib.fv_prune_zero_t, lib.fv_prune_max_margin, lib.fv_prune_max_floor):
@@ -175,9 +183,11 @@ def _load():
     if consts != [F(c).value for c in (PRUNE_ZERO_T, PRUNE_MAX_MARGIN, PRUNE_MAX_FLOOR)]:
         raise RuntimeError(f"fused_vis.cu prunes with {consts}, the wrapper expects "
                            f"{(PRUNE_ZERO_T, PRUNE_MAX_MARGIN, PRUNE_MAX_FLOOR)}")
-    if (lib.sr_tile_h(), lib.sr_tile_w()) != (SPLAT_TILE_H, SPLAT_TILE_W):
-        raise RuntimeError(f"splat_render.cu tiles are {lib.sr_tile_h()}x{lib.sr_tile_w()}, "
-                           f"the wrapper expects {SPLAT_TILE_H}x{SPLAT_TILE_W}")
+    splat = (lib.sr_tile_h(), lib.sr_tile_w(), lib.sr_band_w())
+    if splat != (SPLAT_TILE_H, SPLAT_TILE_W, SPLAT_BAND_W):
+        raise RuntimeError(f"splat_render.cu has tiles {splat[0]}x{splat[1]} in bands of "
+                           f"{splat[2]} columns, the wrapper expects {SPLAT_TILE_H}x"
+                           f"{SPLAT_TILE_W} in bands of {SPLAT_BAND_W}")
     _lib = lib
     return lib
 
@@ -437,4 +447,16 @@ def splat_dense(offsets, entries, max_e: int, tiles_y: int, tiles_x: int, bg: fl
                                 _stream(entries))
     _raise_on(rc, "splat_dense")
     LAUNCHES["splat_dense"] += 1
+    return out
+
+
+def splat_resident_blocks() -> dict:
+    """{kernel: blocks of K6 / K7 that one SM holds at once}, as the CUDA
+    runtime computes it from their registers and shared memory."""
+    lib = _load()
+    out = {}
+    for name, dense in (("splat_runs", 0), ("splat_dense", 1)):
+        n = lib.sr_resident_blocks(dense)
+        _raise_on(-n if n < 0 else 0, f"{name} occupancy")
+        out[name] = n
     return out

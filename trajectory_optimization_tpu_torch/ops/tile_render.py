@@ -33,7 +33,9 @@ those of the JAX twin.
 
 On CPU tensors the blend runs as its plain PyTorch version
 (``splat_runs_ref``, ``splat_dense_ref``); on CUDA tensors as the
-hand-written kernels of ``csrc/splat_render.cu``.
+hand-written kernels of ``csrc/splat_render.cu``, where each warp owns a
+band of ``BAND_W`` columns of the tile and blends only the entries that
+reach it (``band_cull`` is that cull, plain, for the tests).
 """
 from __future__ import annotations
 
@@ -46,6 +48,8 @@ from trajectory_optimization_tpu_torch.ops.render import _default_colors
 
 TILE_H = _kernels.SPLAT_TILE_H
 TILE_W = _kernels.SPLAT_TILE_W
+BAND_W = _kernels.SPLAT_BAND_W  # columns of a tile that one warp of the kernels owns
+N_BANDS = TILE_W // BAND_W
 FAR = 3.0e38  # the background depth: an entry wins a pixel only below it
 RUN_PATH_MAX_ENTRIES = 65536
 _REF_CHUNK = 512  # entries per step of the plain blend (bounds its memory)
@@ -92,41 +96,75 @@ def _blend_tile_ref(cand: torch.Tensor, ty: int, tx: int, bg: float):
     return rgb
 
 
+def tile_runs(offsets, tiles_y: int, tiles_x: int, max_e: Optional[int] = None):
+    """Each tile's (lo, hi) entry ranges, in scan order. K6 (``max_e`` None):
+    the runs of bins (ty-1, tx-1..tx) (when ty ≥ 1), then (ty, tx-1..tx).
+    K7: the first ``max_e`` entries of the tile's own run."""
+    off = offsets.cpu().tolist()
+    if max_e is not None:
+        return [[(off[t], off[t] + min(off[t + 1] - off[t], max_e))]
+                for t in range(tiles_y * tiles_x)]
+    runs = []
+    for t in range(tiles_y * tiles_x):
+        ty, tx = divmod(t, tiles_x)
+        c_lo = max(tx - 1, 0)
+        runs.append([(off[row * tiles_x + c_lo], off[row * tiles_x + tx + 1])
+                     for row in (ty - 1, ty) if row >= 0])
+    return runs
+
+
+def tile_candidates(entries, runs, t: int) -> torch.Tensor:
+    """Tile t's candidate entries (n, 8), in scan order."""
+    return torch.cat([entries[lo:hi] for lo, hi in runs[t]])
+
+
 def _blend_ref(runs, entries, tiles_y, tiles_x, bg):
-    """Apply ``_blend_tile_ref`` to every tile; ``runs(t)`` lists the tile's
-    (lo, hi) entry ranges in scan order. Returns (3, Hp, Wp)."""
+    """Apply ``_blend_tile_ref`` to every tile. Returns (3, Hp, Wp)."""
     out = torch.empty((3, tiles_y * TILE_H, tiles_x * TILE_W), dtype=torch.float32,
                       device=entries.device)
     for t in range(tiles_y * tiles_x):
         ty, tx = divmod(t, tiles_x)
-        cand = torch.cat([entries[lo:hi] for lo, hi in runs(t)])
         out[:, ty * TILE_H:(ty + 1) * TILE_H, tx * TILE_W:(tx + 1) * TILE_W] = (
-            _blend_tile_ref(cand, ty, tx, bg))
+            _blend_tile_ref(tile_candidates(entries, runs, t), ty, tx, bg))
     return out
 
 
 def splat_runs_ref(offsets, entries, tiles_y: int, tiles_x: int, bg: float):
     """Plain K6: each tile blends the runs of bins (ty-1, tx-1..tx) (when
     ty ≥ 1), then (ty, tx-1..tx)."""
-    off = offsets.cpu().tolist()
-
-    def runs(t):
-        ty, tx = divmod(t, tiles_x)
-        c_lo = max(tx - 1, 0)
-        return [(off[row * tiles_x + c_lo], off[row * tiles_x + tx + 1])
-                for row in (ty - 1, ty) if row >= 0]
-
-    return _blend_ref(runs, entries, tiles_y, tiles_x, bg)
+    return _blend_ref(tile_runs(offsets, tiles_y, tiles_x), entries, tiles_y, tiles_x, bg)
 
 
 def splat_dense_ref(offsets, entries, max_e: int, tiles_y: int, tiles_x: int, bg: float):
     """Plain K7: tile t blends the first ``max_e`` entries of its run."""
-    off = offsets.cpu().tolist()
+    return _blend_ref(tile_runs(offsets, tiles_y, tiles_x, max_e), entries, tiles_y, tiles_x,
+                      bg)
 
-    def runs(t):
-        return [(off[t], off[t] + min(off[t + 1] - off[t], max_e))]
 
-    return _blend_ref(runs, entries, tiles_y, tiles_x, bg)
+def band_cull(cand: torch.Tensor, ty: int, tx: int):
+    """The kernels' cull, plain (nothing on the card path uses it). Tile
+    (ty, tx) is cut into ``N_BANDS`` bands of ``BAND_W`` columns, one warp
+    each; for the tile's candidates (n, 8) returns ``keep`` (N_BANDS, n)
+    bool, the entries whose footprint reaches a pixel of the band (the
+    distance (dr0, dc0) from (u, v) to the band's pixel box has
+    dr0² + dc0² ≤ r²), and ``box`` (N_BANDS, n, 4) int64, the image columns
+    [c_lo, c_hi] and rows [r_lo, r_hi] that a kept entry's blend visits:
+    (u, v) ± floor(sqrt(r²)), clipped to the band. For the prologue's
+    entries (integer-valued u, v) ``keep`` is exact and no covered pixel
+    lies outside ``box``."""
+    u, v, r2 = cand[:, 0], cand[:, 1], cand[:, 3]
+    x0 = (tx * TILE_W + BAND_W * torch.arange(N_BANDS, device=cand.device)).to(torch.float32)
+    x0 = x0[:, None]
+    x1 = x0 + (BAND_W - 1)
+    y0, y1 = float(ty * TILE_H), float(ty * TILE_H + TILE_H - 1)
+    dc0 = torch.maximum(torch.clamp(x0 - u, min=0.0), u - x1)
+    dr0 = torch.clamp(torch.clamp(y0 - v, min=0.0), min=v - y1)
+    s = torch.floor(torch.sqrt(r2))
+    c_lo, c_hi = torch.maximum(u - s, x0), torch.minimum(u + s, x1)
+    r_lo = torch.clamp(v - s, min=y0).expand_as(c_lo)
+    r_hi = torch.clamp(v + s, max=y1).expand_as(c_lo)
+    keep = (dr0 * dr0 + dc0 * dc0 <= r2) & (c_hi >= c_lo) & (r_hi >= r_lo)
+    return keep, torch.stack([c_lo, c_hi, r_lo, r_hi], dim=-1).long()
 
 
 def splat_runs(offsets, entries, tiles_y: int, tiles_x: int, bg: float):

@@ -56,6 +56,57 @@ def in_view_case(n: int, n_wps: int, seed: int = 3, lo=(0.5, 0.5, 2.5)):
     return pts.astype(np.float32), quats, trans.astype(np.float32)
 
 
+def splat_cases(K, img_height: int, img_width: int, *, cap: int = 2048, seed: int = 0):
+    """Seeded camera-frame clouds that press on the splat kernels' edge
+    cases, for an img_height × img_width image with intrinsics K (3, 3), on
+    the 32×128 tiles and 32-column bands of ``ops.tile_render``. Returns
+    {name: (points (n, 3) f32, renderer keyword arguments)}:
+
+    * ``ties``: equal depths (z = 3, r = 1.5 px) on the pixels at and next
+      to every other tile-row border and every band border, each pixel three
+      times and its diagonal neighbour twice, so that scan order decides
+      across K6's two runs of bins and K7's duplicated copies;
+    * ``edges_r05``, ``edges_r4``: footprints of r = 0.5 and r = 4 px
+      centred on, and one pixel outside, the four edges of the image;
+    * ``over_cap``: cap + cap // 4 points (seeded, uniform) in every tile's
+      part of the image, so that every tile of the dense path holds more
+      than ``cap`` entries and the cap drops some.
+    """
+    K = np.asarray(K, np.float64)
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    H, W = int(img_height), int(img_width)
+
+    def at(px, py, z):
+        px, py, z = (np.asarray(a, np.float64) for a in np.broadcast_arrays(px, py, z))
+        return np.stack([(px - cx) * z / fx, (py - cy) * z / fy, z], axis=1).astype(np.float32)
+
+    rows = [r for i in range(1, -(-H // 32), 2) for r in range(32 * i - 1, 32 * i + 3) if r < H]
+    cols = [c for j in range(1, -(-W // 32)) for c in range(32 * j - 1, 32 * j + 3) if c < W]
+    px, py = (a.ravel() for a in np.meshgrid(cols, rows))
+    one, near = at(px, py, 3.0), at(px + 1, py + 1, 3.0)
+    ties = np.concatenate([one, near, one, one[::-1], near])
+
+    ex, ey = np.arange(-2, W + 2, 5), np.arange(-2, H + 2, 5)
+    edge_px = np.concatenate([np.tile(ex, 6), np.repeat([-1, 0, 1, W - 2, W - 1, W], len(ey))])
+    edge_py = np.concatenate([np.repeat([-1, 0, 1, H - 2, H - 1, H], len(ex)), np.tile(ey, 6)])
+    edges = at(edge_px, edge_py, 2.0)
+
+    rng = np.random.default_rng(seed)
+    per_tile = cap + cap // 4
+    blocks = []
+    for y0 in range(0, H, 32):
+        for x0 in range(0, W, 128):
+            u = rng.uniform(x0, min(x0 + 128, W) - 0.5, per_tile)
+            v = rng.uniform(y0, min(y0 + 32, H) - 0.5, per_tile)
+            blocks.append(at(u, v, rng.uniform(2.0, 9.0, per_tile)))
+    return {
+        "ties": (ties, {"point_radius": 1.5 * 3.0 / fx}),
+        "edges_r05": (edges, {"point_radius": 0.0}),
+        "edges_r4": (edges, {"point_radius": 1.0}),
+        "over_cap": (np.concatenate(blocks), {"max_entries_per_tile": cap}),
+    }
+
+
 def bucket_size(n: int, *, multiple: int = 1024, min_size: int = 1024) -> int:
     """Round a cloud size up to a power-of-two-ish bucket (1/4 steps between
     powers of two, so padding waste stays under ~25%)."""
