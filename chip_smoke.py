@@ -70,12 +70,32 @@ Phases, each printing one line (any failure raises and exits non-zero):
    after: cloud 10 must run K6 only, the 8M cloud K7 only), then ``process``
    for one camera; every image (1616, 1232, 3), finite, in [0, 1] and not
    all background; batched and serial counts within max(3, 1%).
-7. times — per-stage and per-step ms, kernel and plain, peak memory, and
+7. nodes — ``TrajOptNode(device="cuda")`` over the bus with cloud 10 from
+   ``CloudFeederNode(pc_index=10)`` and path 10 at bench.py's node settings
+   (30 steps, lr_quat 0.02, rewards_th inf): one warm-up and 20 messages at
+   pipeline depth 1, then at depth 2; every published path equal between
+   the depths, launches K1 = K2 = 31 and K3 = K4 = 30 per message (counts
+   reset just before the 20, read just after), the first path equal to
+   ``TrajectoryOptimizer(device="cuda").optimize``'s and within ``NODE_TOL``
+   of ``backend="torch"``'s. ``PoseOptNode`` with both feeders at (6, 2, 0),
+   200 steps, 20 samples: 20 finite /odom messages, the last equal to
+   ``PoseOptimizer``'s 200-step position. ``PoseOptimizer`` 200 steps at
+   cloud 10 and at the seeded 1M cloud, and 20 steps at cloud 10 against
+   the CPU (rtol 1e-4 / atol 1e-5): the pose path has no kernel. The native
+   C++ library must build; ``VoxelFilterNode`` on cloud 10 against numpy
+   (same count, 1e-4), and timed on the 8m cloud; ``voxel_downsample_jit``
+   and ``occupancy_grid_jit`` on the card against the CPU (``torch.equal``
+   occupied mask and grid, centroids 1e-5, grid against numpy on 99.9% of
+   cells).
+8. times — per-stage and per-step ms, kernel and plain, peak memory, and
    the device's busy share of a step from a 20-step ``torch.profiler`` trace;
    K6/K7 ms through the wrapper and the kernel alone (``torch.profiler``)
    beside their plain versions, bounds, share of the bound and the first
    design's times from PERF.md, the splat prologue's ms,
-   ms per ``process_all`` call and its peak memory for both clouds.
+   ms per ``process_all`` call and its peak memory for both clouds; the
+   nodes' times: TrajOptNode messages/s at both depths and the device's busy
+   share of one traced callback, ms per PoseOptNode callback, PoseOptimizer
+   ms/step at cloud 10 and 1M, VoxelFilterNode ms at 8m.
 
 The line before the last is the kernels' JSON record (all nine kernels, each
 with its bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -299,6 +319,11 @@ MAX_E = 2048  # render_point_cloud_tiles' default per-tile cap
 FIRST_SPLAT_MS = {("cloud10", "splat_runs"): 0.0365, ("8m", "splat_runs"): 0.9883,
                 ("8m", "splat_dense"): 0.4626, ("cloud10", "splat_dense"): 0.0255}
 PIN = 1e-3  # share of pixels that may differ from the scatter renderer (equal depths)
+NODE_MSGS = 20  # timed TrajOptNode messages per depth, after one warm-up (bench.py's count)
+# TrajOptNode (K1-K4) against backend="torch" after 30 steps of cloud 10: the
+# largest |difference| of a position (m) or quaternion component. On the CPU
+# the same two paths end 1.2e-5 m and 2.9e-5 apart.
+NODE_TOL = 1e-3
 
 
 def splat_work(offsets, entries, use_runs: bool, tiles_y: int, tiles_x: int):
@@ -541,6 +566,217 @@ def render_checks(dev, intr, clouds, cuda_ms, kernel_ms, sync):
               f"in [0, 1], not all background", flush=True)
         del bus, node, images
         gc.collect()
+    return res
+
+
+def node_checks(dev, clouds, path10, sync):
+    """Phase 7: the optimizer nodes, the pose optimizer and the voxel
+    operations on the card. ``clouds`` holds cloud 10 ("cloud10"), the
+    seeded 1M cloud ("1m") and the 8,388,608-point cloud ("8m"). Returns the
+    numbers for [times] and the record."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from trajectory_optimization_tpu_torch import native
+    from trajectory_optimization_tpu_torch.api import PoseOptimizer, TrajectoryOptimizer
+    from trajectory_optimization_tpu_torch.bus.core import Bus
+    from trajectory_optimization_tpu_torch.bus.messages import CloudMsg, Header, PathMsg
+    from trajectory_optimization_tpu_torch.bus.nodes import (
+        CloudFeederNode, PoseFeederNode, PoseOptNode, TrajOptNode, VoxelFilterNode,
+    )
+    from trajectory_optimization_tpu_torch.ops import _kernels
+    from trajectory_optimization_tpu_torch.ops import voxel as vox
+    from trajectory_optimization_tpu_torch.opt.engine import EarlyStop
+    from trajectory_optimization_tpu_torch.utils.config import (
+        CloudFeederConfig, PoseFeederConfig, PoseOptNodeConfig, TrajOptNodeConfig,
+        VoxelFilterConfig,
+    )
+
+    res = {"traj_msgs_per_s": {}, "traj_callback_ms": {}}
+    data_dir = str(ROOT / "data" / "points")
+    cloud10 = clouds["cloud10"]
+
+    # ---- TrajOptNode over the bus: cloud 10 from the feeder, path 10, ------
+    # bench.py's node settings (30 steps, lr_quat 0.02, rewards_th inf)
+    paths = {}
+    per_msg = {"pass_a": 31 * NODE_MSGS, "pass_b": 31 * NODE_MSGS,
+               "bwd_stats": 30 * NODE_MSGS, "bwd_apply": 30 * NODE_MSGS}
+    for depth in (1, 2):
+        bus = Bus(error_policy="raise")
+        node = TrajOptNode(bus, TrajOptNodeConfig(
+            pc_topic="/pc", path_topic="/path", opt_steps=30, lr_pose=0.1, lr_quat=0.02,
+            rewards_th=float("inf"), pipeline_depth=depth), device=dev)
+        CloudFeederNode(bus, CloudFeederConfig(output_topic="/pc", pc_index=10,
+                                               data_dir=data_dir, frame_id="map")).tick()
+        fed = bus.latest("/pc").points
+        if not np.array_equal(fed, cloud10):
+            fail("CloudFeederNode(pc_index=10) did not publish cloud 10")
+        out = []
+        bus.subscribe("/path/optimized", out.append)
+
+        def send(stamp, bus=bus, fed=fed):
+            bus.publish("/pc", CloudMsg(Header(stamp=stamp, frame_id="map"), fed))
+            bus.publish("/path", PathMsg.straight(path10, frame_id="map", stamp=stamp))
+
+        send(0.0)  # warm-up
+        node.flush()
+        sync()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        for i in range(NODE_MSGS):
+            send(10.0 * (i + 1))
+        node.flush()
+        sync()
+        dt = time.perf_counter() - t0
+        launches = dict(_kernels.LAUNCHES)
+        if {n: v for n, v in launches.items() if v} != per_msg:
+            fail(f"TrajOptNode depth {depth}: {NODE_MSGS} messages launched {launches}; "
+                 f"expected {per_msg} (K1 = K2 = 31, K3 = K4 = 30 per message)")
+        if len(out) != NODE_MSGS + 1 or node.last_result["n_iters"] != 30:
+            fail(f"TrajOptNode depth {depth}: {len(out)} paths published, last n_iters "
+                 f"{node.last_result['n_iters']}")
+        res["traj_msgs_per_s"][depth] = NODE_MSGS / dt
+        res["traj_callback_ms"][depth] = node.metrics.gauges["last_callback_ms"]
+        paths[depth] = out
+        if depth == 1:
+            res["traj_trace"] = trace_call(lambda: (send(1e4), node.flush()), sync)
+        node.close()
+        del bus, node
+        gc.collect()
+    for a, b in zip(paths[1], paths[2]):
+        if not (np.array_equal(a.positions, b.positions)
+                and np.array_equal(a.orientations_xyzw, b.orientations_xyzw)):
+            fail("TrajOptNode: depth 2 published another path than depth 1")
+    first = paths[1][0]
+    stop = EarlyStop(rewards_th=float("inf"), smoothness_th=0.9)
+    kw = dict(lr_pose=0.1, lr_quat=0.02)
+    fac = TrajectoryOptimizer(device=dev, **kw).optimize(cloud10, path10, n_steps=30,
+                                                          early_stop=stop)
+    fac_q = fac.quats_wxyz[:, [1, 2, 3, 0]]
+    if not (np.array_equal(first.positions, fac.poses)
+            and np.array_equal(first.orientations_xyzw, fac_q)):
+        fail("TrajOptNode's first path differs from TrajectoryOptimizer(device='cuda')'s: "
+             f"max |d pose| {np.abs(first.positions - fac.poses).max():.3e}")
+    plain = TrajectoryOptimizer(device=dev, backend="torch", **kw).optimize(
+        cloud10, path10, n_steps=30, early_stop=stop)
+    gap = (float(np.abs(first.positions - plain.poses).max()),
+           float(np.abs(fac.quats_wxyz - plain.quats_wxyz).max()),
+           abs(float(fac.rewards.mean()) / float(plain.rewards.mean()) - 1.0))
+    if not (gap[0] <= NODE_TOL and gap[1] <= NODE_TOL and gap[2] <= 1e-4):
+        fail(f"TrajOptNode vs backend='torch' after 30 steps: |d pose| {gap[0]:.3e}, |d quat| "
+             f"{gap[1]:.3e} (pin {NODE_TOL}), mean reward {gap[2]:.3e} relative (pin 1e-4)")
+    res["traj_gap"] = gap
+    print(f"[nodes] TrajOptNode over the bus (cloud 10 from CloudFeederNode(pc_index=10), path "
+          f"10, 30 steps, lr_quat 0.02, rewards_th inf): 1 + {NODE_MSGS} messages at depth 1 "
+          f"and at depth 2, every published path equal; launches per {NODE_MSGS} messages "
+          f"{per_msg}; the first path == TrajectoryOptimizer(device='cuda').optimize's "
+          f"(np.array_equal); against backend='torch': |d pose| {gap[0]:.3e} m, |d quat| "
+          f"{gap[1]:.3e}, mean reward {gap[2]:.3e} relative (pins {NODE_TOL}, {NODE_TOL}, 1e-4)",
+          flush=True)
+
+    # ---- PoseOptNode with both feeders: the reference's pose launch --------
+    bus = Bus(error_policy="raise")
+    node = PoseOptNode(bus, PoseOptNodeConfig(pc_topic="/pts", pose_topic="/pose",
+                                              opt_steps=200, num_pub_samples=20), device=dev)
+    clouds_in = CloudFeederNode(bus, CloudFeederConfig(output_topic="/pts", pc_index=10,
+                                                       data_dir=data_dir))
+    poses_in = PoseFeederNode(bus, PoseFeederConfig(output_topic="/pose", x=6.0, y=2.0, z=0.0,
+                                                    roll=0.0, pitch=0.0, yaw=0.0))
+    odoms = []
+    bus.subscribe("/odom", odoms.append)
+    cb_ms = []
+    for _ in range(3):
+        odoms.clear()
+        clouds_in.tick()
+        poses_in.tick()
+        sync()
+        cb_ms.append(node.metrics.gauges["last_callback_ms"])
+    last = odoms[-1].position if odoms else None
+    if len(odoms) != 20 or not all(np.all(np.isfinite(o.position))
+                                   and np.all(np.isfinite(o.orientation_xyzw)) for o in odoms):
+        fail(f"PoseOptNode: {len(odoms)} /odom messages (expected 20, all finite)")
+    pose_kw = dict(lr_pose=0.1, lr_quat=0.0)
+    ref = PoseOptimizer(device=dev, **pose_kw).optimize(cloud10, [6.0, 2.0, 0.0], n_steps=200)
+    if not np.array_equal(last, ref.position):
+        fail(f"PoseOptNode's last /odom {last} != PoseOptimizer's 200-step {ref.position}")
+    res["pose_callback_ms"] = cb_ms[1:]
+    node.close()
+    del bus, node
+    gc.collect()
+    print(f"[nodes] PoseOptNode with CloudFeederNode(pc_index=10) and PoseFeederNode at (6, 2, 0), "
+          f"roll = pitch = yaw = 0, 200 steps, 20 samples: 20 finite /odom messages per "
+          f"callback; the last {np.round(last, 6).tolist()} == PoseOptimizer(device='cuda')'s "
+          f"200-step position (np.array_equal)", flush=True)
+
+    # ---- PoseOptimizer at cloud 10 and 1M: 200 steps, and 20 against the CPU
+    res["pose_ms_per_step"] = {}
+    for name in ("cloud10", "1m"):
+        pts = clouds[name]
+        opt = PoseOptimizer(device=dev, **pose_kw)
+        opt.optimize(pts, [6.0, 2.0, 0.0], n_steps=5)  # warm-up
+        sync()
+        t0 = time.perf_counter()
+        r = opt.optimize(pts, [6.0, 2.0, 0.0], n_steps=200)
+        sync()
+        res["pose_ms_per_step"][name] = (time.perf_counter() - t0) * 1e3 / 200
+        if not (np.all(np.isfinite(r.position)) and np.isfinite(r.loss)
+                and r.observations.shape == (len(pts),) and np.all(np.isfinite(r.observations))):
+            fail(f"PoseOptimizer {name}: non-finite or malformed result")
+    runs = [PoseOptimizer(device=d, **pose_kw).optimize(cloud10, [6.0, 2.0, 0.0], n_steps=20)
+            for d in (dev, "cpu")]
+    pose_err = 0.0
+    for k in ("position", "quat_wxyz", "observations", "loss"):
+        got, want = (np.asarray(getattr(r, k), np.float64) for r in runs)
+        if not np.allclose(got, want, rtol=1e-4, atol=1e-5):
+            fail(f"PoseOptimizer cloud10 20 steps, card vs CPU: {k} max |err| "
+                 f"{np.abs(got - want).max():.3e} over rtol 1e-4 / atol 1e-5")
+        pose_err = max(pose_err, float(np.abs(got - want).max()))
+    res["pose_card_vs_cpu"] = pose_err
+    print(f"[nodes] PoseOptimizer 200 steps at cloud10 and 1m ({len(clouds['1m'])} points, "
+          f"camera inside the cloud): finite; 20 steps at cloud10 on the card == on the CPU "
+          f"within rtol 1e-4 / atol 1e-5 (max |err| {pose_err:.3e})", flush=True)
+
+    # ---- the voxel filter on the native library, and the voxel ops --------
+    if not native.native_available():
+        fail("native_available() is false: the C++ host library did not build")
+    bus = Bus(error_policy="raise")
+    VoxelFilterNode(bus, VoxelFilterConfig(input_topic="/in", output_topic="/out", leaf_size=0.15))
+    bus.publish("/in", CloudMsg(Header(stamp=0.0), cloud10))
+    got = bus.latest("/out").points
+    want = vox.voxel_downsample(cloud10, 0.15)
+
+    def lex(x):
+        return x[np.lexsort((x[:, 2].round(4), x[:, 1].round(4), x[:, 0].round(4)))]
+
+    if got.shape != want.shape or not np.allclose(lex(got), lex(want), rtol=0, atol=1e-4):
+        fail(f"VoxelFilterNode (C++) on cloud 10: {got.shape} vs numpy {want.shape}")
+    res["voxel_count"] = len(got)
+    t0 = time.perf_counter()
+    bus.publish("/in", CloudMsg(Header(stamp=0.0), clouds["8m"]))
+    res["voxel_filter_ms_8m"] = (time.perf_counter() - t0) * 1e3
+    res["voxel_count_8m"] = len(bus.latest("/out").points)
+    del bus
+    P_dev, P_cpu = torch.as_tensor(cloud10, device=dev), torch.as_tensor(cloud10)
+    (c_dev, o_dev), (c_cpu, o_cpu) = (vox.voxel_downsample_jit(P, 0.15, table_size=1 << 20)
+                                      for P in (P_dev, P_cpu))
+    g_dev, g_cpu = (vox.occupancy_grid_jit(P) for P in (P_dev, P_cpu))
+    if not (torch.equal(o_dev.cpu(), o_cpu) and torch.equal(g_dev.cpu(), g_cpu)):
+        fail("voxel_downsample_jit's occupied mask or occupancy_grid_jit's grid differs "
+             "between the card and the CPU")
+    c_err = float((c_dev.cpu() - c_cpu).abs().max())
+    share = float((g_cpu.numpy() == vox.occupancy_grid(cloud10)).mean())
+    if not (c_err <= 1e-5 and share >= 0.999):
+        fail(f"voxel ops on the card: centroids {c_err:.3e} from the CPU's (pin 1e-5), grid "
+             f"equal to numpy's on {share:.5%} of cells (pin 99.9%)")
+    res["voxel_jit"] = (int(o_dev.sum()), int(g_dev.sum()), c_err, share)
+    print(f"[nodes] native_available() true; VoxelFilterNode (C++) on cloud 10 at leaf 0.15: "
+          f"{len(got)} centroids == numpy's count, within 1e-4 after lexsort; on the 8m cloud "
+          f"{res['voxel_count_8m']} centroids; voxel_downsample_jit on the card: "
+          f"{res['voxel_jit'][0]} occupied slots torch.equal to the CPU's, centroids within "
+          f"{c_err:.3e}; occupancy_grid_jit: {res['voxel_jit'][1]} cells torch.equal to the "
+          f"CPU's, {share:.5%} of cells equal to numpy's", flush=True)
     return res
 
 
@@ -1249,9 +1485,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     rend = render_checks(dev, intr, {"cloud10": cloud10, "8m": pts8}, cuda_ms, kernel_device_ms,
                          sync)
+
+    # ---- 7. the optimizer nodes, the pose optimizer, the voxel operations ---
+    torch.cuda.empty_cache()
+    nodes = node_checks(dev, {"cloud10": cloud10, "1m": big_pts, "8m": pts8}, path10, sync)
     del pts8
 
-    # ---- 7. times ----------------------------------------------------------
+    # ---- 8. times ----------------------------------------------------------
     for c in cases:
         n = 50 if c["name"] == "ref" else 10
         for backend in ("kernel", "torch"):
@@ -1349,6 +1589,24 @@ def main() -> int:
               + "; top host ops by self CPU ms: "
               + ", ".join(f"{k} {v:.2f}" for k, v in top), flush=True)
 
+    wall, busy_ms, top = nodes["traj_trace"]
+    print(f"[times] {card} | TrajOptNode (cloud 10, 30 steps): "
+          + ", ".join(f"depth {d} {nodes['traj_msgs_per_s'][d]:.2f} msgs/s "
+                      f"(last callback {nodes['traj_callback_ms'][d]:.2f} ms)" for d in (1, 2))
+          + f"; one traced callback {wall:.2f} ms, device busy "
+          + (f"{busy_ms:.3f} ms ({100 * busy_ms / wall:.1f}%)" if busy_ms is not None
+             else "not measured (no device activity in the trace)")
+          + "; top host ops by self CPU ms: " + ", ".join(f"{k} {v:.2f}" for k, v in top),
+          flush=True)
+    print(f"[times] {card} | PoseOptNode (cloud 10, 200 steps, 20 publishes): "
+          + ", ".join(f"{v:.2f}" for v in nodes["pose_callback_ms"])
+          + " ms per callback (two, after a first); "
+          f"PoseOptimizer ms/step: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in nodes["pose_ms_per_step"].items())
+          + f"; VoxelFilterNode (C++) on the 8m cloud at leaf 0.15: "
+          f"{nodes['voxel_filter_ms_8m']:.1f} ms, {nodes['voxel_count_8m']} centroids",
+          flush=True)
+
     def vis_entry(n):
         b_ref = vis_bound(n, *shape_wn["ref"], skips["ref"], prunes["ref"])
         b_1m = vis_bound(n, *shape_wn["1m50"], skips["1m50"], prunes["1m50"])
@@ -1392,7 +1650,16 @@ def main() -> int:
               "rig_ms": rend["rig_ms"], "rig_peak_mib": rend["peak_mib"],
               "render_dropped_splats": rend["dropped"],
               "skip_counts": {**skips, **{name: d["counts"] for name, d in dense.items()}},
-              "prune_counts": {**prunes, **{name: d["prunes"] for name, d in dense.items()}}}
+              "prune_counts": {**prunes, **{name: d["prunes"] for name, d in dense.items()}},
+              "nodes": {"traj_msgs_per_s": nodes["traj_msgs_per_s"],
+                        "traj_callback_ms": nodes["traj_callback_ms"],
+                        "traj_traced_ms": nodes["traj_trace"][0],
+                        "traj_device_busy_ms": nodes["traj_trace"][1],
+                        "traj_vs_plain": nodes["traj_gap"],
+                        "pose_callback_ms": nodes["pose_callback_ms"],
+                        "pose_ms_per_step": nodes["pose_ms_per_step"],
+                        "pose_card_vs_cpu": nodes["pose_card_vs_cpu"],
+                        "voxel_filter_ms_8m": nodes["voxel_filter_ms_8m"]}}
     for e in record["kernels"]:
         nums = [v for k, v in e.items() if k.endswith("ms") or k == "max_abs_err"]
         if not all(isinstance(x, (int, float)) and math.isfinite(x) for x in nums if x is not None):

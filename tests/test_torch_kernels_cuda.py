@@ -590,3 +590,51 @@ def test_splat_kernels_equal_plain_on_edge_cases(dev, size, name, backend):
     if name == "over_cap" and backend == "dense":
         counts = (offsets[1:] - offsets[:-1])[: ty * tx]
         assert bool((counts > args[2]).all()) and int(dropped) > 0
+
+
+def test_pose_optimizer_card_matches_cpu(dev):
+    """The pose path has no kernel: 20 steps of ``PoseOptimizer`` at cloud 10
+    on the card against the same run on the CPU (rtol 1e-4 / atol 1e-5)."""
+    from trajectory_optimization_tpu_torch.api import PoseOptimizer
+
+    pts = load_point_cloud(str(DATA / "points/point_cloud_10.npz"))
+    runs = [PoseOptimizer(lr_pose=0.1, lr_quat=0.02, device=d).optimize(
+        pts, [6.0, 2.0, 0.0], [0.9, 0.1, -0.2, 0.3], n_steps=20) for d in (dev, "cpu")]
+    card, cpu = runs
+    np.testing.assert_allclose(card.position, cpu.position, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(card.quat_wxyz, cpu.quat_wxyz, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(card.loss, cpu.loss, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(card.observations, cpu.observations, rtol=1e-4, atol=1e-5)
+
+
+def test_traj_opt_node_launches_k1_to_k4_per_message(dev):
+    """``TrajOptNode`` on the card: 30 steps of cloud 10 per message launch
+    K1 and K2 31 times (30 steps and the final forward) and K3 and K4 30
+    times, and nothing of the uncached regime; depth 2 publishes depth 1's
+    paths."""
+    from trajectory_optimization_tpu_torch.bus.core import Bus
+    from trajectory_optimization_tpu_torch.bus.messages import CloudMsg, Header, PathMsg
+    from trajectory_optimization_tpu_torch.bus.nodes import TrajOptNode
+    from trajectory_optimization_tpu_torch.utils.config import TrajOptNodeConfig
+
+    pts = load_point_cloud(str(DATA / "points/point_cloud_10.npz"))
+    path = load_path(str(DATA / "paths/path_poses_10.npz"))
+    paths = {}
+    for depth in (1, 2):
+        bus = Bus(error_policy="raise")
+        node = TrajOptNode(bus, TrajOptNodeConfig(
+            pc_topic="/pc", path_topic="/path", opt_steps=30, lr_pose=0.1, lr_quat=0.02,
+            rewards_th=float("inf"), pipeline_depth=depth), device=dev)
+        out = []
+        bus.subscribe("/path/optimized", out.append)
+        _kernels.reset_launches()
+        for i in range(2):
+            bus.publish("/pc", CloudMsg(Header(stamp=10.0 * i), pts))
+            bus.publish("/path", PathMsg.straight(path, stamp=10.0 * i))
+        node.flush()
+        assert len(out) == 2
+        assert {n: v for n, v in _kernels.LAUNCHES.items() if v} == {
+            "pass_a": 62, "pass_b": 62, "bwd_stats": 60, "bwd_apply": 60}
+        paths[depth] = [m.positions for m in out]
+    for a, b in zip(paths[1], paths[2]):
+        np.testing.assert_array_equal(a, b)

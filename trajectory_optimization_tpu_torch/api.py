@@ -1,10 +1,12 @@
-"""High-level facade: one-call trajectory optimization.
+"""High-level facade: one-call trajectory and pose optimization.
 
-Twin of ``trajectory_optimization_tpu/api.py`` (``TrajResult``,
-``TrajectoryOptimizer.optimize``): automatic padding and shape bucketing
-(one cached runner per bucket), warm start from a previous solution, a
-structured result, and ``evaluate`` of a fixed path (``models.evaluate``).
-``PoseOptimizer`` comes in later work.
+Twin of ``trajectory_optimization_tpu/api.py``: ``TrajectoryOptimizer``
+(``optimize``, ``evaluate`` of a fixed path through ``models.evaluate``) and
+``PoseOptimizer``, with automatic padding and shape bucketing (one cached
+runner per bucket), warm start from a previous solution and structured
+results. Both run on the card unless the caller passes ``device="cpu"``.
+The HPR options (``soft_hpr``, ``PoseOptimizer(use_hpr=True)``) raise until
+``ops/hpr.py`` is ported (ROADMAP.md Q1 item 9).
 """
 from __future__ import annotations
 
@@ -15,13 +17,14 @@ import numpy as np
 import torch
 
 from trajectory_optimization_tpu_torch.models.evaluate import TrajEvalResult, evaluate_trajectory
+from trajectory_optimization_tpu_torch.models.pose import PoseProblem, init_pose_params
 from trajectory_optimization_tpu_torch.models.traj import (
     TrajProblem,
     init_traj_params,
     waypoint_stride,
 )
 from trajectory_optimization_tpu_torch.opt.engine import NEVER, EarlyStop, OptimizerConfig
-from trajectory_optimization_tpu_torch.opt.runners import traj_runner
+from trajectory_optimization_tpu_torch.opt.runners import pose_runner, traj_runner
 from trajectory_optimization_tpu_torch.utils.convert import params_from_numpy
 from trajectory_optimization_tpu_torch.utils.data import identity_quaternions, pad_points
 from trajectory_optimization_tpu_torch.utils.intrinsics import CameraIntrinsics, default_intrinsics
@@ -36,6 +39,15 @@ class TrajResult:
     loss: float
     visibility_gain: float
     smoothness_gain: float
+
+
+@dataclasses.dataclass
+class PoseResult:
+    position: np.ndarray  # (3,)
+    quat_wxyz: np.ndarray  # (4,) normalized
+    observations: np.ndarray  # (N,)
+    n_iters: int
+    loss: float
 
 
 class TrajectoryOptimizer:
@@ -151,3 +163,72 @@ class TrajectoryOptimizer:
         )
         res.rewards = res.rewards[: len(points)]
         return res
+
+
+class PoseOptimizer:
+    """Reusable single-pose optimizer; runs on ``device`` (the card by default)."""
+
+    def __init__(
+        self,
+        intrinsics: Optional[CameraIntrinsics] = None,
+        *,
+        min_dist: float = 1.0,
+        max_dist: float = 5.0,
+        lr_pose: float = 0.1,
+        lr_quat: float = 0.0,
+        use_hpr: bool = False,
+        soft_hpr: bool = False,
+        device="cuda",
+    ):
+        """``use_hpr`` (a hard occlusion mask computed once at the initial
+        pose) and ``soft_hpr`` (Katz occlusion differentiated through every
+        step) are the JAX twin's options; both need ``ops/hpr.py``."""
+        if use_hpr or soft_hpr:
+            raise NotImplementedError(
+                "PoseOptimizer(use_hpr=True / soft_hpr=True): HPR (ops/hpr.py) is not "
+                "ported yet (ROADMAP.md Q1 item 9)"
+            )
+        self.intr = intrinsics or default_intrinsics()
+        self.problem_kw = dict(min_dist=min_dist, max_dist=max_dist)
+        self.opt_cfg = OptimizerConfig(lr_pose=lr_pose, lr_quat=lr_quat)
+        self.device = torch.device(device)
+
+    def optimize(
+        self,
+        points: np.ndarray,
+        position: np.ndarray,
+        quat_wxyz: np.ndarray = (1.0, 0.0, 0.0, 0.0),
+        *,
+        n_steps: int = 200,
+    ) -> PoseResult:
+        """Optimize one camera pose against an (N, 3) cloud for ``n_steps``
+        Adam steps. ``loss`` and ``observations`` are those of the last
+        step's forward, before its update."""
+        points = np.asarray(points, np.float32)
+        padded, valid = pad_points(points)
+        problem = PoseProblem(
+            img_width=self.intr.width, img_height=self.intr.height, **self.problem_kw
+        )
+        dev = self.device
+        P = torch.as_tensor(padded, device=dev)
+        V = torch.as_tensor(valid, device=dev)
+        K = self.intr.matrix(device=dev)
+
+        init_opt, advance = pose_runner(problem, self.opt_cfg, int(n_steps))
+        params = init_pose_params(
+            np.asarray(position, np.float32)[None], np.asarray(quat_wxyz, np.float32)[None], dev
+        )
+        params, _, loss, aux = advance(params, init_opt(params), P, V, K, None)
+        # one device-to-host copy for all results
+        f = torch.cat([
+            params["trans"].reshape(3), params["quat"].reshape(4), loss.reshape(1),
+            aux["observations"],
+        ]).cpu().numpy()
+        q = f[3:7].astype(np.float64)
+        return PoseResult(
+            position=f[:3].astype(np.float64),
+            quat_wxyz=q / np.linalg.norm(q),
+            observations=f[8:8 + len(points)],
+            n_iters=int(n_steps),
+            loss=float(f[7]),
+        )

@@ -1,8 +1,9 @@
 """Typed scene-bus messages.
 
 Twin of ``trajectory_optimization_tpu/bus/messages.py``, copied for the
-messages the points processor reads and writes: ``Header``, ``CloudMsg``,
-``CameraInfoMsg``, ``ImageMsg`` and ``TransformMsg``. Messages are immutable
+messages the ported nodes read and write: ``Header``, ``CloudMsg``,
+``PoseMsg``, ``PathMsg``, ``CameraInfoMsg``, ``OdometryMsg``, ``ImageMsg``
+(with ``bgr_to_rgb``) and ``TransformMsg``. Messages are immutable
 dataclasses carrying numpy arrays, except ``ImageMsg.data``, which may hold
 a CUDA tensor (see there).
 
@@ -57,6 +58,55 @@ class CloudMsg:
 
 
 @dataclasses.dataclass(frozen=True)
+class PoseMsg:
+    """Stamped pose: position (3,), orientation xyzw (4,)."""
+
+    header: Header
+    position: np.ndarray
+    orientation_xyzw: np.ndarray
+
+    def __post_init__(self):
+        object.__setattr__(self, "position", np.asarray(self.position, np.float64).reshape(3))
+        object.__setattr__(
+            self, "orientation_xyzw", np.asarray(self.orientation_xyzw, np.float64).reshape(4)
+        )
+
+    @property
+    def orientation_wxyz(self) -> np.ndarray:
+        q = self.orientation_xyzw
+        return np.array([q[3], q[0], q[1], q[2]])
+
+
+@dataclasses.dataclass(frozen=True)
+class PathMsg:
+    """Waypoint path: positions (W, 3), orientations xyzw (W, 4)."""
+
+    header: Header
+    positions: np.ndarray
+    orientations_xyzw: np.ndarray
+
+    def __post_init__(self):
+        object.__setattr__(self, "positions", np.asarray(self.positions, np.float64))
+        object.__setattr__(
+            self, "orientations_xyzw", np.asarray(self.orientations_xyzw, np.float64)
+        )
+
+    @property
+    def orientations_wxyz(self) -> np.ndarray:
+        q = self.orientations_xyzw
+        return np.concatenate([q[:, 3:], q[:, :3]], axis=1)
+
+    @classmethod
+    def straight(
+        cls, positions, frame_id: str = "world", stamp: Optional[float] = None
+    ) -> "PathMsg":
+        positions = np.asarray(positions, np.float64)
+        quats = np.zeros((len(positions), 4))
+        quats[:, 3] = 1.0  # identity xyzw
+        return cls(Header.make(frame_id, stamp), positions, quats)
+
+
+@dataclasses.dataclass(frozen=True)
 class CameraInfoMsg:
     """Pinhole camera description (CameraInfo parity: K/D/R/P rows)."""
 
@@ -78,6 +128,14 @@ class CameraInfoMsg:
 
 
 @dataclasses.dataclass(frozen=True)
+class OdometryMsg:
+    header: Header
+    position: np.ndarray
+    orientation_xyzw: np.ndarray
+    child_frame_id: str = "base_link"
+
+
+@dataclasses.dataclass(frozen=True)
 class ImageMsg:
     """(H, W, C) uint8 or float image.
 
@@ -91,6 +149,21 @@ class ImageMsg:
     data: "np.ndarray"
     encoding: str = "bgr8"
     wire_format: str = ""
+
+
+def bgr_to_rgb(img: "np.ndarray", encoding: str) -> "np.ndarray":
+    """Return ``img`` in true (RGB) channel order.
+
+    Decoded CompressedImage streams are always rgb8, but user-constructed
+    messages default to bgr8 (the cv/ROS convention, see ``ImageMsg``);
+    true-colour sinks (PNG/JPEG encoders, dataset extraction) must swap
+    BGR(A) bytes or red and blue come out flipped. No-op for non-BGR
+    encodings or non-(H, W, >=3) arrays.
+    """
+    img = np.asarray(img)
+    if encoding in ("bgr8", "bgra8") and img.ndim == 3 and img.shape[-1] >= 3:
+        img = np.concatenate([img[..., 2::-1], img[..., 3:]], axis=-1)
+    return img
 
 
 @dataclasses.dataclass(frozen=True)

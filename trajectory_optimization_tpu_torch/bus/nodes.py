@@ -1,27 +1,54 @@
 """Processing nodes on the scene bus.
 
-Twin of ``trajectory_optimization_tpu/bus/nodes.py`` for the points
-processor (`src/pc_processor.py`): per camera, transform the cloud into the
-camera frame, hard frustum-cull it, publish the culled and the visible
-subsets, and render the visible points with the tile splatter. Device work
-runs on the node's ``device`` (default ``"cuda"``); the bus carries numpy
-clouds and on-card images.
+Twin of ``trajectory_optimization_tpu/bus/nodes.py``; each node mirrors one
+reference process:
+
+  * :class:`TrajOptNode` — `src/trajectory_optimization.py`: pair (cloud,
+    path), optimize the trajectory with early stopping, publish the
+    optimized path (and optionally the rewards cloud).
+  * :class:`PoseOptNode` — `src/pose_optimization.py`: pair (cloud, pose),
+    optimize one camera pose, publishing odometry, TF, camera info and a
+    rewards cloud about ``num_pub_samples`` times during the loop.
+  * :class:`PointsProcessorNode` — `src/pc_processor.py`: per camera,
+    transform the cloud into the camera frame, hard frustum-cull it, publish
+    the culled and the visible subsets, and render the visible points with
+    the tile splatter.
+  * :class:`CloudFeederNode` / :class:`PoseFeederNode` — `src/pc_publisher.py`
+    / `src/pose_publisher.py`: replay npz clouds / (random) poses; host only.
+  * :class:`VoxelFilterNode` — the PCL VoxelGrid nodelet's role
+    (`launch/voxels_filtering.launch`), on the native C++ library.
+
+Device work runs on the node's ``device`` (default ``"cuda"``); the bus
+carries numpy clouds, paths and poses, and on-card images. The HPR options
+(``use_hpr``, ``use_soft_hpr``, ``hpr_backend`` other than ``"none"``) raise
+until ``ops/hpr.py`` is ported (ROADMAP.md Q1 item 9).
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from trajectory_optimization_tpu_torch.bus.core import Bus
+from trajectory_optimization_tpu_torch.bus.core import ApproximateTimeSynchronizer, Bus
 from trajectory_optimization_tpu_torch.bus.frames import FrameGraph
 from trajectory_optimization_tpu_torch.bus.messages import (
     CameraInfoMsg,
     CloudMsg,
     Header,
     ImageMsg,
+    OdometryMsg,
+    PathMsg,
+    PoseMsg,
+    TransformMsg,
+)
+from trajectory_optimization_tpu_torch.models.pose import PoseProblem, init_pose_params
+from trajectory_optimization_tpu_torch.models.traj import (
+    TrajProblem,
+    init_traj_params,
+    waypoint_stride,
 )
 from trajectory_optimization_tpu_torch.ops.geometry import (
     compact_masked,
@@ -32,9 +59,288 @@ from trajectory_optimization_tpu_torch.ops.tile_render import (
     RUN_PATH_MAX_ENTRIES,
     render_point_cloud_tiles,
 )
-from trajectory_optimization_tpu_torch.utils.config import PointsProcessorConfig
+from trajectory_optimization_tpu_torch.opt.engine import EarlyStop, OptimizerConfig
+from trajectory_optimization_tpu_torch.opt.runners import pose_runner, traj_runner
+from trajectory_optimization_tpu_torch.utils.config import (
+    CloudFeederConfig,
+    PointsProcessorConfig,
+    PoseFeederConfig,
+    PoseOptNodeConfig,
+    TrajOptNodeConfig,
+    VoxelFilterConfig,
+)
 from trajectory_optimization_tpu_torch.utils.data import pad_points
+from trajectory_optimization_tpu_torch.utils.intrinsics import CameraIntrinsics, default_intrinsics
 from trajectory_optimization_tpu_torch.utils.profiling import Metrics
+
+
+def _hpr_not_ported(what: str):
+    return NotImplementedError(
+        f"{what}: HPR (ops/hpr.py) is not ported yet (ROADMAP.md Q1 item 9)"
+    )
+
+
+def _to_host_async(t: torch.Tensor):
+    """Start the copy of a 1-D tensor to the host: (host tensor, event) with
+    a CUDA tensor copied into pinned memory and an event recorded after the
+    copy on the current stream; (t, None) for a CPU tensor. Read the host
+    tensor only after ``event.synchronize()``."""
+    if not t.is_cuda:
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _host_numpy(pending) -> np.ndarray:
+    host, done = pending
+    if done is not None:
+        done.synchronize()
+    return host.numpy()
+
+
+class TrajOptNode:
+    """Trajectory optimizer node (`src/trajectory_optimization.py:25-158`)."""
+
+    def __init__(
+        self,
+        bus: Bus,
+        cfg: TrajOptNodeConfig,
+        intrinsics: Optional[CameraIntrinsics] = None,
+        device="cuda",
+    ):
+        if cfg.use_soft_hpr:
+            raise _hpr_not_ported("TrajOptNodeConfig(use_soft_hpr=True)")
+        self.bus = bus
+        self.cfg = cfg
+        self.intr = intrinsics or default_intrinsics()
+        self.device = torch.device(device)
+        self.last_result: Optional[Dict] = None
+        self.metrics = Metrics()  # callbacks, iters, per-callback ms — the
+        # reference's per-step prints (`src/trajectory_optimization.py:126`)
+        self._pending = []  # in-flight (dispatched, not yet published) results
+        self._sync = ApproximateTimeSynchronizer(
+            bus, [cfg.pc_topic, cfg.path_topic], self.callback, queue_size=10, slop=0.5
+        )
+
+    def callback(self, pc_msg: CloudMsg, path_msg: PathMsg) -> None:
+        """Dispatch this pair's optimization, then publish finished results.
+
+        With cfg.pipeline_depth == 1 (default, the reference's synchronous
+        semantics) each callback publishes its own result before returning.
+        Depth d > 1 keeps up to d-1 messages in flight: each result is copied
+        to pinned host memory without blocking, behind one CUDA event, so
+        message i's device work and copy overlap the host work of message
+        i+1. Outputs then lag their inputs by up to d-1 messages; call
+        flush() to drain. The messages published are the same at any depth.
+        """
+        self._pending.append(self._dispatch(pc_msg, path_msg))
+        while len(self._pending) >= max(int(self.cfg.pipeline_depth), 1):
+            self._finish(self._pending.pop(0))
+
+    def flush(self) -> None:
+        """Publish every in-flight result (pipeline_depth > 1)."""
+        while self._pending:
+            self._finish(self._pending.pop(0))
+
+    def _dispatch(self, pc_msg: CloudMsg, path_msg: PathMsg):
+        _t0 = time.perf_counter()
+        cfg = self.cfg
+        dev = self.device
+        points, valid = pad_points(pc_msg.xyz.astype(np.float32))
+        poses0 = path_msg.positions.astype(np.float32)
+        quats0 = path_msg.orientations_wxyz.astype(np.float32)
+
+        problem = TrajProblem(
+            img_width=self.intr.width,
+            img_height=self.intr.height,
+            min_dist=cfg.min_dist,
+            max_dist=cfg.max_dist,
+            smoothness_weight=cfg.smooth_weight,
+            length_weight=cfg.length_weight,
+            wps_step=waypoint_stride(poses0, cfg.vis_wps_dist),
+            soft_hpr=cfg.use_soft_hpr,
+        )
+        run = traj_runner(
+            problem,
+            OptimizerConfig(lr_pose=cfg.lr_pose, lr_quat=cfg.lr_quat),
+            EarlyStop(rewards_th=cfg.rewards_th, smoothness_th=cfg.smoothness_th),
+            cfg.opt_steps,
+        )
+        params, n_iters, loss, aux = run(
+            init_traj_params(poses0, quats0, dev),
+            torch.as_tensor(points, device=dev),
+            torch.as_tensor(valid, device=dev),
+            self.intr.matrix(device=dev),
+            torch.as_tensor(poses0, device=dev),
+            torch.as_tensor(quats0, device=dev),
+        )
+        # every result in one flat f32 tensor, one device-to-host copy
+        leaves = [params["poses"].reshape(-1), params["quats"].reshape(-1), loss.reshape(1),
+                  aux["mean_reward"].reshape(1), n_iters.to(torch.float32).reshape(1)]
+        if cfg.publish_rewards_cloud:
+            leaves.append(aux["rewards"])
+        fetch = _to_host_async(torch.cat(leaves))
+        # the dispatch-side cost, taken now: under pipelining this result may
+        # wait across messages, and wall time from _t0 at _finish would
+        # measure message cadence, not work
+        return fetch, pc_msg, path_msg, (time.perf_counter() - _t0) * 1e3
+
+    def _finish(self, pending) -> None:
+        fetch, pc_msg, path_msg, dispatch_ms = pending
+        _t1 = time.perf_counter()
+        cfg = self.cfg
+        f = _host_numpy(fetch)
+        W = len(path_msg.positions)
+        loss, mean_reward, n_iters = float(f[7 * W]), float(f[7 * W + 1]), int(f[7 * W + 2])
+
+        # optimized path out, wxyz → xyzw with normalization
+        # (`src/trajectory_optimization.py:141-145`)
+        poses_out = f[: 3 * W].reshape(W, 3).astype(np.float64)
+        quats = f[3 * W: 7 * W].reshape(W, 4).astype(np.float64)
+        quats = quats / np.linalg.norm(quats, axis=1, keepdims=True)
+        quats_xyzw = np.concatenate([quats[:, 1:], quats[:, :1]], axis=1)
+        self.bus.publish(
+            cfg.path_topic + "/optimized",
+            PathMsg(Header.make(path_msg.header.frame_id), poses_out, quats_xyzw),
+        )
+
+        if cfg.publish_rewards_cloud:
+            rewards = f[7 * W + 3: 7 * W + 3 + len(pc_msg.xyz)]
+            cloud = np.concatenate([pc_msg.xyz, rewards[:, None]], axis=1)
+            self.bus.publish(
+                cfg.pc_topic + "/rewards",
+                CloudMsg(Header.make(pc_msg.header.frame_id), cloud),
+            )
+
+        self.last_result = {"n_iters": n_iters, "loss": loss, "mean_reward": mean_reward}
+        self.metrics.incr("callbacks")
+        self.metrics.incr("opt_iters", n_iters)
+        # dispatch cost + finish cost, EXCLUDING any pipelined queue wait
+        self.metrics.gauge(
+            "last_callback_ms", dispatch_ms + (time.perf_counter() - _t1) * 1e3
+        )
+        self.metrics.gauge("last_loss", loss)
+        self.metrics.gauge("last_mean_reward", mean_reward)
+
+    def close(self):
+        self.flush()
+        self._sync.close()
+
+
+class PoseOptNode:
+    """Single-pose optimizer node (`src/pose_optimization.py:31-147`)."""
+
+    def __init__(
+        self,
+        bus: Bus,
+        cfg: PoseOptNodeConfig,
+        intrinsics: Optional[CameraIntrinsics] = None,
+        device="cuda",
+    ):
+        if cfg.use_hpr or cfg.use_soft_hpr:
+            raise _hpr_not_ported("PoseOptNodeConfig(use_hpr=True / use_soft_hpr=True)")
+        self.bus = bus
+        self.cfg = cfg
+        self.intr = intrinsics or default_intrinsics()
+        self.device = torch.device(device)
+        self.frames = FrameGraph()
+        self.last_result: Optional[Dict] = None
+        self.metrics = Metrics()  # reference prints step ms, `src/pose_optimization.py:145`
+        self._sync = ApproximateTimeSynchronizer(
+            bus, [cfg.pc_topic, cfg.pose_topic], self.callback, queue_size=10, slop=0.5
+        )
+
+    def callback(self, pc_msg: CloudMsg, pose_msg: PoseMsg) -> None:
+        _t0 = time.perf_counter()
+        cfg = self.cfg
+        dev = self.device
+        points, valid = pad_points(pc_msg.xyz.astype(np.float32))
+        problem = PoseProblem(
+            img_width=self.intr.width,
+            img_height=self.intr.height,
+            min_dist=cfg.min_dist,
+            max_dist=cfg.max_dist,
+            soft_hpr=cfg.use_soft_hpr,
+        )
+        P = torch.as_tensor(points, device=dev)
+        V = torch.as_tensor(valid, device=dev)
+        K = self.intr.matrix(device=dev)
+
+        seg = max(cfg.opt_steps // cfg.num_pub_samples, 1)
+        opt_cfg = OptimizerConfig(lr_pose=cfg.lr_pose, lr_quat=cfg.lr_quat)
+        init_opt, advance = pose_runner(problem, opt_cfg, seg)
+        params = init_pose_params(
+            pose_msg.position.astype(np.float32)[None],
+            pose_msg.orientation_wxyz.astype(np.float32)[None],
+            dev,
+        )
+        opt_state = init_opt(params)
+        loss = torch.tensor(float("inf"))
+        done = 0
+        # Enqueue every segment first, starting each one's device-to-host
+        # copy as it is enqueued; the publishes below then wait only for the
+        # copies, instead of stalling the device once per publish.
+        pend = []
+
+        def _enqueue(params, aux):
+            leaves = [params["trans"].reshape(3), params["quat"].reshape(4)]
+            if cfg.publish_rewards_cloud:
+                leaves.append(aux["observations"])
+            pend.append(_to_host_async(torch.cat(leaves)))
+
+        while done + seg <= cfg.opt_steps:
+            params, opt_state, loss, aux = advance(params, opt_state, P, V, K)
+            done += seg
+            _enqueue(params, aux)
+        if done < cfg.opt_steps:  # exact step-count parity for the remainder
+            _, advance_rem = pose_runner(problem, opt_cfg, cfg.opt_steps - done)
+            params, opt_state, loss, aux = advance_rem(params, opt_state, P, V, K)
+            done = cfg.opt_steps
+            _enqueue(params, aux)
+        for fetch in pend:
+            self._publish(pc_msg, pose_msg, _host_numpy(fetch))
+        loss_f = float(loss)
+        self.last_result = {"loss": loss_f, "n_iters": done}
+        self.metrics.incr("callbacks")
+        self.metrics.incr("opt_iters", done)
+        self.metrics.gauge("last_callback_ms", (time.perf_counter() - _t0) * 1e3)
+        self.metrics.gauge("last_loss", loss_f)
+
+    def _publish(self, pc_msg, pose_msg, f):
+        # odometry + TF + camera info (`src/pose_optimization.py:99-112`)
+        trans = f[:3].astype(np.float64)
+        q = f[3:7].astype(np.float64)
+        q = q / np.linalg.norm(q)
+        q_xyzw = np.array([q[1], q[2], q[3], q[0]])
+        frame = pose_msg.header.frame_id
+        self.bus.publish("/odom", OdometryMsg(Header.make(frame), trans, q_xyzw))
+        self.frames.set_transform(frame, "camera_frame", trans, q_xyzw)
+        self.bus.publish(
+            "/tf", TransformMsg(Header.make(frame), "camera_frame", trans, q_xyzw)
+        )
+        self.bus.publish(
+            "/camera/camera_info",
+            CameraInfoMsg(
+                Header.make("camera_frame"),
+                int(self.intr.width),
+                int(self.intr.height),
+                K=tuple(self.intr.matrix_np(np.float64).reshape(-1)),
+                D=tuple(self.intr.distortion),
+            ),
+        )
+        if self.cfg.publish_rewards_cloud:
+            obs = f[7: 7 + len(pc_msg.xyz)]
+            cloud = np.concatenate([pc_msg.xyz, obs[:, None]], axis=1)
+            self.bus.publish(
+                self.cfg.pc_topic + "/rewards",
+                CloudMsg(Header.make(pc_msg.header.frame_id), cloud),
+            )
+
+    def close(self):
+        self._sync.close()
 
 
 def _rig_cull_and_transform(pts, valid, Q, T, K, *, img_w, img_h, min_dist, max_dist):
@@ -230,3 +536,75 @@ class PointsProcessorNode:
         if dropped:
             self.metrics.incr("render_dropped_splats", float(torch.stack(dropped).sum()))
         return out
+
+
+class CloudFeederNode:
+    """npz cloud replay (`src/pc_publisher.py`). Call tick() at the configured
+    rate, or drive it by hand in tests."""
+
+    def __init__(self, bus: Bus, cfg: CloudFeederConfig, rng: Optional[np.random.Generator] = None):
+        self.bus = bus
+        self.cfg = cfg
+        self.rng = rng or np.random.default_rng()
+
+    def tick(self):
+        from trajectory_optimization_tpu_torch.utils.data import load_point_cloud
+
+        idx = self.cfg.pc_index
+        if idx == -1:
+            idx = int(self.rng.integers(0, 30))
+        path = os.path.join(self.cfg.data_dir, f"point_cloud_{idx}.npz")
+        pts = load_point_cloud(path)
+        self.bus.publish(self.cfg.output_topic, CloudMsg(Header.make(self.cfg.frame_id), pts))
+
+
+class PoseFeederNode:
+    """Random-or-fixed pose feeder (`src/pose_publisher.py`)."""
+
+    def __init__(self, bus: Bus, cfg: PoseFeederConfig, rng: Optional[np.random.Generator] = None):
+        self.bus = bus
+        self.cfg = cfg
+        self.rng = rng or np.random.default_rng()
+
+    def tick(self):
+        # host-only math: a device call here would stamp this message late on
+        # first use (device initialization), breaking its pairing
+        from trajectory_optimization_tpu_torch.ops.quat import from_euler_np
+
+        c = self.cfg
+        pos = np.array(
+            [
+                c.x if c.x is not None else self.rng.random() * 5 + 15,
+                c.y if c.y is not None else self.rng.random() * 5 + 15,
+                c.z if c.z is not None else self.rng.random() * 2,
+            ]
+        )
+        rpy = [
+            c.roll if c.roll is not None else self.rng.random() * np.pi,
+            c.pitch if c.pitch is not None else self.rng.random() * np.pi,
+            c.yaw if c.yaw is not None else self.rng.random() * np.pi,
+        ]
+        q_wxyz = from_euler_np(*rpy)
+        q_xyzw = np.concatenate([q_wxyz[1:], q_wxyz[:1]])
+        self.bus.publish(
+            c.output_topic, PoseMsg(Header.make(c.frame_id), pos, q_xyzw)
+        )
+
+
+class VoxelFilterNode:
+    """Voxel-grid downsampling filter (the PCL VoxelGrid nodelet's role,
+    `launch/voxels_filtering.launch:8-21`). Uses the native C++ filter when
+    built, numpy otherwise."""
+
+    def __init__(self, bus: Bus, cfg: VoxelFilterConfig):
+        self.bus = bus
+        self.cfg = cfg
+        bus.subscribe(cfg.input_topic, self.callback)
+
+    def callback(self, msg: CloudMsg):
+        from trajectory_optimization_tpu_torch.native import voxel_downsample_native
+
+        out = voxel_downsample_native(
+            msg.points, self.cfg.leaf_size, z_limits=self.cfg.z_limits
+        )
+        self.bus.publish(self.cfg.output_topic, CloudMsg(msg.header, out))
