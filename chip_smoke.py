@@ -87,7 +87,26 @@ Phases, each printing one line (any failure raises and exits non-zero):
    and ``occupancy_grid_jit`` on the card against the CPU (``torch.equal``
    occupied mask and grid, centroids 1e-5, grid against numpy on 99.9% of
    cells).
-8. times — per-stage and per-step ms, kernel and plain, peak memory, and
+8. hpr — hidden-point removal (``ops/hpr.py``, eager PyTorch: no kernel of
+   its own). ``PointsProcessorNode(device="cuda")`` over the bus with the
+   ring at 1232x1616 over cloud 10 at its default ``hpr_backend="approx"``:
+   one batched pursuit per cloud, every camera's visible points with no
+   false positive against Qhull (``hpr_mask_exact``) on its culled points
+   and recall >= 0.98, serial and batched counts within max(3, 1%), images
+   as in 6; then with ``"exact"`` (visible == Qhull's). The estimate and
+   bound of the 8m rig's pursuit, which stays at ``"none"``.
+   ``hpr_mask_approx`` on the full cloud 10 from (6, 2, 0): no false
+   positive, recall >= 0.99, two runs ``torch.equal``.
+   ``PoseOptimizer(use_hpr=True)`` 200 steps (loss below the start) and
+   ``PoseOptNode(use_hpr=True)`` over the bus (20 finite /odom, the last
+   equal to the optimizer's). Soft HPR at the dense size, cloud 10
+   voxel-filtered at leaf 0.15 (23,288 centroids, padded 24,576):
+   ``PoseOptimizer(soft_hpr=True)`` 200 steps, ``TrajectoryOptimizer(
+   soft_hpr=True)`` 20 steps with path 10 (loss below that after its first
+   step, visibility gain > 1) and ``evaluate`` of the result; one step of
+   each, loss and gradients, against the same step on the CPU within 2e-3
+   of the largest entry (the trajectory's on path 10's first 3 waypoints).
+9. times — per-stage and per-step ms, kernel and plain, peak memory, and
    the device's busy share of a step from a 20-step ``torch.profiler`` trace;
    K6/K7 ms through the wrapper and the kernel alone (``torch.profiler``)
    beside their plain versions, bounds, share of the bound and the first
@@ -95,7 +114,12 @@ Phases, each printing one line (any failure raises and exits non-zero):
    ms per ``process_all`` call and its peak memory for both clouds; the
    nodes' times: TrajOptNode messages/s at both depths and the device's busy
    share of one traced callback, ms per PoseOptNode callback, PoseOptimizer
-   ms/step at cloud 10 and 1M, VoxelFilterNode ms at 8m.
+   ms/step at cloud 10 and 1M, VoxelFilterNode ms at 8m; HPR: one batched
+   ``_hpr_masks_rig`` and the pursuit alone at rig cloud10, ``process_all``
+   at "approx", "exact" and "none", the pursuit on the full cloud 10,
+   ``PoseOptimizer(use_hpr=True)`` ms/step, soft pose and trajectory
+   ms/step with peak memory and the soft dominance tile's share of a traced
+   step, each loop beside a bound from the pairs it touches.
 
 The line before the last is the kernels' JSON record (all nine kernels, each
 with its bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -324,6 +348,26 @@ NODE_MSGS = 20  # timed TrajOptNode messages per depth, after one warm-up (bench
 # largest |difference| of a position (m) or quaternion component. On the CPU
 # the same two paths end 1.2e-5 m and 2.9e-5 apart.
 NODE_TOL = 1e-3
+# ops/hpr.py has no hand-written kernel: its two O(N²) loops are timed in
+# [hpr] beside a bound from the pairs they touch. Operations per pair: the
+# approx pursuit's sweep (hpr_mask_approx) 8 (the 3-term projection 5, max
+# and argmax 2, the runner-up 1) on every (probe row, point) pair of its 16
+# passes, the last 12 on ⌈N/4⌉ rows; the soft dominance tile (hpr_mask_soft)
+# 13 forward (cos 5, clip 2, × ρ, × β, the log-sum-exp's max, subtraction,
+# exp and sum) and 38 backward (the forward's 9 again, the weight 3, ∂ρ 3,
+# the tie-aware derivative 6, ∂cos 3, the two 3-term products 12, 2 adds).
+# A training step runs the tile forward twice (the checkpointed waypoint is
+# recomputed) and backward once.
+HPR_SWEEP_OPS = 8
+SOFT_OPS = {"forward": 13, "backward": 38}
+SOFT_LEAF = 0.15  # voxels_filtering.launch's leaf: cloud 10 -> 23,288 centroids
+# Soft HPR, one step on the card against the same step on the CPU: the
+# largest error within 2e-3 of the largest entry, the port's gradient pin
+# against the JAX twin (tests/test_torch_pose.py). The mask's sigmoid turns
+# one f32 rounding of its inputs into ~2.4e-3 of mask (tests/test_torch_hpr.py),
+# and the pose gradient's translation moved 1.5e-3 of its largest entry
+# between card and CPU (NVIDIA H100 80GB HBM3, 700 W).
+HPR_TOL = 2e-3
 
 
 def splat_work(offsets, entries, use_runs: bool, tiles_y: int, tiles_x: int):
@@ -778,6 +822,404 @@ def node_checks(dev, clouds, path10, sync):
           f"{c_err:.3e}; occupancy_grid_jit: {res['voxel_jit'][1]} cells torch.equal to the "
           f"CPU's, {share:.5%} of cells equal to numpy's", flush=True)
     return res
+
+
+def approx_pairs(C: int, n: int, n_passes: int = 16, full_passes: int = 4) -> int:
+    """(probe row, point) pairs hpr_mask_approx sweeps for C clouds of n
+    points: ``full_passes`` passes over every row, then ⌈n/4⌉ rows."""
+    return C * n * (full_passes * n + (n_passes - full_passes) * -(-n // 4))
+
+
+def hpr_checks(dev, intr, cloud10, path10, sync, cuda_ms):
+    """Phase [hpr]: hidden-point removal on the card. The points processor
+    at its default configuration (``hpr_backend="approx"``) and with
+    ``"exact"`` over the bus, the approximate mask on the full cloud 10,
+    ``PoseOptimizer``/``PoseOptNode`` with ``use_hpr``, and soft HPR in the
+    pose and trajectory losses at the dense size. Returns the numbers for
+    [times] and the record."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from trajectory_optimization_tpu_torch.api import PoseOptimizer, TrajectoryOptimizer
+    from trajectory_optimization_tpu_torch.bus import nodes as nodes_mod
+    from trajectory_optimization_tpu_torch.bus.core import Bus
+    from trajectory_optimization_tpu_torch.bus.messages import (
+        CameraInfoMsg, CloudMsg, Header, PoseMsg,
+    )
+    from trajectory_optimization_tpu_torch.models.pose import (
+        PoseProblem, init_pose_params, pose_forward,
+    )
+    from trajectory_optimization_tpu_torch.models.traj import (
+        init_traj_params, traj_forward, waypoint_stride,
+    )
+    from trajectory_optimization_tpu_torch.ops import _kernels
+    from trajectory_optimization_tpu_torch.ops import hpr
+    from trajectory_optimization_tpu_torch.ops.voxel import voxel_downsample
+    from trajectory_optimization_tpu_torch.utils.config import (
+        PointsProcessorConfig, PoseOptNodeConfig,
+    )
+    from trajectory_optimization_tpu_torch.utils.data import (
+        bucket_size, identity_quaternions, pad_points,
+    )
+
+    res = {"rig": {}, "process_all_ms": {}}
+    H, W = int(intr.height), int(intr.width)
+    cams = [f"cam{i}" for i in range(6)]
+    topics = tuple(f"/{c}/info" for c in cams)
+    kflat = tuple(intr.matrix_np(np.float64).reshape(-1))
+    msgs = [CameraInfoMsg(Header(stamp=0.0, frame_id=c), W, H, K=kflat) for c in cams]
+
+    def cloud_msg(pts):
+        return CloudMsg(Header(stamp=0.0, frame_id="world"), pts)
+
+    def rows(a):
+        return {tuple(r) for r in np.asarray(a, np.float32).tolist()}
+
+    # every approx pursuit the node starts, by the shape of its input
+    calls = []
+    real_approx = nodes_mod.hpr_mask_approx
+
+    def counting_approx(points, **kw):
+        calls.append(tuple(points.shape))
+        return real_approx(points, **kw)
+
+    nodes_mod.hpr_mask_approx = counting_approx
+
+    # ---- the points processor at its default configuration, then "exact" --
+    for backend in ("approx", "exact", "none"):
+        bus = Bus(error_policy="raise")
+        cfg = PointsProcessorConfig(pc_topic="/cloud", cam_info_topics=topics)
+        if backend != "approx":  # the default configuration is "approx"
+            cfg = PointsProcessorConfig(pc_topic="/cloud", cam_info_topics=topics,
+                                        hpr_backend=backend)
+        node = nodes_mod.PointsProcessorNode(bus, cfg, device=dev)
+        for c, t in zip(cams, RING):
+            node.frames.set_transform("world", c, t, [0, 0, 0, 1])
+        images = {}
+        for c in cams:
+            bus.subscribe(f"/{c}/pointcloud_image", lambda m, c=c: images.__setitem__(c, m.data))
+        if backend != "none":
+            calls.clear()
+            _kernels.reset_launches()
+            bus.publish("/cloud", cloud_msg(cloud10))
+            for c, info in zip(cams, msgs):
+                bus.publish(f"/{c}/info", info)
+            sync()
+            launches = {n: v for n, v in _kernels.LAUNCHES.items() if v}
+            batched_calls = list(calls)
+            culled = [bus.latest(f"/{c}/pointcloud").points for c in cams]
+            visible = [bus.latest(f"/{c}/pointcloud_visible").points for c in cams]
+            bucket = bucket_size(max(len(x) for x in culled))
+            want_calls = [(6, bucket, 3)] if backend == "approx" else []
+            if node.n_batched != 1 or batched_calls != want_calls or sorted(images) != cams:
+                fail(f"rig cloud10 hpr_backend={backend!r}: {node.n_batched} batched "
+                     f"evaluations, approx pursuits {batched_calls} (expected {want_calls}), images "
+                     f"from {sorted(images)}")
+            if set(launches) - set(SPLAT) or sum(launches.values()) != len(cams):
+                fail(f"rig cloud10 hpr_backend={backend!r} launched {launches}; expected one "
+                     f"splat kernel per camera")
+            fps, recalls = [], []
+            for c, cul, vis in zip(cams, culled, visible):
+                exact = hpr.hpr_mask_exact(cul)
+                truth, got = rows(cul[exact]), rows(vis)
+                fps.append(len(got - truth))
+                recalls.append(len(got & truth) / max(len(truth), 1))
+                if backend == "exact" and not np.array_equal(vis, cul[exact]):
+                    fail(f"rig cloud10 exact {c}: visible points != Qhull's on the culled points")
+                img = images[c]
+                if not (img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+                        and float(img.min()) >= 0.0 and float(img.max()) <= 1.0
+                        and bool((img < 1.0).any())):
+                    fail(f"rig cloud10 {backend} {c}: malformed image {tuple(img.shape)}")
+            if any(fps) or min(recalls) < 0.98:
+                fail(f"rig cloud10 {backend}: false positives against Qhull {fps}, recall "
+                     f"{[round(r, 4) for r in recalls]} (pins 0 and 0.98)")
+            serial = node.process(cloud_msg(cloud10), msgs[0])
+            if abs(len(serial) - len(visible[0])) > max(3, 0.01 * len(visible[0])):
+                fail(f"rig cloud10 {backend}: serial cam0 {len(serial)} vs batched "
+                     f"{len(visible[0])} points")
+            res["rig"][backend] = {"culled": [len(x) for x in culled],
+                                   "visible": [len(x) for x in visible], "bucket": bucket,
+                                   "false_positives": fps, "recall": recalls,
+                                   "serial_cam0": len(serial), "launches": launches}
+            print(f"[hpr] rig cloud10 (6 cameras at {W}x{H}, hpr_backend={backend!r}"
+                  + (", the default" if backend == "approx" else "")
+                  + f") over the bus: one batched process_all, approx pursuits {batched_calls}; culled "
+                  f"{res['rig'][backend]['culled']}, visible {res['rig'][backend]['visible']}; "
+                  f"against Qhull on each camera's culled points: false positives {fps}, recall "
+                  f"{[round(r, 4) for r in recalls]} (pins 0 and 0.98); serial cam0 {len(serial)}; "
+                  f"launches {launches}; images (1616, 1232, 3), finite, in [0, 1], not all "
+                  f"background", flush=True)
+            if backend == "approx":
+                res["rig_hpr_ms"] = cuda_ms(lambda: nodes_mod._hpr_masks_rig(culled, dev), 3)
+                padded = [pad_points(x, target=bucket) for x in culled]
+                P = torch.as_tensor(np.stack([p for p, _ in padded]), device=dev)
+                V = torch.as_tensor(np.stack([v for _, v in padded]), device=dev)
+                res["rig_sweep_ms"] = cuda_ms(lambda: hpr.hpr_mask_approx(P, valid=V), 3)
+                res["rig_sweep_trace"] = traced_share(lambda: hpr.hpr_mask_approx(P, valid=V),
+                                                      sync)
+                res["rig_pairs"] = approx_pairs(6, bucket)
+                del P, V
+        times = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            node.process_all(cloud_msg(cloud10), msgs)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res["process_all_ms"][backend] = statistics.median(times)
+        del bus, node, images
+        gc.collect()
+    nodes_mod.hpr_mask_approx = real_approx
+    n8 = 524_288
+    b8 = bound(0, HPR_SWEEP_OPS * approx_pairs(6, n8))
+    res["rig_8m_estimate"] = (6 * n8 * n8, approx_pairs(6, n8), b8[0])
+    print(f"[hpr] the 8m rig stays at hpr_backend='none' here: each camera's culled cloud pads "
+          f"to ~{n8} points, and the pursuit would sweep 6 x {n8}^2 = {6 * n8 * n8:.3e} pairs "
+          f"per full pass, {approx_pairs(6, n8):.3e} over its 16 passes; bound "
+          f"{b8[0]:.1f} ms by {b8[1]} at {HPR_SWEEP_OPS} operations per pair", flush=True)
+
+    # ---- hpr_mask_approx on the full cloud 10, against Qhull, twice --------
+    cam = cloud10 - np.array([6.0, 2.0, 0.0], np.float32)
+    padded, valid = pad_points(cam)
+    P, V = torch.as_tensor(padded, device=dev), torch.as_tensor(valid, device=dev)
+    m1 = hpr.hpr_mask_approx(P, valid=V)
+    m2 = hpr.hpr_mask_approx(P, valid=V)
+    if not torch.equal(m1, m2):
+        fail(f"hpr_mask_approx on cloud 10: two runs differ on {int((m1 != m2).sum())} points")
+    got = m1.cpu().numpy()[: len(cam)] > 0.5
+    exact = hpr.hpr_mask_exact(cam)
+    fp, recall = int((got & ~exact).sum()), float((got & exact).sum() / exact.sum())
+    if fp or recall < 0.99:
+        fail(f"hpr_mask_approx on cloud 10: {fp} false positives, recall {recall:.4f} "
+             f"(pins 0 and 0.99)")
+    res["full"] = {"n": len(cam), "padded": len(padded), "visible": int(got.sum()),
+                   "qhull_visible": int(exact.sum()), "false_positives": fp, "recall": recall,
+                   "ms": cuda_ms(lambda: hpr.hpr_mask_approx(P, valid=V), 2),
+                   "pairs": approx_pairs(1, len(padded))}
+    print(f"[hpr] hpr_mask_approx on the card, cloud 10 from (6, 2, 0) ({len(cam)} points padded "
+          f"to {len(padded)}): {res['full']['visible']} visible, Qhull {int(exact.sum())}; false "
+          f"positives {fp}, recall {recall:.4f} (pins 0 and 0.99); two runs torch.equal",
+          flush=True)
+    del P, V, m1, m2
+
+    # ---- PoseOptimizer(use_hpr=True) and PoseOptNode(use_hpr=True) ---------
+    start = [6.0, 2.0, 0.0]
+    opt = PoseOptimizer(device=dev, use_hpr=True)
+    r0 = opt.optimize(cloud10, start, n_steps=0)
+    opt.optimize(cloud10, start, n_steps=5)  # warm-up
+    sync()
+    t0 = time.perf_counter()
+    r = opt.optimize(cloud10, start, n_steps=200)
+    sync()
+    res["pose_hpr_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / 200
+    if not (np.all(np.isfinite(r.position)) and np.isfinite(r.loss) and r.loss < r0.loss):
+        fail(f"PoseOptimizer(use_hpr=True) cloud10 200 steps: loss {r.loss} from {r0.loss}, "
+             f"position {r.position}")
+    bus = Bus(error_policy="raise")
+    node = nodes_mod.PoseOptNode(bus, PoseOptNodeConfig(
+        pc_topic="/pts", pose_topic="/pose", opt_steps=200, num_pub_samples=20, use_hpr=True),
+        device=dev)
+    odoms = []
+    bus.subscribe("/odom", odoms.append)
+    bus.publish("/pts", cloud_msg(cloud10))
+    bus.publish("/pose", PoseMsg(Header(stamp=0.0, frame_id="world"), start, [0, 0, 0, 1]))
+    sync()
+    if len(odoms) != 20 or not all(np.all(np.isfinite(o.position)) for o in odoms):
+        fail(f"PoseOptNode(use_hpr=True): {len(odoms)} /odom messages (expected 20, finite)")
+    if not np.array_equal(odoms[-1].position, r.position):
+        fail(f"PoseOptNode(use_hpr=True)'s last /odom {odoms[-1].position} != "
+             f"PoseOptimizer(use_hpr=True)'s {r.position}")
+    node.close()
+    del bus, node
+    res["pose_hpr"] = (r0.loss, r.loss)
+    print(f"[hpr] PoseOptimizer(use_hpr=True) cloud 10, 200 steps: loss {r0.loss:.6f} -> "
+          f"{r.loss:.6f}, position {np.round(r.position, 6).tolist()}; PoseOptNode(use_hpr=True) "
+          f"over the bus: 20 finite /odom, the last == PoseOptimizer's (np.array_equal)",
+          flush=True)
+
+    # ---- soft HPR at the dense size: voxel-filtered cloud 10 ---------------
+    vox = voxel_downsample(cloud10, SOFT_LEAF)
+    vpad, vvalid = pad_points(vox)
+    if not len(vpad) <= PoseProblem(1.0, 1.0).soft_hpr_dense_max:
+        fail(f"the voxel-filtered cloud pads to {len(vpad)}: above the dense soft HPR's size")
+    res["soft_n"] = (len(vox), len(vpad))
+    Kd = intr.matrix(device=dev)
+
+    def pose_step(device):
+        Pd = torch.as_tensor(vpad, device=device)
+        Vd = torch.as_tensor(vvalid, device=device)
+        prob = PoseProblem(intr.width, intr.height, soft_hpr=True)
+        params = {k: v.requires_grad_(True) for k, v in init_pose_params(
+            np.asarray([start], np.float32), np.asarray([[1.0, 0, 0, 0]], np.float32),
+            device).items()}
+        loss, _ = pose_forward(params, Pd, intr.matrix(device=device), prob, valid=Vd)
+        loss.backward()
+        return [loss.detach()] + [params[k].grad for k in ("trans", "quat")]
+
+    def traj_step(device, path, stride):
+        Pd = torch.as_tensor(vpad, device=device)
+        Vd = torch.as_tensor(vvalid, device=device)
+        q0 = identity_quaternions(len(path))
+        prob = TrajectoryOptimizer(device=device, soft_hpr=True)._traj_problem(path, stride)
+        params = {k: v.requires_grad_(True)
+                  for k, v in init_traj_params(path, q0, device).items()}
+        loss, _ = traj_forward(params, Pd, intr.matrix(device=device),
+                               torch.as_tensor(path, device=device),
+                               torch.as_tensor(q0, device=device), prob, valid=Vd)
+        loss.backward()
+        return [loss.detach()] + [params[k].grad for k in ("poses", "quats")]
+
+    def against_cpu(name, card, host):
+        errs = []
+        for what, a, b in zip(("loss", "grad 0", "grad 1"), card, host):
+            a = a.cpu().double()
+            b = b.double()
+            if not bool(torch.isfinite(a).all()):
+                fail(f"{name} on the card: non-finite {what}")
+            err, scale = float((a - b).abs().max()), float(b.abs().max())
+            if not err <= HPR_TOL * scale:
+                fail(f"{name}: card vs CPU {what} max |err| {err:.3e} over {HPR_TOL} of its "
+                     f"largest entry {scale:.3e}")
+            errs.append(err / scale)
+        return errs
+
+    # pose: 200 steps, one step against the CPU, a traced step
+    opt = PoseOptimizer(device=dev, soft_hpr=True)
+    r0 = opt.optimize(vox, start, n_steps=0)
+    opt.optimize(vox, start, n_steps=3)  # warm-up
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = opt.optimize(vox, start, n_steps=200)
+    sync()
+    res["soft_pose_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / 200
+    res["soft_pose_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    if not (np.all(np.isfinite(r.position)) and np.isfinite(r.loss) and r.loss < r0.loss):
+        fail(f"PoseOptimizer(soft_hpr=True) 200 steps: loss {r.loss} from {r0.loss}")
+    res["soft_pose_vs_cpu"] = against_cpu("soft pose step", pose_step(dev), pose_step("cpu"))
+    res["soft_pose_trace"] = traced_share(lambda: pose_step(dev), sync)
+    res["soft_pose"] = (r0.loss, r.loss)
+    print(f"[hpr] PoseOptimizer(soft_hpr=True) on cloud 10 voxel-filtered at leaf {SOFT_LEAF} "
+          f"({len(vox)} centroids padded to {len(vpad)}, dense): 200 steps, loss {r0.loss:.6f} "
+          f"-> {r.loss:.6f}; one step on the card against the CPU: relative max |err| loss, "
+          f"trans, quat {[f'{e:.2e}' for e in res['soft_pose_vs_cpu']]} (pin {HPR_TOL})",
+          flush=True)
+
+    # trajectory: 20 steps with path 10, evaluate, one step against the CPU
+    stride = waypoint_stride(path10, 0.5)  # the facade's default vis_wps_dist
+    topt = TrajectoryOptimizer(device=dev, soft_hpr=True, lr_pose=0.1, lr_quat=0.02)
+    # the first Adam step moves every waypoint by lr_pose and raises the
+    # smoothness term (the JAX twin's run does the same): the loss falls from
+    # there on, so the 20-step loss is held below the 1-step one
+    loss0 = topt.optimize(vox, path10, n_steps=1).loss  # and a warm-up
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = topt.optimize(vox, path10, n_steps=20)
+    sync()
+    # per step, the run's final forward (no gradient) included in the 20
+    res["soft_traj_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / 20
+    res["soft_traj_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    if not (np.all(np.isfinite(tr.poses)) and np.isfinite(tr.loss) and tr.loss < loss0
+            and tr.visibility_gain > 1.0 and tr.n_iters == 20 and np.all(np.isfinite(tr.rewards))):
+        fail(f"TrajectoryOptimizer(soft_hpr=True) 20 steps: loss {tr.loss} (after 1 step "
+             f"{loss0}), visibility gain {tr.visibility_gain}, {tr.n_iters} steps")
+    ev = topt.evaluate(vox, tr.poses, tr.quats_wxyz, wps_step=stride)
+    if not (np.all(np.isfinite(ev.rewards)) and 0 < ev.n_observed <= len(vox)
+            and np.isfinite(ev.mean_reward)):
+        fail(f"evaluate(soft_hpr=True) of the optimized path: {ev.n_observed} observed, mean "
+             f"reward {ev.mean_reward}")
+    card = traj_step(dev, path10, stride)
+    if not all(bool(torch.isfinite(g).all()) for g in card):
+        fail("soft trajectory step on the card: non-finite loss or gradients")
+    n_wps = len(path10[::stride])
+    res["soft_traj_vs_cpu"] = against_cpu("soft traj step (path 10's first 3 waypoints)",
+                                          traj_step(dev, path10[:3], stride),
+                                          traj_step("cpu", path10[:3], stride))
+    res["soft_traj_trace"] = traced_share(lambda: traj_step(dev, path10, stride), sync)
+    res["soft_traj"] = (loss0, tr.loss, tr.visibility_gain, ev.n_observed, ev.mean_reward)
+    res["soft_wps"] = n_wps
+    print(f"[hpr] TrajectoryOptimizer(soft_hpr=True) on the same cloud with path 10 ({n_wps} "
+          f"waypoints at stride {stride}): loss after 1 step {loss0:.6f}, after 20 "
+          f"{tr.loss:.6f}, "
+          f"visibility gain {tr.visibility_gain:.4f}, gradients finite; evaluate of the "
+          f"optimized path: {ev.n_observed} observed, mean reward {ev.mean_reward:.6f}; one "
+          f"step of path 10's first 3 waypoints (2 at stride {stride}) on the card against the "
+          f"CPU: relative max |err| loss, poses, quats "
+          f"{[f'{e:.2e}' for e in res['soft_traj_vs_cpu']]} (pin {HPR_TOL})", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def print_hpr_times(card: str, hp) -> None:
+    """[hpr]'s lines under [times], and its bounds into ``hp["bounds"]``."""
+    bucket = hp["rig"]["approx"]["bucket"]
+    hp["bounds"] = {
+        "rig_sweep": bound(0, HPR_SWEEP_OPS * hp["rig_pairs"]),
+        "full_sweep": bound(0, HPR_SWEEP_OPS * hp["full"]["pairs"]),
+        # a pose step runs the tile forward and backward once; a trajectory
+        # step twice forward (its waypoints are checkpointed) and once back,
+        # per selected waypoint
+        "soft_pose_step": bound(0, hp["soft_n"][1] ** 2 * (SOFT_OPS["forward"]
+                                                          + SOFT_OPS["backward"])),
+        "soft_traj_step": bound(0, hp["soft_wps"] * hp["soft_n"][1] ** 2 * (
+            2 * SOFT_OPS["forward"] + SOFT_OPS["backward"])),
+    }
+    print(f"[times] {card} | HPR rig cloud10: one batched _hpr_masks_rig {hp['rig_hpr_ms']:.3f} "
+          f"ms (padding, copies and the one device-to-host copy included), the pursuit alone "
+          f"on (6, {bucket}) {hp['rig_sweep_ms']:.3f} ms ("
+          + ("device not traced" if hp["rig_sweep_trace"][1] is None else
+             "{3} device operations, busy {1:.3f} ms, traced".format(*hp["rig_sweep_trace"]))
+          + "), bound "
+          + "{:.4f} ms by {}".format(*hp["bounds"]["rig_sweep"])
+          + f" ({hp['rig_pairs']:.4e} pairs); process_all ms/call (median of 3, with render): "
+          + ", ".join(f"{b} {hp['process_all_ms'][b]:.2f}" for b in ("approx", "exact", "none"))
+          + f"; hpr_mask_approx on cloud 10 padded to {hp['full']['padded']}: "
+          f"{hp['full']['ms']:.3f} ms, bound " + "{:.4f} ms by {}".format(
+              *hp["bounds"]["full_sweep"])
+          + f" ({hp['full']['pairs']:.4e} pairs); PoseOptimizer(use_hpr=True) cloud10 "
+          f"{hp['pose_hpr_ms_per_step']:.4f} ms/step", flush=True)
+
+    def share_text(t, b):
+        wall, busy, dom, n_ops = t
+        if busy is None:
+            return (f"traced {wall:.2f} ms, device time not measured (no device activity); "
+                    f"bound {b[0]:.4f} ms by {b[1]}")
+        return (f"traced {wall:.2f} ms, {n_ops} device operations, device busy {busy:.3f} ms, "
+                f"the dominance tile {dom:.3f} ms ({100 * dom / busy:.1f}% of the busy time; "
+                f"bound {b[0]:.4f} ms by {b[1]})")
+
+    print(f"[times] {card} | soft HPR dense ({hp['soft_n'][0]} points padded to "
+          f"{hp['soft_n'][1]}): PoseOptimizer(soft_hpr=True) {hp['soft_pose_ms_per_step']:.3f} "
+          f"ms/step, peak {hp['soft_pose_peak_mib']:.1f} MiB, one step "
+          + share_text(hp["soft_pose_trace"], hp["bounds"]["soft_pose_step"])
+          + f"; TrajectoryOptimizer(soft_hpr=True) {hp['soft_wps']} waypoints "
+          f"{hp['soft_traj_ms_per_step']:.3f} ms/step, peak {hp['soft_traj_peak_mib']:.1f} MiB, "
+          "one step " + share_text(hp["soft_traj_trace"], hp["bounds"]["soft_traj_step"]),
+          flush=True)
+
+
+def traced_share(fn, sync):
+    """(wall ms, device-busy ms, device ms of the kernels launched inside
+    ``ops.hpr``'s soft dominance ranges, device operations) of one traced
+    call; the device numbers are None when the trace holds no device
+    activity. A range is counted on its host side only: the trace also
+    holds its device-side annotation, which would count it twice."""
+    import torch
+
+    from trajectory_optimization_tpu_torch.ops.hpr import SOFT_DOMINANCE_RANGE
+
+    prof, wall_ms, n_spans, busy_us = traced(fn, sync)
+    if not n_spans:
+        return wall_ms, None, None, None
+    dom_us = sum(e.device_time_total for e in prof.events()
+                 if e.name == SOFT_DOMINANCE_RANGE
+                 and e.device_type == torch.autograd.DeviceType.CPU)
+    return wall_ms, busy_us / 1e3, dom_us / 1e3, n_spans
 
 
 def card_line() -> str:
@@ -1491,7 +1933,11 @@ def main() -> int:
     nodes = node_checks(dev, {"cloud10": cloud10, "1m": big_pts, "8m": pts8}, path10, sync)
     del pts8
 
-    # ---- 8. times ----------------------------------------------------------
+    # ---- 8. hidden-point removal -------------------------------------------
+    torch.cuda.empty_cache()
+    hp = hpr_checks(dev, intr, cloud10, path10, sync, cuda_ms)
+
+    # ---- 9. times ----------------------------------------------------------
     for c in cases:
         n = 50 if c["name"] == "ref" else 10
         for backend in ("kernel", "torch"):
@@ -1607,6 +2053,8 @@ def main() -> int:
           f"{nodes['voxel_filter_ms_8m']:.1f} ms, {nodes['voxel_count_8m']} centroids",
           flush=True)
 
+    print_hpr_times(card, hp)
+
     def vis_entry(n):
         b_ref = vis_bound(n, *shape_wn["ref"], skips["ref"], prunes["ref"])
         b_1m = vis_bound(n, *shape_wn["1m50"], skips["1m50"], prunes["1m50"])
@@ -1659,7 +2107,8 @@ def main() -> int:
                         "pose_callback_ms": nodes["pose_callback_ms"],
                         "pose_ms_per_step": nodes["pose_ms_per_step"],
                         "pose_card_vs_cpu": nodes["pose_card_vs_cpu"],
-                        "voxel_filter_ms_8m": nodes["voxel_filter_ms_8m"]}}
+                        "voxel_filter_ms_8m": nodes["voxel_filter_ms_8m"]},
+              "hpr": hp}
     for e in record["kernels"]:
         nums = [v for k, v in e.items() if k.endswith("ms") or k == "max_abs_err"]
         if not all(isinstance(x, (int, float)) and math.isfinite(x) for x in nums if x is not None):

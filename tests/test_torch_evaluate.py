@@ -5,7 +5,7 @@ The inputs are those of tests/test_torch_traj.py: cloud 10 cut to 7,000
 points padded to 8,192, path 10 moved off its initial poses by seeded
 noise. The JAX side runs its XLA backend. Held: ``n_observed`` exactly,
 rewards and mean reward to rtol 1e-4 / atol 2e-4 (the JAX suite's forward
-bound), length and mean angle to 1e-5.
+bound), length and mean angle to 1e-5; with soft HPR as stated there.
 """
 import numpy as np
 import pytest
@@ -106,6 +106,28 @@ def test_wps_step_reaches_the_problem(case, monkeypatch):
 
 
 def test_evaluate_with_soft_hpr_raises(case):
+    """``evaluate`` with soft_hpr=True, once raising here, runs and matches
+    the JAX facade: every third point of the case (2,334, padded to 3,072),
+    every third waypoint. A reward moves with its occlusion-gated scores, so
+    rewards are held to the soft mask's f32 spread (atol 5e-3,
+    tests/test_torch_hpr.py) and the census to 0.5% of the points."""
     pts, poses, quats = case
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tapi.TrajectoryOptimizer(soft_hpr=True, device="cpu").evaluate(pts, poses, quats)
+    pts = pts[::3]
+    kw = dict(min_dist=1.0, max_dist=5.0, soft_hpr=True)
+    want = japi.TrajectoryOptimizer(**kw).evaluate(pts, poses, quats, wps_step=3)
+    got = tapi.TrajectoryOptimizer(**kw, device="cpu").evaluate(pts, poses, quats, wps_step=3)
+    assert got.n_observed > 0
+    assert abs(got.n_observed - want.n_observed) <= 0.005 * len(pts)
+    np.testing.assert_allclose(got.rewards, want.rewards, rtol=1e-4, atol=5e-3)
+    np.testing.assert_allclose(got.mean_reward, want.mean_reward, **FWD)
+    np.testing.assert_allclose(got.loss_vis, want.loss_vis, **FWD)
+    for k in ("length", "mean_angle", "loss_smooth"):
+        np.testing.assert_allclose(getattr(got, k), getattr(want, k), **GEOM)
+
+
+def test_evaluate_with_soft_hpr_above_the_dense_size_raises(case):
+    pts, poses, quats = case
+    prob = tt.TrajProblem(INTR.width, INTR.height, wps_step=9, soft_hpr=True,
+                          soft_hpr_dense_max=4096)
+    with pytest.raises(NotImplementedError, match="binned.*Q1 item 9"):
+        tev.evaluate_trajectory(pts, poses, quats, INTR.matrix_np(), prob, device="cpu")

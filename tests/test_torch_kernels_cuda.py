@@ -638,3 +638,52 @@ def test_traj_opt_node_launches_k1_to_k4_per_message(dev):
         paths[depth] = [m.positions for m in out]
     for a, b in zip(paths[1], paths[2]):
         np.testing.assert_array_equal(a, b)
+
+
+# ---- hidden-point removal (ops/hpr.py: no hand-written kernel) -------------
+
+def test_hpr_approx_on_the_card_is_stable_and_matches_the_cpu(dev):
+    """``hpr_mask_approx`` on the card, cloud 10 seen from (6, 2, 0) and
+    padded to 40,960: two runs ``torch.equal``; under 1% of the mask differs
+    from the CPU run (the twin bar of tests/test_torch_hpr.py), and neither
+    marks a point that Qhull hides."""
+    from trajectory_optimization_tpu_torch.ops import hpr
+
+    cam = load_point_cloud(str(DATA / "points/point_cloud_10.npz")) - np.float32([6.0, 2.0, 0.0])
+    padded, valid = pad_points(cam)
+    P, V = torch.as_tensor(padded), torch.as_tensor(valid)
+    a = hpr.hpr_mask_approx(P.to(dev), valid=V.to(dev))
+    b = hpr.hpr_mask_approx(P.to(dev), valid=V.to(dev))
+    assert torch.equal(a, b)
+    card = a.cpu().numpy()[: len(cam)] > 0.5
+    cpu = hpr.hpr_mask_approx(P, valid=V).numpy()[: len(cam)] > 0.5
+    assert (card != cpu).mean() < 0.01
+    exact = hpr.hpr_mask_exact(cam)
+    assert not (card & ~exact).any() and not (cpu & ~exact).any()
+    assert (card & exact).sum() / exact.sum() >= 0.99
+
+
+def test_hpr_soft_on_the_card_matches_the_cpu(dev):
+    """``hpr_mask_soft`` and its gradient on the card against the CPU, on
+    cloud 10 cut to 5,057 points from (6, 2, 0), padded to 6,144. The mask's
+    sigmoid amplifies one f32 rounding of its inputs to ~2.4e-3, so the bars
+    are tests/test_torch_hpr.py's against the JAX twin: 99.8% of the values
+    within 3e-3, all within 1e-2, the per-point gradient within 1% in L2
+    norm."""
+    from trajectory_optimization_tpu_torch.ops import hpr
+
+    cam = load_point_cloud(str(DATA / "points/point_cloud_10.npz"))[::8] - np.float32(
+        [6.0, 2.0, 0.0])
+    padded, valid = pad_points(cam)
+    w = np.random.default_rng(0).normal(size=len(padded)).astype(np.float32) * valid
+    out = {}
+    for d in (dev, "cpu"):
+        P = torch.as_tensor(padded, device=d).requires_grad_(True)
+        v = hpr.hpr_mask_soft(P, valid=torch.as_tensor(valid, device=d))
+        torch.sum(v * torch.as_tensor(w, device=d)).backward()
+        out[str(d)[:4]] = (v.detach().cpu().numpy(), P.grad.cpu().numpy())
+    (vc, gc), (vh, gh) = out["cuda"], out["cpu"]
+    dv = np.abs(vc - vh)
+    assert (dv > 3e-3).mean() <= 2e-3 and dv.max() <= 1e-2
+    assert np.isfinite(gc).all()
+    assert np.linalg.norm(gc - gh) <= 1e-2 * np.linalg.norm(gh)

@@ -118,13 +118,14 @@ def test_messages_match_jax(path10):
 
 # ---- the optimizer nodes ---------------------------------------------------
 
-def _traj_nodes(steps, depth=1, rewards=True):
+def _traj_nodes(steps, depth=1, rewards=True, **cfg):
     out = []
     for core, msg, nodes, config, kw in SIDES:
         bus = core.Bus(error_policy="raise")
         node = nodes.TrajOptNode(bus, config.TrajOptNodeConfig(
             pc_topic="/pc", path_topic="/path", opt_steps=steps, lr_pose=0.1, lr_quat=0.02,
-            rewards_th=float("inf"), publish_rewards_cloud=rewards, pipeline_depth=depth), **kw)
+            rewards_th=float("inf"), publish_rewards_cloud=rewards, pipeline_depth=depth, **cfg),
+            **kw)
         got = {"path": [], "rewards": []}
         bus.subscribe("/path/optimized", got["path"].append)
         bus.subscribe("/pc/rewards", got["rewards"].append)
@@ -173,13 +174,13 @@ def test_traj_opt_node_depth_2_publishes_depth_1s_messages(cloud10, path10):
         np.testing.assert_array_equal(a.orientations_xyzw, b.orientations_xyzw)
 
 
-def _pose_run(cloud, steps, samples=4):
+def _pose_run(cloud, steps, samples=4, **cfg):
     outs = []
     for core, msg, nodes, config, kw in SIDES:
         bus = core.Bus(error_policy="raise")
         node = nodes.PoseOptNode(bus, config.PoseOptNodeConfig(
             pc_topic="/pts", pose_topic="/pose", opt_steps=steps, lr_pose=0.02, lr_quat=0.02,
-            num_pub_samples=samples), **kw)
+            num_pub_samples=samples, **cfg), **kw)
         order = []
         for topic in ("/odom", "/tf", "/camera/camera_info", "/pts/rewards"):
             bus.subscribe(topic, lambda m, t=topic: order.append((t, m)))
@@ -219,13 +220,40 @@ def test_pose_opt_node_zero_steps(cloud10):
         assert order == [] and node.last_result == {"loss": float("inf"), "n_iters": 0}
 
 
-def test_hpr_options_raise():
-    bus = tcore.Bus()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tnodes.TrajOptNode(bus, tconfig.TrajOptNodeConfig(use_soft_hpr=True), device="cpu")
-    for kw in ({"use_hpr": True}, {"use_soft_hpr": True}):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tnodes.PoseOptNode(bus, tconfig.PoseOptNodeConfig(**kw), device="cpu")
+def test_hpr_options_raise(cloud10, path10):
+    """The HPR options, once raising here, run and match the JAX nodes.
+    TrajOptNode(use_soft_hpr=True): 2 steps on cloud 10 cut to 2,023 points
+    at vis_wps_dist 2 (4 selected waypoints), its path and rewards against
+    the JAX node's. PoseOptNode(use_hpr=True) and (use_soft_hpr=True): 3
+    steps in segments of 1, every /odom against the JAX node's. Soft HPR's
+    gradients differ from the JAX ones by ~1e-3 relative (f32 rounding
+    through its sharp sigmoid, tests/test_torch_hpr.py): poses held to 1e-4
+    after these few steps."""
+    pts = cloud10[::20]
+    outs = []
+    for bus, msg, node, got in _traj_nodes(2, use_soft_hpr=True, vis_wps_dist=2.0):
+        bus.publish("/pc", msg.CloudMsg(msg.Header(stamp=1.0, frame_id="map"), pts))
+        bus.publish("/path", msg.PathMsg.straight(path10, frame_id="map", stamp=1.2))
+        assert len(got["path"]) == len(got["rewards"]) == 1
+        outs.append((got["path"][0], got["rewards"][0], node.last_result))
+    (jp, jr, jres), (tp, tr, tres) = outs
+    assert np.abs(tp.positions - path10).max() > 0.1  # the path moved
+    np.testing.assert_allclose(tp.positions, jp.positions, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(tp.orientations_xyzw, jp.orientations_xyzw, atol=1e-4)
+    # a reward moves with its gated scores: the soft mask's f32 spread
+    # (under 5e-3, tests/test_torch_hpr.py) bounds it
+    np.testing.assert_allclose(tr.points[:, 3], jr.points[:, 3], rtol=1e-4, atol=5e-3)
+    np.testing.assert_allclose(tres["loss"], jres["loss"], rtol=1e-4)
+    for cfg in ({"use_hpr": True}, {"use_soft_hpr": True}):
+        (jorder, jnode), (torder, tnode) = _pose_run(cloud10[::12], 3, samples=3, **cfg)
+        assert [t for t, _ in torder] == [t for t, _ in jorder]
+        odoms = [(a, b) for (t, a), (_, b) in zip(torder, jorder) if t == "/odom"]
+        assert len(odoms) == 3
+        for a, b in odoms:
+            np.testing.assert_allclose(a.position, b.position, rtol=1e-4, atol=1e-4)
+            np.testing.assert_allclose(a.orientation_xyzw, b.orientation_xyzw, atol=1e-4)
+        np.testing.assert_allclose(tnode.last_result["loss"], jnode.last_result["loss"],
+                                   rtol=1e-4)
 
 
 # ---- feeders and the voxel filter ------------------------------------------

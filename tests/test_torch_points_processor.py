@@ -1,5 +1,6 @@
 """The port's ``PointsProcessorNode(device="cpu")`` against the JAX node,
-with ``hpr_backend="none"``, on cloud 10 and the six-camera ring of
+with ``hpr_backend="none"`` on cloud 10 and with ``"exact"`` and ``"approx"``
+on every fourth point of it, on the six-camera ring of
 tests/test_nodes.py:198-203; and the port's ``FrameGraph`` copy against the
 JAX one on the cases of tests/test_bus.py the node's path uses."""
 import numpy as np
@@ -30,7 +31,7 @@ SMALL_K = ((100.0, 0.0, 64.0, 0.0, 100.0, 48.0, 0.0, 0.0, 1.0), 128, 96)  # test
 PIN = 1e-3  # share of pixels that may differ by more than 1e-3 (z-ties)
 
 
-def _nodes(cams, render, topics=()):
+def _nodes(cams, render, topics=(), hpr="none"):
     """A JAX node and a port node on their own buses, both seeing the ring."""
     out = []
     for core, config, nodes, kw in (
@@ -40,7 +41,7 @@ def _nodes(cams, render, topics=()):
         bus = core.Bus(error_policy="raise")
         node = nodes.PointsProcessorNode(
             bus, config.PointsProcessorConfig(pc_topic="/cloud", cam_info_topics=topics,
-                                              hpr_backend="none", render=render), **kw)
+                                              hpr_backend=hpr, render=render), **kw)
         for i, c in enumerate(cams):
             a = 2 * np.pi * i / 6
             node.frames.set_transform("world", c, [6 + 3 * np.cos(a), 2 + 3 * np.sin(a), -2.0],
@@ -126,11 +127,48 @@ def test_dense_path_counts_dropped_splats_as_jax(cloud10):
     np.testing.assert_array_equal(images[0].numpy(), np.asarray(jimg))
 
 
+def _rows(a):
+    return {tuple(r) for r in np.asarray(a, np.float32).tolist()}
+
+
 @pytest.mark.parametrize("backend", ["approx", "exact"])
-def test_unported_hpr_backends_raise(backend):
-    with pytest.raises(NotImplementedError, match="Q1 item 9"):
-        tnodes.PointsProcessorNode(tcore.Bus(), tconfig.PointsProcessorConfig(hpr_backend=backend),
-                                   device="cpu")
+def test_unported_hpr_backends_raise(cloud10, backend):
+    """Both HPR backends, once raising here, now run: over the bus (one
+    batched rig per cloud, and for "approx" one batched pursuit) and through
+    ``process``, on every fourth point of cloud 10. "exact" publishes the
+    JAX node's visible clouds; "approx" differs from them on under 1% of each
+    camera's culled points, and hides every point Qhull hides."""
+    pts = cloud10[::4]
+    topics = tuple(f"/{c}/info" for c in CAMS)
+    jn, tn = _nodes(CAMS, render=False, topics=topics, hpr=backend)
+    got = {}
+    for node, msg in ((jn, jmsg), (tn, tmsg)):
+        seen = got.setdefault(msg, {})
+        for c in CAMS:
+            for suffix in ("pointcloud", "pointcloud_visible"):
+                node.bus.subscribe(f"/{c}/{suffix}", lambda m, k=(c, suffix), s=seen:
+                                   s.__setitem__(k, m.points))
+        node.bus.publish("/cloud", _cloud(msg, pts))
+        for c, info in zip(CAMS, _infos(msg, CAMS, REF_K)):
+            node.bus.publish(f"/{c}/info", info)
+        assert node.n_batched == 1
+    j, t = got[jmsg], got[tmsg]
+    serial = (tn.process(_cloud(tmsg, pts), _infos(tmsg, CAMS, REF_K)[0]),
+              jn.process(_cloud(jmsg, pts), _infos(jmsg, CAMS, REF_K)[0]))
+    for c in CAMS:
+        culled = t[(c, "pointcloud")]
+        np.testing.assert_array_equal(culled, j[(c, "pointcloud")])
+        vis_t, vis_j = t[(c, "pointcloud_visible")], j[(c, "pointcloud_visible")]
+        assert 0 < len(vis_t) < len(culled)
+        if backend == "exact":
+            np.testing.assert_array_equal(vis_t, vis_j)
+        else:
+            assert len(_rows(vis_t) ^ _rows(vis_j)) < 0.01 * len(culled)
+            assert _rows(vis_t) <= _rows(tnodes.hpr_points_exact(culled)[0])
+    if backend == "exact":
+        np.testing.assert_array_equal(*serial)
+    else:
+        assert len(_rows(serial[0]) ^ _rows(serial[1])) < 0.01 * len(t[("cam0", "pointcloud")])
 
 
 def test_camera_info_intrinsics_match_jax():

@@ -23,6 +23,7 @@ from trajectory_optimization_tpu.opt import engine as jengine  # noqa: E402
 from trajectory_optimization_tpu.opt import runners as jrunners  # noqa: E402
 from trajectory_optimization_tpu_torch import api as tapi  # noqa: E402
 from trajectory_optimization_tpu_torch.models import pose as tpose  # noqa: E402
+from trajectory_optimization_tpu_torch.ops import hpr as thpr  # noqa: E402
 from trajectory_optimization_tpu_torch.opt import engine as tengine  # noqa: E402
 from trajectory_optimization_tpu_torch.opt import runners as trunners  # noqa: E402
 from trajectory_optimization_tpu_torch.utils.data import pad_points  # noqa: E402
@@ -190,10 +191,62 @@ def test_pose_problem_fields_match_jax():
     assert tpose.PoseProblem(1.0, 2.0).hpr_cap == 1024
 
 
-def test_hpr_options_raise():
-    _, tp = _problems(soft_hpr=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tpose.pose_forward(tpose.init_pose_params(T0, Q0), torch.zeros(8, 3), INTR.matrix(), tp)
-    for kw in ({"use_hpr": True}, {"soft_hpr": True}):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tapi.PoseOptimizer(device="cpu", **kw)
+@pytest.mark.parametrize("kw, steps", [({"use_hpr": True}, 10), ({"soft_hpr": True}, 3)],
+                         ids=["use_hpr", "soft_hpr"])
+def test_hpr_options_raise(cloud10, kw, steps):
+    """The HPR options, once raising here, run and match the JAX facade on
+    cloud 10 cut to 3,372 points (padded to 4,096). ``use_hpr`` gates the
+    loss with the approximate mask of the world-frame cloud: a hidden point
+    observes exactly nothing. ``soft_hpr`` differentiates through the dense
+    soft mask every step; its gradients differ from the JAX ones by ~1e-3
+    relative (f32 rounding through the sharp sigmoid, tests/test_torch_hpr.py),
+    which Adam carries into the path, so it runs 3 steps."""
+    pts = cloud10[::12]
+    args = ([6.0, 2.0, 0.0], [0.9, 0.1, -0.2, 0.3])
+    opt = dict(lr_pose=0.02, lr_quat=0.02, **kw)
+    rj = japi.PoseOptimizer(**opt).optimize(pts, *args, n_steps=steps)
+    rt = tapi.PoseOptimizer(device="cpu", **opt).optimize(pts, *args, n_steps=steps)
+    if "use_hpr" in kw:
+        hidden = thpr.hpr_mask_approx(torch.as_tensor(pts)).numpy() == 0
+        assert 0 < hidden.sum() < len(pts) and not rt.observations[hidden].any()
+    np.testing.assert_allclose(rt.position, rj.position, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(rt.quat_wxyz, rj.quat_wxyz, atol=1e-4)
+    np.testing.assert_allclose(rt.loss, rj.loss, rtol=1e-4)
+    # an observation is the mask times a score <= 1: the soft mask's f32
+    # spread (under 5e-3, tests/test_torch_hpr.py) bounds its difference
+    np.testing.assert_allclose(rt.observations, rj.observations,
+                               **(dict(rtol=1e-4, atol=5e-3) if "soft_hpr" in kw else FWD))
+
+
+def test_soft_hpr_loss_and_gradient_match_jax(cloud10):
+    """pose_forward(soft_hpr=True) on cloud 10 cut to 3,372 points padded to
+    4,096: loss rtol 1e-4, gradients rtol 2e-3 (atol 2e-3 of the largest)."""
+    pts, valid = pad_points(cloud10[::12], 4096)
+    jp, tp = _problems(soft_hpr=True)
+
+    def jloss(p):
+        return jpose.pose_forward(p, jnp.asarray(pts), KJ, jp, valid=jnp.asarray(valid))[0]
+
+    jl, jg = jax.value_and_grad(jloss)(jpose.init_pose_params(T0, Q0))
+    tparams = {k: v.requires_grad_(True) for k, v in tpose.init_pose_params(T0, Q0).items()}
+    tl, ta = tpose.pose_forward(tparams, torch.as_tensor(pts), INTR.matrix(), tp,
+                                valid=torch.as_tensor(valid))
+    tl.backward()
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-4)
+    for k in ("trans", "quat"):
+        want = np.asarray(jg[k])
+        assert np.abs(want).max() > 0
+        np.testing.assert_allclose(tparams[k].grad.numpy(), want, rtol=2e-3,
+                                   atol=2e-3 * np.abs(want).max())
+
+
+def test_soft_hpr_above_the_dense_size_raises():
+    """Above soft_hpr_dense_max the JAX twin runs the direction-binned soft
+    HPR, which is not ported."""
+    _, tp = _problems(soft_hpr=True, soft_hpr_dense_max=8)
+    params = tpose.init_pose_params(T0, Q0)
+    rng = np.random.default_rng(0)
+    pts = torch.as_tensor(rng.uniform(-3, 3, (9, 3)).astype(np.float32))
+    assert torch.isfinite(tpose.pose_forward(params, pts[:8], INTR.matrix(), tp)[0])
+    with pytest.raises(NotImplementedError, match="binned.*Q1 item 9"):
+        tpose.pose_forward(params, pts, INTR.matrix(), tp)

@@ -149,14 +149,21 @@ def test_backend_resolution(problem_data):
     assert tt._resolve_backend(dataclasses.replace(prob, backend="xla"), pts) == "torch"
     with pytest.raises(ValueError, match="backend"):
         tt._resolve_backend(dataclasses.replace(prob, backend="triton"), pts)
-    with pytest.raises(NotImplementedError, match="soft_hpr"):
-        tt._resolve_backend(dataclasses.replace(prob, soft_hpr=True), pts)
+    # soft HPR takes its own path, as the JAX twin's "xla_hpr": silently for
+    # the automatic and plain backends, with a warning for the kernel one
+    soft = dataclasses.replace(prob, soft_hpr=True)
+    for backend in ("auto", "torch", "xla"):
+        assert tt._resolve_backend(dataclasses.replace(soft, backend=backend), pts) == "torch_hpr"
+    for backend in ("kernel", "pallas"):
+        with pytest.warns(UserWarning, match="ignored"):
+            assert tt._resolve_backend(dataclasses.replace(soft, backend=backend),
+                                       pts) == "torch_hpr"
 
 
 def test_problem_fields_match_jax():
     """Same fields, order and defaults as the JAX package's TrajProblem, so a
-    caller's keywords build either; the soft-HPR knobs raise the port's
-    NotImplementedError only together with soft_hpr=True."""
+    caller's keywords build either; the soft-HPR knobs change the path only
+    together with soft_hpr=True."""
     fields_j = [(f.name, f.default) for f in dataclasses.fields(jt.TrajProblem)]
     fields_t = [(f.name, f.default) for f in dataclasses.fields(tt.TrajProblem)]
     assert fields_t == fields_j
@@ -164,8 +171,7 @@ def test_problem_fields_match_jax():
     knobs = dict(soft_hpr_dense_max=1024, hpr_cap=256, hpr_safety=2.0)
     prob = tt.TrajProblem(INTR.width, INTR.height, **knobs)
     assert tt._resolve_backend(prob, pts) == "torch"
-    with pytest.raises(NotImplementedError, match="soft_hpr"):
-        tt._resolve_backend(dataclasses.replace(prob, soft_hpr=True), pts)
+    assert tt._resolve_backend(dataclasses.replace(prob, soft_hpr=True), pts) == "torch_hpr"
 
 
 @pytest.mark.parametrize("with_valid", [True, False])

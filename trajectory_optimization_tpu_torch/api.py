@@ -5,8 +5,9 @@ Twin of ``trajectory_optimization_tpu/api.py``: ``TrajectoryOptimizer``
 ``PoseOptimizer``, with automatic padding and shape bucketing (one cached
 runner per bucket), warm start from a previous solution and structured
 results. Both run on the card unless the caller passes ``device="cpu"``.
-The HPR options (``soft_hpr``, ``PoseOptimizer(use_hpr=True)``) raise until
-``ops/hpr.py`` is ported (ROADMAP.md Q1 item 9).
+The HPR options (``soft_hpr``, ``PoseOptimizer(use_hpr=True)``) run through
+``ops/hpr.py``; soft HPR above ``soft_hpr_dense_max`` points raises (the
+direction-binned tier is not ported).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from trajectory_optimization_tpu_torch.models.traj import (
     init_traj_params,
     waypoint_stride,
 )
+from trajectory_optimization_tpu_torch.ops.hpr import hpr_mask_approx
 from trajectory_optimization_tpu_torch.opt.engine import NEVER, EarlyStop, OptimizerConfig
 from trajectory_optimization_tpu_torch.opt.runners import pose_runner, traj_runner
 from trajectory_optimization_tpu_torch.utils.convert import params_from_numpy
@@ -180,17 +182,15 @@ class PoseOptimizer:
         soft_hpr: bool = False,
         device="cuda",
     ):
-        """``use_hpr`` (a hard occlusion mask computed once at the initial
-        pose) and ``soft_hpr`` (Katz occlusion differentiated through every
-        step) are the JAX twin's options; both need ``ops/hpr.py``."""
-        if use_hpr or soft_hpr:
-            raise NotImplementedError(
-                "PoseOptimizer(use_hpr=True / soft_hpr=True): HPR (ops/hpr.py) is not "
-                "ported yet (ROADMAP.md Q1 item 9)"
-            )
+        """``use_hpr`` gates the loss with a hard occlusion mask computed
+        once, by ``hpr_mask_approx`` on the world-frame cloud (the
+        reference's behaviour, its quirk included). ``soft_hpr`` instead
+        differentiates through Katz occlusion of the camera-frame cloud,
+        recomputed every step (dense, up to ``soft_hpr_dense_max`` points)."""
         self.intr = intrinsics or default_intrinsics()
-        self.problem_kw = dict(min_dist=min_dist, max_dist=max_dist)
+        self.problem_kw = dict(min_dist=min_dist, max_dist=max_dist, soft_hpr=soft_hpr)
         self.opt_cfg = OptimizerConfig(lr_pose=lr_pose, lr_quat=lr_quat)
+        self.use_hpr = use_hpr
         self.device = torch.device(device)
 
     def optimize(
@@ -213,12 +213,14 @@ class PoseOptimizer:
         P = torch.as_tensor(padded, device=dev)
         V = torch.as_tensor(valid, device=dev)
         K = self.intr.matrix(device=dev)
+        # on the bucket-padded cloud, valid-masked, as the JAX twin runs it
+        occlusion = hpr_mask_approx(P, valid=V) if self.use_hpr else None
 
         init_opt, advance = pose_runner(problem, self.opt_cfg, int(n_steps))
         params = init_pose_params(
             np.asarray(position, np.float32)[None], np.asarray(quat_wxyz, np.float32)[None], dev
         )
-        params, _, loss, aux = advance(params, init_opt(params), P, V, K, None)
+        params, _, loss, aux = advance(params, init_opt(params), P, V, K, occlusion)
         # one device-to-host copy for all results
         f = torch.cat([
             params["trans"].reshape(3), params["quat"].reshape(4), loss.reshape(1),

@@ -20,8 +20,9 @@ reference process:
 
 Device work runs on the node's ``device`` (default ``"cuda"``); the bus
 carries numpy clouds, paths and poses, and on-card images. The HPR options
-(``use_hpr``, ``use_soft_hpr``, ``hpr_backend`` other than ``"none"``) raise
-until ``ops/hpr.py`` is ported (ROADMAP.md Q1 item 9).
+(``use_hpr``, ``use_soft_hpr``, ``hpr_backend``) run through ``ops/hpr.py``;
+soft HPR above ``soft_hpr_dense_max`` points raises (the direction-binned
+tier is not ported).
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ from trajectory_optimization_tpu_torch.ops.geometry import (
     frustum_cull,
     to_camera_frame,
 )
+from trajectory_optimization_tpu_torch.ops.hpr import hpr_mask_approx, hpr_points_exact
 from trajectory_optimization_tpu_torch.ops.tile_render import (
     RUN_PATH_MAX_ENTRIES,
     render_point_cloud_tiles,
@@ -69,15 +71,9 @@ from trajectory_optimization_tpu_torch.utils.config import (
     TrajOptNodeConfig,
     VoxelFilterConfig,
 )
-from trajectory_optimization_tpu_torch.utils.data import pad_points
+from trajectory_optimization_tpu_torch.utils.data import bucket_size, pad_points
 from trajectory_optimization_tpu_torch.utils.intrinsics import CameraIntrinsics, default_intrinsics
 from trajectory_optimization_tpu_torch.utils.profiling import Metrics
-
-
-def _hpr_not_ported(what: str):
-    return NotImplementedError(
-        f"{what}: HPR (ops/hpr.py) is not ported yet (ROADMAP.md Q1 item 9)"
-    )
 
 
 def _to_host_async(t: torch.Tensor):
@@ -111,8 +107,6 @@ class TrajOptNode:
         intrinsics: Optional[CameraIntrinsics] = None,
         device="cuda",
     ):
-        if cfg.use_soft_hpr:
-            raise _hpr_not_ported("TrajOptNodeConfig(use_soft_hpr=True)")
         self.bus = bus
         self.cfg = cfg
         self.intr = intrinsics or default_intrinsics()
@@ -240,8 +234,6 @@ class PoseOptNode:
         intrinsics: Optional[CameraIntrinsics] = None,
         device="cuda",
     ):
-        if cfg.use_hpr or cfg.use_soft_hpr:
-            raise _hpr_not_ported("PoseOptNodeConfig(use_hpr=True / use_soft_hpr=True)")
         self.bus = bus
         self.cfg = cfg
         self.intr = intrinsics or default_intrinsics()
@@ -268,6 +260,10 @@ class PoseOptNode:
         P = torch.as_tensor(points, device=dev)
         V = torch.as_tensor(valid, device=dev)
         K = self.intr.matrix(device=dev)
+        # the reference recomputes HPR on detached world points every step
+        # (`src/model.py:112-115`), a constant: once here, on the
+        # bucket-padded cloud (valid-masked)
+        occlusion = hpr_mask_approx(P, valid=V) if cfg.use_hpr else None
 
         seg = max(cfg.opt_steps // cfg.num_pub_samples, 1)
         opt_cfg = OptimizerConfig(lr_pose=cfg.lr_pose, lr_quat=cfg.lr_quat)
@@ -292,12 +288,12 @@ class PoseOptNode:
             pend.append(_to_host_async(torch.cat(leaves)))
 
         while done + seg <= cfg.opt_steps:
-            params, opt_state, loss, aux = advance(params, opt_state, P, V, K)
+            params, opt_state, loss, aux = advance(params, opt_state, P, V, K, occlusion)
             done += seg
             _enqueue(params, aux)
         if done < cfg.opt_steps:  # exact step-count parity for the remainder
             _, advance_rem = pose_runner(problem, opt_cfg, cfg.opt_steps - done)
-            params, opt_state, loss, aux = advance_rem(params, opt_state, P, V, K)
+            params, opt_state, loss, aux = advance_rem(params, opt_state, P, V, K, occlusion)
             done = cfg.opt_steps
             _enqueue(params, aux)
         for fetch in pend:
@@ -354,11 +350,31 @@ def _rig_cull_and_transform(pts, valid, Q, T, K, *, img_w, img_h, min_dist, max_
     return masks & (valid[None, :] > 0), cam
 
 
+def _hpr_masks_rig(culled_list, device) -> list:
+    """Approx-HPR masks for a whole rig in one batched pursuit: every
+    camera's culled subset padded to one bucket (valid-masked, as the JAX
+    twin pads it), a leading camera axis, and one device-to-host copy of the
+    (C, bucket) masks. One camera's is the JAX twin's
+    ``_hpr_mask_bucketed``."""
+    sizes = [len(c) for c in culled_list]
+    if max(sizes, default=0) == 0:
+        return [np.zeros(0, bool) for _ in culled_list]
+    bucket = bucket_size(max(sizes))
+    padded, valids = zip(*(pad_points(c.astype(np.float32), target=bucket)
+                           for c in culled_list))
+    masks = hpr_mask_approx(torch.as_tensor(np.stack(padded), device=device),
+                            valid=torch.as_tensor(np.stack(valids), device=device))
+    masks = masks.cpu().numpy()
+    return [masks[i, : sizes[i]] > 0.5 for i in range(len(culled_list))]
+
+
 class PointsProcessorNode:
     """Multi-camera visibility processor (`src/pc_processor.py:30-197`).
 
-    Only ``hpr_backend="none"`` is ported; the approximate and exact
-    hidden-point-removal backends come with ``ops/hpr.py``.
+    ``hpr_backend`` picks the visible subset of each camera's culled points:
+    ``"approx"`` (the default: ``hpr_mask_approx`` on the node's device,
+    one batched pursuit per rig), ``"exact"`` (Qhull on the host) or
+    ``"none"`` (every culled point).
     """
 
     def __init__(
@@ -368,11 +384,6 @@ class PointsProcessorNode:
         frames: Optional[FrameGraph] = None,
         device="cuda",
     ):
-        if cfg.hpr_backend != "none":
-            raise NotImplementedError(
-                f"hpr_backend={cfg.hpr_backend!r} is not ported yet (ROADMAP.md Q1 item 9: "
-                "ops/hpr.py); the port's PointsProcessorNode takes hpr_backend='none'"
-            )
         self.bus = bus
         self.cfg = cfg
         self.device = torch.device(device)
@@ -450,7 +461,12 @@ class PointsProcessorNode:
         culled = compact_masked(cam_pts, mask)
         out_topic = f"/{cam_frame}/pointcloud"
         self.bus.publish(out_topic, CloudMsg(Header.make(cam_frame), culled))
-        visible = culled  # hpr_backend == "none"
+        if self.cfg.hpr_backend == "exact":
+            visible, _ = hpr_points_exact(culled)
+        elif self.cfg.hpr_backend == "approx":
+            visible = culled[_hpr_masks_rig([culled], self.device)[0]]
+        else:
+            visible = culled
         self.bus.publish(out_topic + "_visible", CloudMsg(Header.make(cam_frame), visible))
 
         if self.cfg.render and len(visible):
@@ -518,13 +534,20 @@ class PointsProcessorNode:
         culled_all = [
             compact_masked(host[c, :n, :3], host[c, :n, 3] > 0) for c in range(len(infos))
         ]
+        if self.cfg.hpr_backend == "approx":
+            hpr_masks = _hpr_masks_rig(culled_all, dev)  # one batched HPR for the rig
         out = {}
         dropped = []  # device scalars; ONE batched fetch below
         for c, info in enumerate(infos):
             cam_frame = info.header.frame_id
             culled = culled_all[c]
             self.bus.publish(f"/{cam_frame}/pointcloud", CloudMsg(Header.make(cam_frame), culled))
-            visible = culled  # hpr_backend == "none"
+            if self.cfg.hpr_backend == "exact":
+                visible, _ = hpr_points_exact(culled)
+            elif self.cfg.hpr_backend == "approx" and len(culled):
+                visible = culled[hpr_masks[c]]
+            else:
+                visible = culled
             self.bus.publish(
                 f"/{cam_frame}/pointcloud_visible", CloudMsg(Header.make(cam_frame), visible)
             )

@@ -8,8 +8,9 @@ Pallas kernel, so this model has no kernel of its own.
 
 Occlusion gating takes a precomputed per-point ``occlusion_mask`` (the
 reference recomputes Katz HPR on detached world-frame points every step, a
-constant). The differentiable HPR inside the loss (``soft_hpr=True``) is not
-ported yet (ROADMAP.md Q1 item 9).
+constant). ``soft_hpr=True`` instead gates the score with the differentiable
+``ops.hpr.hpr_mask_soft`` on the camera-frame points, inside the loss; above
+``soft_hpr_dense_max`` points it raises (the binned tier is not ported).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from trajectory_optimization_tpu_torch.models.traj import gated_waypoint_scores
 from trajectory_optimization_tpu_torch.ops.scores import waypoint_scores
 
 Params = Dict[str, torch.Tensor]
@@ -28,7 +30,9 @@ Params = Dict[str, torch.Tensor]
 class PoseProblem:
     """Static (hashable) problem description for a single-pose optimization.
     The fields, their order and their defaults are the JAX twin's; the three
-    knobs after ``soft_hpr`` are read with ``soft_hpr=True`` only."""
+    knobs after ``soft_hpr`` are read with ``soft_hpr=True`` only, and of
+    them only ``soft_hpr_dense_max`` (the binned tier's ``hpr_cap`` and
+    ``hpr_safety`` are not ported)."""
 
     img_width: float
     img_height: float
@@ -75,14 +79,13 @@ def pose_forward(
       reference's rewards-cloud intensity channel).
     """
     if problem.soft_hpr:
-        raise NotImplementedError(
-            "PoseProblem(soft_hpr=True): the differentiable HPR inside the loss "
-            "(ops/hpr.py) is not ported yet (ROADMAP.md Q1 item 9)"
-        )
-    mask = waypoint_scores(
-        points, params["quat"], params["trans"], K, problem.img_width, problem.img_height,
-        min_dist=problem.min_dist, max_dist=problem.max_dist, eps=problem.eps,
-    )[0]
+        mask = gated_waypoint_scores(params["quat"][0], params["trans"][0], points, K, problem,
+                                     valid)
+    else:
+        mask = waypoint_scores(
+            points, params["quat"], params["trans"], K, problem.img_width, problem.img_height,
+            min_dist=problem.min_dist, max_dist=problem.max_dist, eps=problem.eps,
+        )[0]
     if occlusion_mask is not None:
         mask = occlusion_mask * mask
     if valid is not None:

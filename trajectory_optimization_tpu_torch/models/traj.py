@@ -20,11 +20,15 @@ autodiff path, the twin of the JAX package's XLA path (like it, it
 rematerialises its (W, N) intermediates in the backward pass instead of
 saving them); ``"auto"`` picks ``"kernel"`` for CUDA tensors and ``"torch"``
 for CPU tensors. The JAX package's names ``"pallas"`` and ``"xla"`` are
-accepted for ``"kernel"`` and ``"torch"``.
+accepted for ``"kernel"`` and ``"torch"``. ``soft_hpr=True`` takes the
+occlusion-aware path whatever the backend (the fused kernels have no
+occlusion input): each selected waypoint's scores are gated by the dense
+soft HPR on its own camera-frame cloud, one checkpointed waypoint at a time.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -32,8 +36,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from trajectory_optimization_tpu_torch.ops.fused_vis import fused_lo_sum
+from trajectory_optimization_tpu_torch.ops.hpr import soft_hpr_gate
 from trajectory_optimization_tpu_torch.ops.numerics import safe_norm
-from trajectory_optimization_tpu_torch.ops.scores import waypoint_scores
+from trajectory_optimization_tpu_torch.ops.scores import (
+    camera_planes,
+    scores_from_planes,
+    waypoint_scores,
+)
 from trajectory_optimization_tpu_torch.ops.trajectory import mean_segment_angle, polyline_length
 
 Params = Dict[str, torch.Tensor]
@@ -55,9 +64,11 @@ class TrajProblem:
     eps: float = 1e-6
     wps_step: int = 1  # evaluate visibility at every wps_step-th waypoint
     backend: str = "auto"  # one of BACKENDS, or a key of BACKEND_ALIASES
-    # Differentiable Katz occlusion inside the loss: not ported yet. Its three
-    # knobs are the JAX package's fields with its defaults, so that a caller
-    # who sets them builds the same problem; they are read with soft_hpr only.
+    # Differentiable Katz occlusion inside the loss, per selected waypoint on
+    # its camera-frame cloud (dense soft HPR up to soft_hpr_dense_max points;
+    # the binned tier above it is not ported and raises). hpr_cap and
+    # hpr_safety are the binned tier's knobs, kept with the JAX defaults so
+    # that a caller's keywords build either package's problem.
     soft_hpr: bool = False
     soft_hpr_dense_max: int = 32768
     hpr_cap: int = 512
@@ -115,15 +126,21 @@ def logodds_from_minmax(p, pmin, pmax, eps: float) -> torch.Tensor:
 
 
 def _resolve_backend(problem: TrajProblem, points: torch.Tensor) -> str:
-    if problem.soft_hpr:
-        raise NotImplementedError(
-            "TrajProblem(soft_hpr=True): the differentiable HPR inside the loss "
-            "(ops/hpr.py) is not ported yet (ROADMAP.md Q1 item 9)"
-        )
+    """The path ``traj_forward`` takes: "kernel", "torch" or, with
+    ``soft_hpr``, "torch_hpr" (the twin of the JAX package's "xla_hpr")."""
     backend = BACKEND_ALIASES.get(problem.backend, problem.backend)
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS + tuple(BACKEND_ALIASES)}, "
                          f"got {problem.backend!r}")
+    if problem.soft_hpr:
+        if backend == "kernel":
+            warnings.warn(
+                f"TrajProblem(backend={problem.backend!r}, soft_hpr=True): soft HPR needs the "
+                "plain scores path (the fused kernels have no occlusion input); the explicit "
+                "kernel backend request is ignored.",
+                stacklevel=3,
+            )
+        return "torch_hpr"
     if backend == "auto":
         return "kernel" if points.is_cuda else "torch"
     return backend
@@ -136,6 +153,30 @@ def plain_lo_sum(points, quats_sel, poses_sel, K, problem: TrajProblem, valid=No
         min_dist=problem.min_dist, max_dist=problem.max_dist, eps=problem.eps,
     )  # (W_sel, N)
     return torch.sum(observation_logodds(p, problem.eps, valid), dim=0)
+
+
+def gated_waypoint_scores(quat, pose, points, K, problem, valid=None) -> torch.Tensor:
+    """One waypoint's occlusion-gated raw scores, (N,) hpr × score: one
+    world-to-camera transform feeds both the score and the soft HPR of the
+    waypoint's camera-frame cloud. ``problem`` is duck-typed (img_width,
+    img_height, min_dist, max_dist, eps, soft_hpr_dense_max): the trajectory
+    and the pose losses both gate through here."""
+    cx, cy, cz = camera_planes(points, quat[None], pose[None])
+    p = scores_from_planes(
+        cx, cy, cz, K, problem.img_width, problem.img_height,
+        min_dist=problem.min_dist, max_dist=problem.max_dist, eps=problem.eps,
+    )[0]
+    cam = torch.stack([cx[0], cy[0], cz[0]], dim=-1)
+    return soft_hpr_gate(cam, valid, problem.soft_hpr_dense_max,
+                         f"{type(problem).__name__}(soft_hpr=True)") * p
+
+
+def soft_hpr_wp_logodds(quat, pose, points, K, problem: TrajProblem, valid=None):
+    """One waypoint's occlusion-gated (N,) log-odds: ``gated_waypoint_scores``
+    min-max normalized over the valid points and clipped. Occluded points
+    fall below the 0.5 clip and add nothing."""
+    gated = gated_waypoint_scores(quat, pose, points, K, problem, valid)
+    return observation_logodds(gated[None], problem.eps, valid)[0]
 
 
 def traj_forward(
@@ -166,7 +207,16 @@ def traj_forward(
     """
     poses, quats = params["poses"], params["quats"]
     sel = slice(None, None, problem.wps_step)
-    if _resolve_backend(problem, points) == "kernel":
+    backend = _resolve_backend(problem, points)
+    if backend == "torch_hpr":
+        # One checkpointed waypoint at a time, summed as the JAX twin's scan
+        # sums: the backward recomputes each waypoint's gate, so the live set
+        # stays O(N) whatever the number of waypoints.
+        lo_sum = torch.zeros(points.shape[0], dtype=points.dtype, device=points.device)
+        for quat, pose in zip(quats[sel], poses[sel]):
+            lo_sum = lo_sum + checkpoint(soft_hpr_wp_logodds, quat, pose, points, K, problem,
+                                         valid, use_reentrant=False, preserve_rng_state=False)
+    elif backend == "kernel":
         lo_sum = fused_lo_sum(
             points, quats[sel], poses[sel], K, problem.img_width, problem.img_height,
             min_dist=problem.min_dist, max_dist=problem.max_dist, eps=problem.eps,
