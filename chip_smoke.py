@@ -106,6 +106,20 @@ Phases, each printing one line (any failure raises and exits non-zero):
    step, visibility gain > 1) and ``evaluate`` of the result; one step of
    each, loss and gradients, against the same step on the CPU within 2e-3
    of the largest entry (the trajectory's on path 10's first 3 waypoints).
+   The direction-binned soft tier (``hpr_mask_soft_binned``): the mask on
+   cloud 10 from path 10's waypoint 9, on its 16,384-point rng(0) subsample
+   against Qhull (precision >= 0.86, recall >= 0.93, agreement >= 0.93,
+   tests/test_hpr.py's pins) and on the full cloud against the same call on
+   the CPU (99.8% within 3e-3, the 0.5 threshold on 99.9%);
+   ``PoseOptimizer(soft_hpr=True)`` on bench.py's cloud at 262,144 points (5
+   steps) and 1,048,576 (2 steps), loss below the start;
+   ``TrajectoryOptimizer(soft_hpr=True)`` on the full cloud 10 with path 10
+   (14 waypoints, cap 512) for 10 steps, one step in f32 on the card and on
+   the CPU against the card's float64 step (1e-2 of the largest entry);
+   ``optimize_waypoints`` at the demo's defaults
+   (100 steps, every per-waypoint gain >= 1, mean > 1) and 3 steps with soft
+   HPR; the distance-reward model and the finite-difference pose loss
+   against the CPU (rtol 1e-4 and 2e-3; counts equal).
 9. times — per-stage and per-step ms, kernel and plain, peak memory, and
    the device's busy share of a step from a 20-step ``torch.profiler`` trace;
    K6/K7 ms through the wrapper and the kernel alone (``torch.profiler``)
@@ -119,7 +133,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
    at "approx", "exact" and "none", the pursuit on the full cloud 10,
    ``PoseOptimizer(use_hpr=True)`` ms/step, soft pose and trajectory
    ms/step with peak memory and the soft dominance tile's share of a traced
-   step, each loop beside a bound from the pairs it touches.
+   step, each loop beside a bound from the pairs it touches; the binned
+   tier's mask ms, soft pose ms/step at both sizes, trajectory and
+   waypoints ms/step, peak memory and the binned tiles' share of a traced
+   call, each beside a bound from its tiles' pairs.
 
 The line before the last is the kernels' JSON record (all nine kernels, each
 with its bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -360,6 +377,18 @@ NODE_TOL = 1e-3
 # recomputed) and backward once.
 HPR_SWEEP_OPS = 8
 SOFT_OPS = {"forward": 13, "backward": 38}
+# The direction-binned soft tier (hpr_mask_soft_binned) per (query, coverer)
+# pair of its tiles: 13 forward (cos 5, max(cos, 0), × ρ, the mask's select,
+# × β, the row max, subtraction, exp and sum) and 34 backward (the forward's
+# 9 again, subtraction, exp, the weight's scale and mask 4, ∂ρ 3, the
+# tie-aware derivative 4, × ρ·h 2, the two 3-term products 12). Its pairs
+# are the tiles' (4 grids × tiles × cap²), counted on this run's inputs by
+# binned_pairs.
+BINNED_OPS = {"forward": 13, "backward": 34}
+# (points, timed steps) of the soft pose step on bench.py's cloud, and the
+# waypoints optimization's steps (the demo's default)
+BINNED_POSE = ((262_144, 5), (1_048_576, 2))
+WPS_STEPS = 100
 SOFT_LEAF = 0.15  # voxels_filtering.launch's leaf: cloud 10 -> 23,288 centroids
 # Soft HPR, one step on the card against the same step on the CPU: the
 # largest error within 2e-3 of the largest entry, the port's gradient pin
@@ -368,6 +397,15 @@ SOFT_LEAF = 0.15  # voxels_filtering.launch's leaf: cloud 10 -> 23,288 centroids
 # and the pose gradient's translation moved 1.5e-3 of its largest entry
 # between card and CPU (NVIDIA H100 80GB HBM3, 700 W).
 HPR_TOL = 2e-3
+# The binned tier's trajectory step, f32 on the card and on the CPU, against
+# the same step in float64 on the card: the largest error within 1e-2 of the
+# largest entry. One f32 step's quaternion gradient on cloud 10 came 5.8e-3
+# of its largest entry from float64 on the card and 2.8e-4 on the CPU, the
+# float64 runs of both equal to 1e-13; with the gate alone in float64 the
+# card's error fell to 3.8e-6 (NVIDIA H100 80GB HBM3, 700 W). The JAX twin's
+# own f32 gradient is up to 1.4e-2 of its largest entry from float64 on the
+# planar scenes of tests/test_hpr.py.
+BINNED_TOL = 1e-2
 
 
 def splat_work(offsets, entries, use_runs: bool, tiles_y: int, tiles_x: int):
@@ -1152,6 +1190,285 @@ def hpr_checks(dev, intr, cloud10, path10, sync, cuda_ms):
           f"{[f'{e:.2e}' for e in res['soft_traj_vs_cpu']]} (pin {HPR_TOL})", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    res["binned"] = binned_checks(dev, intr, cloud10, path10, sync, cuda_ms)
+    return res
+
+
+def binned_pairs(cams, valid=None, cap: int = 1024, safety: float = 3.0) -> int:
+    """(query, coverer) pairs that ``hpr_mask_soft_binned`` computes on each
+    (N, 3) cloud of ``cams``, summed: 4 grids × the tiles of their non-empty
+    bins × cap², from the same bin keys on these inputs."""
+    import torch
+
+    from trajectory_optimization_tpu_torch.ops import hpr
+
+    pairs = 0
+    v = None if valid is None else valid > 0
+    for P in cams:
+        n = P.shape[0]
+        c = min(cap, n)
+        norms = hpr.safe_norm(P, dim=-1)
+        norms_v = norms if v is None else torch.where(v, norms, torch.zeros_like(norms))
+        scale = torch.clamp(torch.amax(norms_v), min=1e-6)
+        lat, az = hpr._direction_angles(P / torch.clamp(norms, min=1e-12)[:, None])
+        for grid in hpr._binned_grids(2.0, 0.02, safety)[1]:
+            key, fb, nb = hpr._grid_bin_key(grid, lat, az, norms, scale, v)
+            counts = torch.bincount((key >> fb).long(), minlength=nb + 1)[:nb]
+            pairs += int(((counts + c - 1) // c).sum()) * c * c
+    return pairs
+
+
+def binned_checks(dev, intr, cloud10, path10, sync, cuda_ms):
+    """[hpr], the direction-binned soft tier: the mask on the full cloud 10
+    from path 10's waypoint 9 against Qhull (tests/test_hpr.py's operating
+    point pins on its 16,384-point subsample) and against the same call on
+    the CPU; ``PoseOptimizer(soft_hpr=True)`` at bench.py's 262,144-point
+    cloud and at 1,048,576 points; ``TrajectoryOptimizer(soft_hpr=True)`` on
+    the full cloud 10 with path 10 (one step against the CPU); the waypoints
+    optimization at the demo's defaults, plain and with soft HPR; the two
+    notebook variants against the CPU. Returns the numbers for [times]."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from trajectory_optimization_tpu_torch.api import PoseOptimizer, TrajectoryOptimizer
+    from trajectory_optimization_tpu_torch.models import distance_reward as dr
+    from trajectory_optimization_tpu_torch.models import frustum_fd as ffd
+    from trajectory_optimization_tpu_torch.models.traj import (
+        TrajProblem, init_traj_params, traj_forward, waypoint_stride,
+    )
+    from trajectory_optimization_tpu_torch.models.wps_opt import WpsOptProblem, optimize_waypoints
+    from trajectory_optimization_tpu_torch.ops import hpr
+    from trajectory_optimization_tpu_torch.ops.scores import camera_planes
+    from trajectory_optimization_tpu_torch.utils.data import identity_quaternions, pad_points
+
+    res = {}
+
+    def cams_of(P, poses, quats):
+        out = []
+        for t, q in zip(poses, quats):
+            cx, cy, cz = camera_planes(P, torch.as_tensor(q, dtype=torch.float32,
+                                                          device=P.device)[None],
+                                       torch.as_tensor(t, dtype=torch.float32,
+                                                       device=P.device)[None])
+            out.append(torch.stack([cx[0], cy[0], cz[0]], dim=-1))
+        return out
+
+    # ---- the mask: cloud 10 from waypoint 9, against Qhull and the CPU -----
+    cam = (cloud10 - path10[9]).astype(np.float32)
+    sub = cam[np.random.default_rng(0).permutation(len(cam))[:16384]]
+    truth = hpr.hpr_mask_exact(sub)
+    vis = hpr.hpr_mask_soft_binned(torch.as_tensor(sub, device=dev)).cpu().numpy() > 0.5
+    tp = int((vis & truth).sum())
+    precision, recall = tp / max(int(vis.sum()), 1), tp / max(int(truth.sum()), 1)
+    agree = float((vis == truth).mean())
+    if not (recall >= 0.93 and precision >= 0.86 and agree >= 0.93):
+        fail(f"hpr_mask_soft_binned on cloud 10's 16,384-point subsample from waypoint 9: "
+             f"precision {precision:.4f}, recall {recall:.4f}, agreement {agree:.4f} (pins 0.86, "
+             f"0.93, 0.93)")
+    padded, valid = pad_points(cam)
+    P, V = torch.as_tensor(padded, device=dev), torch.as_tensor(valid, device=dev)
+    card_mask = hpr.hpr_mask_soft_binned(P, valid=V)
+    if not bool(torch.isfinite(card_mask).all()):
+        fail("hpr_mask_soft_binned on the card: non-finite mask")
+    card_mask = card_mask.cpu().numpy()[: len(cam)]
+    cpu_mask = hpr.hpr_mask_soft_binned(P.cpu(), valid=V.cpu()).numpy()[: len(cam)]
+    d = np.abs(card_mask - cpu_mask)
+    within, thr = float((d <= 3e-3).mean()), float(((card_mask > 0.5) == (cpu_mask > 0.5)).mean())
+    if not (within >= 0.998 and thr > 0.999):
+        fail(f"hpr_mask_soft_binned card vs CPU on cloud 10: {within:.5f} of points within 3e-3 "
+             f"(pin 0.998), threshold agreement {thr:.5f} (pin 0.999)")
+    res["mask"] = {"n": len(cam), "padded": len(padded), "precision": precision,
+                   "recall": recall, "agreement": agree, "card_vs_cpu_within": within,
+                   "card_vs_cpu_threshold": thr, "max_abs_err": float(d.max()),
+                   "ms": cuda_ms(lambda: hpr.hpr_mask_soft_binned(P, valid=V), 2),
+                   "pairs": binned_pairs([P], V),
+                   "trace": traced_share(lambda: hpr.hpr_mask_soft_binned(P, valid=V), sync,
+                                         hpr.SOFT_BINNED_RANGE)}
+    print(f"[hpr] hpr_mask_soft_binned on the card, cloud 10 from path 10's waypoint 9: on its "
+          f"16,384-point rng(0) subsample against Qhull precision {precision:.4f}, recall "
+          f"{recall:.4f}, agreement {agree:.4f} (pins 0.86, 0.93, 0.93); the full cloud "
+          f"({len(cam)} padded to {len(padded)}) against the same call on the CPU: {within:.5f} "
+          f"of points within 3e-3, the 0.5 threshold agreeing on {thr:.5f} (pins 0.998, 0.999), "
+          f"max |diff| {d.max():.2e}; {res['mask']['ms']:.3f} ms, "
+          f"{res['mask']['pairs']:.4e} pairs", flush=True)
+    del P, V
+
+    # ---- soft pose steps at 262,144 and 1,048,576 points -------------------
+    res["pose"] = {}
+    for n, steps in BINNED_POSE:
+        rng = np.random.default_rng(0)
+        pts = (rng.normal(size=(n, 3)).astype(np.float32) * [6, 6, 2] + [5, 0, 1]).astype(np.float32)
+        opt = PoseOptimizer(device=dev, soft_hpr=True, lr_pose=0.02, lr_quat=0.02)
+        r0 = opt.optimize(pts, [0.0, 0.0, 0.0], n_steps=0)
+        opt.optimize(pts, [0.0, 0.0, 0.0], n_steps=1)  # warm-up
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = opt.optimize(pts, [0.0, 0.0, 0.0], n_steps=steps)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        if not (np.all(np.isfinite(r.position)) and np.isfinite(r.loss) and r.loss < r0.loss):
+            fail(f"PoseOptimizer(soft_hpr=True) at {n} points, {steps} steps: loss {r.loss} "
+                 f"from {r0.loss}")
+        Pd = torch.as_tensor(pts, device=dev)
+        entry = {"steps": steps, "ms_per_step": ms, "peak_mib": peak, "loss": (r0.loss, r.loss),
+                 "pairs": binned_pairs([Pd])}
+        if n == BINNED_POSE[0][0]:
+            entry["trace"] = traced_share(
+                lambda: opt.optimize(pts, [0.0, 0.0, 0.0], n_steps=1), sync,
+                hpr.SOFT_BINNED_RANGE)
+        res["pose"][n] = entry
+        print(f"[hpr] PoseOptimizer(soft_hpr=True) on bench.py's cloud (rng(0) normal x [6, 6, 2] "
+              f"+ [5, 0, 1]) at {n} points, camera at the origin: binned (cap 1024), {steps} "
+              f"steps after a warm-up, {ms:.3f} ms/step, peak {peak:.1f} MiB, loss "
+              f"{r0.loss:.6f} -> {r.loss:.6f}", flush=True)
+        del Pd, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- soft trajectory on the full cloud 10 ------------------------------
+    stride = waypoint_stride(path10, 0.5)
+    topt = TrajectoryOptimizer(device=dev, soft_hpr=True, lr_pose=0.1, lr_quat=0.02)
+    loss1 = topt.optimize(cloud10, path10, n_steps=1).loss  # and a warm-up
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = topt.optimize(cloud10, path10, n_steps=10)
+    sync()
+    traj_ms = (time.perf_counter() - t0) * 1e3 / 10
+    traj_peak = torch.cuda.max_memory_allocated() / 2**20
+    if not (np.all(np.isfinite(tr.poses)) and np.isfinite(tr.loss) and tr.n_iters == 10
+            and tr.loss < loss1 and np.all(np.isfinite(tr.rewards))):
+        fail(f"TrajectoryOptimizer(soft_hpr=True) on cloud 10, 10 steps: loss {tr.loss} (after "
+             f"1 step {loss1}), {tr.n_iters} steps")
+    padded, valid = pad_points(cloud10)
+
+    def traj_step(device, path, dtype=torch.float32):
+        Pd = torch.as_tensor(padded, device=device, dtype=dtype)
+        Vd = torch.as_tensor(valid, device=device, dtype=dtype)
+        q0 = identity_quaternions(len(path))
+        prob = TrajProblem(intr.width, intr.height, wps_step=stride, soft_hpr=True)
+        params = {k: v.to(dtype).requires_grad_(True)
+                  for k, v in init_traj_params(path, q0, device).items()}
+        loss, _ = traj_forward(params, Pd, intr.matrix(device=device, dtype=dtype),
+                               torch.as_tensor(path, device=device, dtype=dtype),
+                               torch.as_tensor(q0, device=device, dtype=dtype), prob, valid=Vd)
+        loss.backward()
+        return [x.cpu().double() for x in [loss.detach()] + [params[k].grad
+                                                             for k in ("poses", "quats")]]
+
+    def rel_errs(xs, ys):
+        return [float((x - y).abs().max()) / float(y.abs().max()) for x, y in zip(xs, ys)]
+
+    # the card's and the CPU's f32 step, each against the card's float64
+    # evaluation of the same step (BINNED_TOL), and against each other
+    card32, cpu32 = traj_step(dev, path10[:3]), traj_step("cpu", path10[:3])
+    card64 = traj_step(dev, path10[:3], torch.float64)
+    errs = {"card_vs_cpu": rel_errs(card32, cpu32), "card_vs_f64": rel_errs(card32, card64),
+            "cpu_vs_f64": rel_errs(cpu32, card64)}
+    if not (all(bool(torch.isfinite(x).all()) for x in card32)
+            and max(errs["card_vs_f64"] + errs["cpu_vs_f64"]) <= BINNED_TOL):
+        fail(f"soft traj step on cloud 10 (path 10's first 3 waypoints): relative max |err| "
+             f"(loss, poses, quats) {errs} (pin {BINNED_TOL} against the float64 step)")
+    Pd = torch.as_tensor(padded, device=dev)
+    wps = path10[::stride]
+    res["traj"] = {"waypoints": len(wps), "ms_per_step": traj_ms, "peak_mib": traj_peak,
+                   "loss": (loss1, tr.loss), "visibility_gain": tr.visibility_gain,
+                   "vs_cpu": errs,
+                   "pairs": binned_pairs(cams_of(Pd, wps, identity_quaternions(len(wps))),
+                                         torch.as_tensor(valid, device=dev), cap=512),
+                   "trace": traced_share(lambda: traj_step(dev, path10), sync,
+                                         hpr.SOFT_BINNED_RANGE)}
+    del Pd
+    print(f"[hpr] TrajectoryOptimizer(soft_hpr=True) on the full cloud 10 ({len(cloud10)} points "
+          f"padded to {len(padded)}: binned, cap 512) with path 10 ({len(wps)} waypoints at "
+          f"stride {stride}): 10 steps {traj_ms:.3f} ms/step, peak {traj_peak:.1f} MiB, loss "
+          f"after 1 step {loss1:.6f}, after 10 {tr.loss:.6f}, visibility gain "
+          f"{tr.visibility_gain:.4f}; one step of path 10's first 3 waypoints, relative max "
+          f"|err| loss, poses, quats: " + "; ".join(
+              f"{k.replace('_', ' ')} {[f'{e:.2e}' for e in v]}" for k, v in errs.items())
+          + f" (pin {BINNED_TOL} against float64)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- waypoints optimization at the demo's defaults ---------------------
+    q_id = identity_quaternions(len(path10))
+    K = intr.matrix_np()
+    prob = WpsOptProblem(img_width=intr.width, img_height=intr.height)
+    optimize_waypoints(cloud10, path10, q_id, K, prob, n_steps=5, device=dev)  # warm-up
+    sync()
+    t0 = time.perf_counter()
+    trans, quats, aux = optimize_waypoints(cloud10, path10, q_id, K, prob, n_steps=WPS_STEPS,
+                                           lr_xy=0.02, lr_yaw=0.02, device=dev)
+    sync()
+    wps_s = time.perf_counter() - t0
+    gains = (aux["losses0"] / torch.clamp(aux["losses"], min=1e-12)).cpu().numpy()
+    if not (np.all(np.isfinite(gains)) and gains.min() >= 1.0 and gains.mean() > 1.0
+            and bool(torch.isfinite(trans).all()) and bool(torch.isfinite(quats).all())):
+        fail(f"optimize_waypoints on cloud 10, {WPS_STEPS} steps: per-waypoint gains {gains.tolist()} "
+             f"(every gain >= 1, mean > 1)")
+    soft = WpsOptProblem(img_width=intr.width, img_height=intr.height, soft_hpr=True)
+    sync()
+    t0 = time.perf_counter()
+    strans, _, saux = optimize_waypoints(cloud10, path10, q_id, K, soft, n_steps=3, device=dev)
+    sync()
+    soft_ms = (time.perf_counter() - t0) * 1e3 / 3
+    if not (bool(torch.isfinite(strans).all()) and bool(torch.isfinite(saux["losses"]).all())):
+        fail("optimize_waypoints(soft_hpr=True) on cloud 10, 3 steps: non-finite result")
+    Pd = torch.as_tensor(cloud10, device=dev)
+    res["wps"] = {"steps_per_s": WPS_STEPS / wps_s, "gains": gains.tolist(),
+                  "soft_ms_per_step": soft_ms, "soft_gains": (
+                      saux["losses0"] / saux["losses"]).cpu().numpy().tolist(),
+                  "soft_pairs": binned_pairs(cams_of(Pd, path10, q_id))}
+    del Pd
+    print(f"[hpr] optimize_waypoints on cloud 10 + path 10 ({len(path10)} waypoints, "
+          f"{WPS_STEPS} steps (the demo's), lr 0.02/0.02): {WPS_STEPS / wps_s:.2f} steps/s, "
+          f"per-waypoint visibility gains "
+          f"min {gains.min():.4f}, mean {gains.mean():.4f}, max {gains.max():.4f} (every gain "
+          f">= 1, mean > 1); with soft_hpr=True ({len(path10)} binned masks of {len(cloud10)} "
+          f"points per step, cap 1024) 3 steps at {soft_ms:.1f} ms/step", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the notebook variants, card against CPU ---------------------------
+    def dr_step(device):
+        params = {k: v.requires_grad_(True)
+                  for k, v in dr.init_distance_reward_params(path10, device).items()}
+        loss, aux = dr.distance_reward_forward(
+            params, torch.as_tensor(cloud10, device=device), intr.matrix(device=device),
+            torch.as_tensor(path10, device=device),
+            dr.DistanceRewardProblem(img_width=intr.width, img_height=intr.height))
+        loss.backward()
+        return (loss.detach().cpu().double(), params["traj"].grad.cpu().double(),
+                float(aux["mean_reward"].detach()))
+
+    (cl, cg, c_reward), (hl, hg, _) = dr_step(dev), dr_step("cpu")
+    dr_err = (float(abs(cl - hl) / abs(hl)), float((cg - hg).abs().max() / hg.abs().max()))
+    if not (torch.isfinite(cg).all() and dr_err[0] <= 1e-4 and dr_err[1] <= HPR_TOL):
+        fail(f"distance_reward_forward on cloud 10, card vs CPU: loss rel {dr_err[0]:.2e} "
+             f"(pin 1e-4), gradient {dr_err[1]:.2e} of its largest entry (pin {HPR_TOL})")
+    centered = (cloud10 - cloud10.mean(axis=0)).astype(np.float32)
+
+    def fd_step(device):
+        x = torch.tensor([10.0, 30.0, 10.0], device=device, requires_grad=True)
+        loss = ffd.fd_pose_loss(x, torch.as_tensor(centered, device=device))
+        loss.backward()
+        return loss.detach().cpu(), x.grad.cpu()
+
+    (fl, fg), (hfl, hfg) = fd_step(dev), fd_step("cpu")
+    if not (torch.equal(fl, hfl) and torch.equal(fg, hfg)):
+        fail(f"fd_pose_loss on cloud 10, card vs CPU: loss {float(fl)} vs {float(hfl)}, "
+             f"gradient {fg.tolist()} vs {hfg.tolist()} (count differences: equal)")
+    res["variants"] = {"distance_reward_vs_cpu": dr_err, "fd_loss": float(fl),
+                       "fd_grad": fg.tolist()}
+    print(f"[hpr] notebook variants on the card: distance_reward_forward on cloud 10 + path 10 "
+          f"loss {float(cl):.6f}, mean reward {c_reward:.6f}, against the CPU "
+          f"loss rel {dr_err[0]:.2e}, gradient {dr_err[1]:.2e} of its largest entry; "
+          f"fd_pose_loss at (10, 30, 10) on cloud 10 centred: loss {float(fl):.6e}, gradient "
+          f"{fg.tolist()} (from count differences), both equal to the CPU's", flush=True)
     return res
 
 
@@ -1193,6 +1510,43 @@ def print_hpr_times(card: str, hp) -> None:
                 f"the dominance tile {dom:.3f} ms ({100 * dom / busy:.1f}% of the busy time; "
                 f"bound {b[0]:.4f} ms by {b[1]})")
 
+    b = hp["binned"]
+    fwd, bwd = BINNED_OPS["forward"], BINNED_OPS["backward"]
+    hp["bounds"].update({
+        "binned_mask": bound(0, b["mask"]["pairs"] * fwd),
+        # a pose step runs the binned tiles forward and backward once; a
+        # trajectory or waypoints step twice forward (checkpointed) and once back
+        **{f"binned_pose_{n}": bound(0, e["pairs"] * (fwd + bwd)) for n, e in b["pose"].items()},
+        "binned_traj_step": bound(0, b["traj"]["pairs"] * (2 * fwd + bwd)),
+        "binned_wps_step": bound(0, b["wps"]["soft_pairs"] * (2 * fwd + bwd)),
+    })
+
+    def binned_share(t):
+        wall, busy, rng, n_ops = t
+        if busy is None:
+            return f"traced {wall:.2f} ms, device time not measured (no device activity)"
+        return (f"traced {wall:.2f} ms, {n_ops} device operations, device busy {busy:.3f} ms, "
+                f"the binned tiles {rng:.3f} ms ({100 * rng / busy:.1f}% of the busy time)")
+
+    bb = hp["bounds"]
+    print(f"[times] {card} | soft HPR binned: the mask on cloud 10 ({b['mask']['padded']} "
+          f"points) {b['mask']['ms']:.3f} ms, {b['mask']['pairs']:.4e} pairs, bound "
+          f"{bb['binned_mask'][0]:.4f} ms by {bb['binned_mask'][1]}, one call "
+          + binned_share(b["mask"]["trace"]) + "; PoseOptimizer(soft_hpr=True) "
+          + "; ".join(f"{n} points {e['ms_per_step']:.3f} ms/step over {e['steps']} steps, peak "
+                      f"{e['peak_mib']:.1f} MiB, {e['pairs']:.4e} pairs per mask, bound "
+                      f"{bb[f'binned_pose_{n}'][0]:.4f} ms by {bb[f'binned_pose_{n}'][1]}"
+                      for n, e in b["pose"].items())
+          + f", one step at {BINNED_POSE[0][0]} "
+          + binned_share(b["pose"][BINNED_POSE[0][0]]["trace"])
+          + f"; TrajectoryOptimizer(soft_hpr=True) cloud 10, {b['traj']['waypoints']} waypoints "
+          f"{b['traj']['ms_per_step']:.3f} ms/step, peak {b['traj']['peak_mib']:.1f} MiB, "
+          f"{b['traj']['pairs']:.4e} pairs per forward, bound {bb['binned_traj_step'][0]:.4f} ms "
+          f"by {bb['binned_traj_step'][1]}, one step " + binned_share(b["traj"]["trace"])
+          + f"; optimize_waypoints {b['wps']['steps_per_s']:.2f} steps/s plain, soft "
+          f"{b['wps']['soft_ms_per_step']:.1f} ms/step ({b['wps']['soft_pairs']:.4e} pairs per "
+          f"forward, bound {bb['binned_wps_step'][0]:.4f} ms by {bb['binned_wps_step'][1]})",
+          flush=True)
     print(f"[times] {card} | soft HPR dense ({hp['soft_n'][0]} points padded to "
           f"{hp['soft_n'][1]}): PoseOptimizer(soft_hpr=True) {hp['soft_pose_ms_per_step']:.3f} "
           f"ms/step, peak {hp['soft_pose_peak_mib']:.1f} MiB, one step "
@@ -1203,21 +1557,23 @@ def print_hpr_times(card: str, hp) -> None:
           flush=True)
 
 
-def traced_share(fn, sync):
+def traced_share(fn, sync, range_name=None):
     """(wall ms, device-busy ms, device ms of the kernels launched inside
-    ``ops.hpr``'s soft dominance ranges, device operations) of one traced
-    call; the device numbers are None when the trace holds no device
-    activity. A range is counted on its host side only: the trace also
-    holds its device-side annotation, which would count it twice."""
+    ``ops.hpr``'s profiler ranges named ``range_name`` (the soft dominance
+    tile's by default), device operations) of one traced call; the device
+    numbers are None when the trace holds no device activity. A range is
+    counted on its host side only: the trace also holds its device-side
+    annotation, which would count it twice."""
     import torch
 
     from trajectory_optimization_tpu_torch.ops.hpr import SOFT_DOMINANCE_RANGE
 
+    range_name = range_name or SOFT_DOMINANCE_RANGE
     prof, wall_ms, n_spans, busy_us = traced(fn, sync)
     if not n_spans:
         return wall_ms, None, None, None
     dom_us = sum(e.device_time_total for e in prof.events()
-                 if e.name == SOFT_DOMINANCE_RANGE
+                 if e.name == range_name
                  and e.device_type == torch.autograd.DeviceType.CPU)
     return wall_ms, busy_us / 1e3, dom_us / 1e3, n_spans
 

@@ -125,9 +125,34 @@ def test_evaluate_with_soft_hpr_raises(case):
         np.testing.assert_allclose(getattr(got, k), getattr(want, k), **GEOM)
 
 
-def test_evaluate_with_soft_hpr_above_the_dense_size_raises(case):
-    pts, poses, quats = case
-    prob = tt.TrajProblem(INTR.width, INTR.height, wps_step=9, soft_hpr=True,
-                          soft_hpr_dense_max=4096)
-    with pytest.raises(NotImplementedError, match="binned.*Q1 item 9"):
-        tev.evaluate_trajectory(pts, poses, quats, INTR.matrix_np(), prob, device="cpu")
+def test_evaluate_with_soft_hpr_above_the_dense_size_raises():
+    """Above a lowered soft_hpr_dense_max, where this raised before the
+    binned tier was ported, ``evaluate_trajectory`` runs the binned soft HPR
+    and matches the JAX evaluation: the room of tests/test_torch_hpr_binned.py
+    (3,681 points padded to 4,096), its path moved by seeded noise, every
+    third waypoint, cap 64. Rewards to the soft mask's spread (atol 5e-3),
+    the census to 0.5% of the points, as the dense case above."""
+    from test_torch_hpr_binned import assert_none_isolated, room_path, room_scene
+
+    real = room_scene()
+    pts, valid = pad_points(real, 4096)
+    path = room_path()
+    rng = np.random.default_rng(0)
+    poses = (path + rng.normal(scale=0.1, size=path.shape)).astype(np.float32)
+    quats = identity_quaternions(len(path))
+    quats[::3] = [0.9, 0.1, -0.3, 0.2]
+    assert_none_isolated(real, poses[::3], quats[::3])
+    kw = dict(wps_step=3, soft_hpr=True, soft_hpr_dense_max=2048, hpr_cap=64)
+    K = INTR.matrix_np()
+    want = jev.evaluate_trajectory(pts, poses, quats, K, jt.TrajProblem(INTR.width, INTR.height,
+                                                                        **kw), valid=valid)
+    got = tev.evaluate_trajectory(pts, poses, quats, K, tt.TrajProblem(INTR.width, INTR.height,
+                                                                       **kw),
+                                  valid=valid, device="cpu")
+    assert got.n_observed > 0
+    assert abs(got.n_observed - want.n_observed) <= 0.005 * len(real)
+    np.testing.assert_allclose(got.rewards, want.rewards, rtol=1e-4, atol=5e-3)
+    np.testing.assert_allclose(got.mean_reward, want.mean_reward, **FWD)
+    np.testing.assert_allclose(got.loss_vis, want.loss_vis, **FWD)
+    for k in ("length", "mean_angle", "loss_smooth"):
+        np.testing.assert_allclose(getattr(got, k), getattr(want, k), **GEOM)

@@ -23,7 +23,10 @@ tests/test_hpr.py. Held:
   pin);
 * the trajectory loss with ``soft_hpr=True`` (the pose loss is held in
   tests/test_torch_pose.py): loss rtol 1e-4, gradients rtol 2e-3 with atol
-  2e-3 of the largest entry, rewards within the soft mask's spread.
+  2e-3 of the largest entry, rewards within the soft mask's spread; the
+  same above a lowered ``soft_hpr_dense_max``, where ``soft_hpr_gate``
+  routes to the binned tier (tests/test_torch_hpr_binned.py holds that
+  tier itself).
 """
 import numpy as np
 import pytest
@@ -180,11 +183,36 @@ def test_soft_mask_padding(cam_cloud):
     assert masked[3000:].max() < 1e-3
 
 
-def test_soft_gate_raises_above_the_dense_size():
-    cam = torch.ones(9, 3)
-    assert thpr.soft_hpr_gate(cam[:8], None, 8, "x").shape == (8,)
-    with pytest.raises(NotImplementedError, match="binned.*Q1 item 9"):
-        thpr.soft_hpr_gate(cam, None, 8, "x")
+def test_soft_gate_raises_above_the_dense_size(monkeypatch):
+    """soft_hpr_gate, which raised above the dense size before the binned
+    tier was ported, routes by the problem: the dense mask up to
+    ``soft_hpr_dense_max`` points, the binned one with the problem's
+    ``hpr_cap``/``hpr_safety`` above it (the JAX defaults for a problem
+    without them), and the binned mask matches the JAX twin's on the room
+    of tests/test_torch_hpr_binned.py seen from its centre (atol 3e-3 on
+    99.8% of points, the 0.5 threshold on 99.9%)."""
+    from types import SimpleNamespace
+
+    from test_torch_hpr_binned import assert_none_isolated, room_scene
+
+    cam = torch.as_tensor(room_scene())
+    assert_none_isolated(cam.numpy(), [np.zeros(3)], [[1.0, 0, 0, 0]])
+    prob = tt.TrajProblem(INTR.width, INTR.height, soft_hpr=True, soft_hpr_dense_max=len(cam),
+                          hpr_cap=256, hpr_safety=2.0)
+    assert torch.equal(thpr.soft_hpr_gate(cam, None, prob), thpr.hpr_mask_soft(cam))
+    low = tt.TrajProblem(INTR.width, INTR.height, soft_hpr=True, soft_hpr_dense_max=2048,
+                         hpr_cap=256, hpr_safety=2.0)
+    got = thpr.soft_hpr_gate(cam, None, low)
+    assert torch.equal(got, thpr.hpr_mask_soft_binned(cam, cap=256, safety=2.0))
+    seen = []
+    monkeypatch.setattr(thpr, "hpr_mask_soft_binned", lambda c, **kw: seen.append(kw) or c[:, 0])
+    thpr.soft_hpr_gate(cam, None, SimpleNamespace(soft_hpr_dense_max=2048))
+    assert seen == [dict(valid=None, cap=1024, safety=3.0)]
+    monkeypatch.undo()
+    want = np.asarray(jhpr.hpr_mask_soft_binned(jnp.asarray(cam.numpy()), cap=256, safety=2.0))
+    d = np.abs(got.numpy() - want)
+    assert (d > 3e-3).mean() <= 2e-3, np.sort(d)[-10:]
+    assert ((got.numpy() > 0.5) == (want > 0.5)).mean() > 0.999
 
 
 def test_traj_soft_hpr_loss_and_gradient_match_jax(cloud10, path10):
@@ -222,12 +250,44 @@ def test_traj_soft_hpr_loss_and_gradient_match_jax(cloud10, path10):
                                    atol=2e-3 * np.abs(want).max())
 
 
-def test_traj_soft_hpr_above_the_dense_size_raises(path10):
-    prob = tt.TrajProblem(INTR.width, INTR.height, soft_hpr=True, soft_hpr_dense_max=8)
-    pts = torch.as_tensor(np.random.default_rng(0).uniform(-3, 3, (9, 3)).astype(np.float32))
-    q = identity_quaternions(len(path10))
-    params = tt.init_traj_params(path10, q)
-    p0, q0 = torch.as_tensor(path10), torch.as_tensor(q)
-    assert torch.isfinite(tt.traj_forward(params, pts[:8], INTR.matrix(), p0, q0, prob)[0])
-    with pytest.raises(NotImplementedError, match="binned.*Q1 item 9"):
-        tt.traj_forward(params, pts, INTR.matrix(), p0, q0, prob)
+def test_traj_soft_hpr_above_the_dense_size_raises():
+    """traj_forward(soft_hpr=True) above a lowered soft_hpr_dense_max, which
+    raised before the binned tier was ported, runs it and matches the JAX
+    twin: the room of tests/test_torch_hpr_binned.py (3,681 points padded
+    to 4,096, valid-masked), its seven-waypoint path moved by seeded noise,
+    every second waypoint (4), the binned tier at cap 64. Held as the
+    dense case above: loss rtol 1e-4, rewards atol 5e-3, gradients rtol
+    2e-3 with atol 2e-3 of the largest entry."""
+    from test_torch_hpr_binned import assert_none_isolated, room_path, room_scene
+
+    real = room_scene()
+    pts, valid = pad_points(real, 4096)
+    path = room_path()
+    rng = np.random.default_rng(0)
+    poses = (path + rng.normal(scale=0.1, size=path.shape)).astype(np.float32)
+    quats = identity_quaternions(len(path))
+    quats[::3] = [0.9, 0.1, -0.3, 0.2]
+    assert_none_isolated(real, poses[::2], quats[::2])
+    q0 = identity_quaternions(len(path))
+    kw = dict(wps_step=2, soft_hpr=True, soft_hpr_dense_max=2048, hpr_cap=64)
+
+    def jloss(p):
+        return jt.traj_forward(p, jnp.asarray(pts), jnp.asarray(INTR.matrix_np()),
+                               jnp.asarray(path), jnp.asarray(q0),
+                               jt.TrajProblem(INTR.width, INTR.height, **kw),
+                               valid=jnp.asarray(valid))
+
+    (jl, ja), jg = jax.value_and_grad(jloss, has_aux=True)(jt.init_traj_params(poses, quats))
+    params = {k: v.requires_grad_(True) for k, v in tt.init_traj_params(poses, quats).items()}
+    tl, ta = tt.traj_forward(params, torch.as_tensor(pts), INTR.matrix(), torch.as_tensor(path),
+                             torch.as_tensor(q0), tt.TrajProblem(INTR.width, INTR.height, **kw),
+                             valid=torch.as_tensor(valid))
+    tl.backward()
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-4)
+    np.testing.assert_allclose(ta["rewards"].detach().numpy(), np.asarray(ja["rewards"]),
+                               rtol=1e-4, atol=5e-3)
+    for k in ("poses", "quats"):
+        want = np.asarray(jg[k])
+        assert np.abs(want).max() > 0
+        np.testing.assert_allclose(params[k].grad.numpy(), want, rtol=2e-3,
+                                   atol=2e-3 * np.abs(want).max())

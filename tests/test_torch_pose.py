@@ -241,12 +241,33 @@ def test_soft_hpr_loss_and_gradient_match_jax(cloud10):
 
 
 def test_soft_hpr_above_the_dense_size_raises():
-    """Above soft_hpr_dense_max the JAX twin runs the direction-binned soft
-    HPR, which is not ported."""
-    _, tp = _problems(soft_hpr=True, soft_hpr_dense_max=8)
-    params = tpose.init_pose_params(T0, Q0)
-    rng = np.random.default_rng(0)
-    pts = torch.as_tensor(rng.uniform(-3, 3, (9, 3)).astype(np.float32))
-    assert torch.isfinite(tpose.pose_forward(params, pts[:8], INTR.matrix(), tp)[0])
-    with pytest.raises(NotImplementedError, match="binned.*Q1 item 9"):
-        tpose.pose_forward(params, pts, INTR.matrix(), tp)
+    """Above soft_hpr_dense_max, where this raised before the binned tier
+    was ported, pose_forward runs the direction-binned soft HPR and matches
+    the JAX twin: the room of tests/test_torch_hpr_binned.py (3,681 points
+    padded to 4,096) from (0.5, 0.3, 0) at Q0, dense size lowered to 2,048,
+    cap 64. Loss rtol 1e-4, gradients rtol 2e-3 (atol 2e-3 of the
+    largest), observations within the soft mask's spread (atol 5e-3)."""
+    from test_torch_hpr_binned import assert_none_isolated, room_scene
+
+    real = room_scene()
+    pts, valid = pad_points(real, 4096)
+    t0 = np.array([[0.5, 0.3, 0.0]], np.float32)
+    assert_none_isolated(real, t0, Q0)
+    jp, tp = _problems(soft_hpr=True, soft_hpr_dense_max=2048, hpr_cap=64)
+
+    def jloss(p):
+        return jpose.pose_forward(p, jnp.asarray(pts), KJ, jp, valid=jnp.asarray(valid))
+
+    (jl, ja), jg = jax.value_and_grad(jloss, has_aux=True)(jpose.init_pose_params(t0, Q0))
+    tparams = {k: v.requires_grad_(True) for k, v in tpose.init_pose_params(t0, Q0).items()}
+    tl, ta = tpose.pose_forward(tparams, torch.as_tensor(pts), INTR.matrix(), tp,
+                                valid=torch.as_tensor(valid))
+    tl.backward()
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-4)
+    np.testing.assert_allclose(ta["observations"].detach().numpy(),
+                               np.asarray(ja["observations"]), rtol=1e-4, atol=5e-3)
+    for k in ("trans", "quat"):
+        want = np.asarray(jg[k])
+        assert np.abs(want).max() > 0
+        np.testing.assert_allclose(tparams[k].grad.numpy(), want, rtol=2e-3,
+                                   atol=2e-3 * np.abs(want).max())

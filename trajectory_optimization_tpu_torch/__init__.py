@@ -4,8 +4,9 @@
 Same layout as the JAX package, module for module: ``ops`` (quaternions,
 geometry, scores, trajectory metrics, the fused visibility kernels K1–K5,
 the multi-camera rig, the scatter renderer and the tile splat renderer
-K6/K7, each kernel with its plain version), ``models`` (the trajectory
-model and the evaluation of a fixed path), ``opt`` (functional two-group Adam, early stop, cached runners),
+K6/K7, each kernel with its plain version, hidden-point removal),
+``models`` (the trajectory, pose and waypoints models, the evaluation of a
+fixed path, the notebook variants), ``opt`` (functional two-group Adam, early stop, cached runners),
 ``bus`` (messages, pub/sub, the frame graph and the points processor node),
 ``utils`` (intrinsics, configs, metrics, data padding, numpy conversion) and
 ``api`` (``TrajectoryOptimizer``). The CUDA sources live in ``csrc/`` and

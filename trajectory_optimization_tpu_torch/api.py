@@ -6,8 +6,8 @@ Twin of ``trajectory_optimization_tpu/api.py``: ``TrajectoryOptimizer``
 runner per bucket), warm start from a previous solution and structured
 results. Both run on the card unless the caller passes ``device="cpu"``.
 The HPR options (``soft_hpr``, ``PoseOptimizer(use_hpr=True)``) run through
-``ops/hpr.py``; soft HPR above ``soft_hpr_dense_max`` points raises (the
-direction-binned tier is not ported).
+``ops/hpr.py``; soft HPR takes the dense tier up to ``soft_hpr_dense_max``
+points and the direction-binned tier above it.
 """
 from __future__ import annotations
 
@@ -186,7 +186,8 @@ class PoseOptimizer:
         once, by ``hpr_mask_approx`` on the world-frame cloud (the
         reference's behaviour, its quirk included). ``soft_hpr`` instead
         differentiates through Katz occlusion of the camera-frame cloud,
-        recomputed every step (dense, up to ``soft_hpr_dense_max`` points)."""
+        recomputed every step (dense up to ``soft_hpr_dense_max`` points,
+        direction-binned above)."""
         self.intr = intrinsics or default_intrinsics()
         self.problem_kw = dict(min_dist=min_dist, max_dist=max_dist, soft_hpr=soft_hpr)
         self.opt_cfg = OptimizerConfig(lr_pose=lr_pose, lr_quat=lr_quat)

@@ -21,8 +21,8 @@ reference process:
 Device work runs on the node's ``device`` (default ``"cuda"``); the bus
 carries numpy clouds, paths and poses, and on-card images. The HPR options
 (``use_hpr``, ``use_soft_hpr``, ``hpr_backend``) run through ``ops/hpr.py``;
-soft HPR above ``soft_hpr_dense_max`` points raises (the direction-binned
-tier is not ported).
+soft HPR takes the dense tier up to ``soft_hpr_dense_max`` points and the
+direction-binned tier above it.
 """
 from __future__ import annotations
 

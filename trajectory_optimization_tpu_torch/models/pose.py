@@ -9,8 +9,8 @@ Pallas kernel, so this model has no kernel of its own.
 Occlusion gating takes a precomputed per-point ``occlusion_mask`` (the
 reference recomputes Katz HPR on detached world-frame points every step, a
 constant). ``soft_hpr=True`` instead gates the score with the differentiable
-``ops.hpr.hpr_mask_soft`` on the camera-frame points, inside the loss; above
-``soft_hpr_dense_max`` points it raises (the binned tier is not ported).
+soft HPR on the camera-frame points, inside the loss: ``ops.hpr.hpr_mask_soft``
+up to ``soft_hpr_dense_max`` points, ``hpr_mask_soft_binned`` above it.
 """
 from __future__ import annotations
 
@@ -30,9 +30,9 @@ Params = Dict[str, torch.Tensor]
 class PoseProblem:
     """Static (hashable) problem description for a single-pose optimization.
     The fields, their order and their defaults are the JAX twin's; the three
-    knobs after ``soft_hpr`` are read with ``soft_hpr=True`` only, and of
-    them only ``soft_hpr_dense_max`` (the binned tier's ``hpr_cap`` and
-    ``hpr_safety`` are not ported)."""
+    knobs after ``soft_hpr`` are read with ``soft_hpr=True`` only:
+    ``soft_hpr_dense_max`` picks the tier, ``hpr_cap`` and ``hpr_safety``
+    are the binned tier's."""
 
     img_width: float
     img_height: float

@@ -23,7 +23,8 @@ for CPU tensors. The JAX package's names ``"pallas"`` and ``"xla"`` are
 accepted for ``"kernel"`` and ``"torch"``. ``soft_hpr=True`` takes the
 occlusion-aware path whatever the backend (the fused kernels have no
 occlusion input): each selected waypoint's scores are gated by the dense
-soft HPR on its own camera-frame cloud, one checkpointed waypoint at a time.
+soft HPR (dense or binned by the cloud's size) on its own camera-frame
+cloud, one checkpointed waypoint at a time.
 """
 from __future__ import annotations
 
@@ -65,10 +66,9 @@ class TrajProblem:
     wps_step: int = 1  # evaluate visibility at every wps_step-th waypoint
     backend: str = "auto"  # one of BACKENDS, or a key of BACKEND_ALIASES
     # Differentiable Katz occlusion inside the loss, per selected waypoint on
-    # its camera-frame cloud (dense soft HPR up to soft_hpr_dense_max points;
-    # the binned tier above it is not ported and raises). hpr_cap and
-    # hpr_safety are the binned tier's knobs, kept with the JAX defaults so
-    # that a caller's keywords build either package's problem.
+    # its camera-frame cloud: the dense soft HPR up to soft_hpr_dense_max
+    # points, the direction-binned tier above it with its knobs hpr_cap and
+    # hpr_safety.
     soft_hpr: bool = False
     soft_hpr_dense_max: int = 32768
     hpr_cap: int = 512
@@ -158,17 +158,18 @@ def plain_lo_sum(points, quats_sel, poses_sel, K, problem: TrajProblem, valid=No
 def gated_waypoint_scores(quat, pose, points, K, problem, valid=None) -> torch.Tensor:
     """One waypoint's occlusion-gated raw scores, (N,) hpr × score: one
     world-to-camera transform feeds both the score and the soft HPR of the
-    waypoint's camera-frame cloud. ``problem`` is duck-typed (img_width,
-    img_height, min_dist, max_dist, eps, soft_hpr_dense_max): the trajectory
-    and the pose losses both gate through here."""
+    waypoint's camera-frame cloud (the binned tier above
+    ``problem.soft_hpr_dense_max`` points). ``problem`` is duck-typed
+    (img_width, img_height, min_dist, max_dist, eps, soft_hpr_dense_max and
+    optionally hpr_cap, hpr_safety): the trajectory, pose and waypoint
+    losses all gate through here."""
     cx, cy, cz = camera_planes(points, quat[None], pose[None])
     p = scores_from_planes(
         cx, cy, cz, K, problem.img_width, problem.img_height,
         min_dist=problem.min_dist, max_dist=problem.max_dist, eps=problem.eps,
     )[0]
     cam = torch.stack([cx[0], cy[0], cz[0]], dim=-1)
-    return soft_hpr_gate(cam, valid, problem.soft_hpr_dense_max,
-                         f"{type(problem).__name__}(soft_hpr=True)") * p
+    return soft_hpr_gate(cam, valid, problem) * p
 
 
 def soft_hpr_wp_logodds(quat, pose, points, K, problem: TrajProblem, valid=None):

@@ -14,13 +14,18 @@ the convex hull; the hull's vertices are the visible points.
 3. :func:`hpr_mask_soft` — the differentiable relaxation: σ(β·(ρ'ᵢ + τ·scale
    − softmaxⱼ ρ'ⱼcosθᵢⱼ)), the (N, N) dominance reduced in row blocks with a
    hand-derived backward, so memory stays O(block·N) with gradients too.
+4. :func:`hpr_mask_soft_binned` — the same relaxation at scale: each point
+   competes only against members of its own direction bin, in four
+   staggered grids, O(N·cap) pairs; the tiles are reduced in chunks with a
+   hand-derived backward that recomputes them.
 
-The direction-binned soft tier (``hpr_mask_soft_binned``) is not ported:
-:func:`soft_hpr_gate` raises for clouds above the dense size.
+:func:`soft_hpr_gate` picks the soft tier of the pose and trajectory losses
+by the cloud's size, as the JAX twin does.
 """
 from __future__ import annotations
 
 import contextlib
+import inspect
 from typing import Optional, Tuple
 
 import numpy as np
@@ -39,6 +44,8 @@ TILE_BUDGET = {"cuda": 1 << 26, "cpu": 1 << 21}
 # The profiler range of the soft dominance tile's forward and backward, by
 # which a trace separates its time from the rest of a step.
 SOFT_DOMINANCE_RANGE = "hpr.soft_dominance"
+# The same for the binned tier's tiles (hpr_mask_soft_binned).
+SOFT_BINNED_RANGE = "hpr.soft_binned"
 
 
 def _tile_rows(block: int, row_elems: int, t: torch.Tensor) -> int:
@@ -318,16 +325,340 @@ def hpr_mask_soft(
     return torch.sigmoid(beta * (rho + tau * scale - smax))
 
 
-def soft_hpr_gate(cam: torch.Tensor, valid: Optional[torch.Tensor], dense_max: int,
-                  what: str) -> torch.Tensor:
+
+
+# ---------------------------------------------------------------------------
+# The direction-binned soft tier. The JAX twin lays each grid out with
+# scatter-free custom-VJP co-sorts because row scatters serialize on a TPU;
+# here a stable sort and plain gathers do (a gather's backward is an
+# index_add, cheap on the GPU). A stable sort's permutation depends on the
+# keys alone, so it is the JAX one, ties included.
+# ---------------------------------------------------------------------------
+
+
+def make_cosort(n_diff: int, n_aux: int, dimension: int = 0):
+    """Multi-operand sort by key: ``cosort(key, *diff_ops, *aux_ops)``
+    stable-sorts every operand (each of ``key``'s shape) along ``dimension``
+    by the integer ``key`` alone and returns ``(key_sorted, *diff_sorted,
+    *aux_sorted, perm)``, ``perm[p]`` the index landing at sorted position
+    ``p``. Gradients reach the ``n_diff`` leading operands only."""
+
+    def cosort(key, *ops):
+        if len(ops) != n_diff + n_aux:
+            raise ValueError(f"cosort takes {n_diff + n_aux} operands, got {len(ops)}")
+        key_s, perm = torch.sort(key, dim=dimension, stable=True)
+        out = [torch.gather(op if i < n_diff else op.detach(), dimension, perm)
+               for i, op in enumerate(ops)]
+        return (key_s, *out, perm)
+
+    return cosort
+
+
+# sort (u0, u1, u2, rho) by key: the binned tier's layout sort
+_cosort = make_cosort(4, 0)
+
+
+def _stratified_priority(rank: torch.Tensor, base: int, n: int) -> torch.Tensor:
+    """Tiered distance-rank stratification of a bin's coverer candidates:
+    all of the closest ``base`` members, then every 2^(k+1)-th member of
+    tier k = ranks [base·2^k, base·2^(k+1)), down to rank 16·base. Selected
+    members keep their rank (distance order); the rest sort after them
+    (``n + rank``). k = ⌊log2 max(rank // base, 1)⌋ is read off the f32's
+    exponent (``frexp``), exact, where the twin takes ⌊log2⌋ of the f32: the
+    two agree on every rank below 16·base, the only ranks the tiers select."""
+    rb = torch.clamp(torch.div(rank, base, rounding_mode="floor"), min=1).to(torch.float32)
+    k = torch.frexp(rb).exponent.to(rank.dtype) - 1
+    stride_mask = (torch.ones_like(k) << (k + 1)) - 1  # the stride is a power of two
+    selected = (rank < base) | ((rank < 16 * base) & ((rank & stride_mask) == 0))
+    return torch.where(selected, rank, n + rank)
+
+
+def _unpermute(perm: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Map sorted-order ``x`` back to canonical order (``perm`` from
+    :func:`_cosort`): ``out[perm[p]] = x[p]``; its backward is the gather
+    ``g[perm]``. (The twin's first argument, the key its custom VJP re-sorts
+    by, has no use here.)"""
+    return torch.zeros_like(x).index_copy(0, perm, x)
+
+
+def _binned_grids(r_param: float, tau: float, safety: float):
+    """Static lat/az binning layouts for :func:`hpr_mask_soft_binned` (numpy,
+    copied from the JAX twin).
+
+    The Katz dominance term cosθᵢⱼ·ρⱼ only beats ρᵢ + τ·scale when
+    cosθ ≥ 1 − (1+τ)·maxnorm/2R, i.e. within θ_max ≈ √(2c) of radial
+    (c = (1+τ)·10^-r/2, padded by ``safety`` for the sigmoid tails) — for
+    the reference's r_param=2 that is ~7°. So dominance is local in
+    DIRECTION: bins of angular size Δ = 2θ_max, in four half-cell-staggered
+    grids (lat shift × az shift), guarantee any pair within (Δ/2, Δ/2)
+    shares a bin in at least one grid. Rings get ∝cos(lat) azimuth cells so
+    the cell's angular width is ~Δ at every latitude.
+
+    Returns (theta_max, list of (n_rings, delta, lat_shift, az_shift,
+    n_az array, ring offsets, n_bins)).
+    """
+    c = safety * (1.0 + tau) * 0.5 * 10.0 ** (-r_param)
+    theta_max = float(np.sqrt(2.0 * c))
+    delta = 2.0 * theta_max
+    grids = []
+    for lat_shift in (0.0, 0.5):
+        n_rings = int(np.ceil(np.pi / delta + lat_shift))
+        lat_centers = -np.pi / 2 + (np.arange(n_rings) + 0.5 - lat_shift) * delta
+        lat_centers = np.clip(lat_centers, -np.pi / 2, np.pi / 2)
+        n_az = np.maximum(
+            1, np.round(2.0 * np.pi * np.cos(lat_centers) / delta)
+        ).astype(np.int32)
+        offsets = np.concatenate([[0], np.cumsum(n_az)]).astype(np.int32)
+        for az_shift in (0.0, 0.5):
+            grids.append((n_rings, delta, lat_shift, az_shift, n_az,
+                          offsets[:-1], int(offsets[-1])))
+    return theta_max, grids
+
+
+def _direction_angles(u: torch.Tensor):
+    """(lat, az) routing angles of unit directions ``u``, detached: the
+    gradients flow through ρ and u inside the tiles, not through the
+    discrete bin assignment."""
+    ud = u.detach()
+    lat = torch.asin(torch.clamp(ud[:, 2], -1.0, 1.0))
+    az = torch.atan2(ud[:, 1], ud[:, 0]) + np.pi  # [0, 2π)
+    return lat, az
+
+
+def _grid_bin_key(grid, lat, az, norms, scale, v):
+    """Bin ids and the quantized (bin, distance) int32 sort key for one grid
+    of :func:`_binned_grids`: ``bins·2^frac_bits + ⌊frac·2^frac_bits⌋`` with
+    frac = ‖p‖/scale clipped below 1, so that a sort makes each bin
+    contiguous, closest (largest ρ) members first. ``v`` (bool or None)
+    routes padding to the overflow bin ``n_bins``. frac takes the int32 bits
+    the bin id leaves. Returns (key, frac_bits, n_bins); ``key >>
+    frac_bits`` recovers the bins.
+
+    The arithmetic is the twin's f32: the divisors are f32 tensors on the
+    device, since a CUDA tensor divided by a Python scalar is multiplied by
+    its reciprocal, which rounds differently and moves boundary points."""
+    n_rings, delta, lat_shift, az_shift, n_az_np, offs_np, n_bins = grid
+    frac_bits = 30 - max(1, int(n_bins + 1)).bit_length()
+    if frac_bits < 8:
+        raise ValueError(
+            f"binning too fine for an int32 sort key ({n_bins} bins); "
+            f"lower safety/raise r_param")
+    dev = lat.device
+    n_az = torch.as_tensor(n_az_np, device=dev)
+    offs = torch.as_tensor(offs_np, device=dev)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    ring = torch.clamp(
+        torch.floor((lat + np.pi / 2) / f32(delta) + lat_shift).to(torch.int32),
+        0, n_rings - 1).long()
+    cells = n_az[ring]
+    azbin = torch.floor(az / f32(2.0 * np.pi) * cells + az_shift).to(torch.int32)
+    azbin = torch.where(azbin >= cells, azbin - cells, azbin)  # wrap
+    bins = offs[ring] + azbin
+    if v is not None:
+        bins = torch.where(v, bins, torch.full_like(bins, n_bins))  # padding -> overflow bin
+    frac = torch.clamp(norms.detach() / torch.clamp(scale, min=1e-12), 0.0, 1.0 - 1e-6)
+    key = bins * (1 << frac_bits) + (frac * float(1 << frac_bits)).to(torch.int32)
+    return key, frac_bits, n_bins
+
+
+def _binned_tiles(U, R, beta, bin_s, cov_pos, tiles, n: int, cap: int):
+    """One chunk of query tiles against their coverers, (T, cap, cap).
+
+    ``tiles`` rows are (bin b, query offset, coverer offset, deep): queries
+    are ``cap`` consecutive rows of the layout sort from the query offset;
+    coverers the ``cap`` rows from the coverer offset, of the layout sort
+    (chunk 0 of a bin: its exact closest-cap prefix) or, where deep, of the
+    stratified layout, stored after it in ``U``/``R`` (rows n..2n). A pair
+    counts where the coverer is in bin b and is not the query itself
+    (LAYOUT-1 positions, ``cov_pos`` mapping stratified rows back). Returns
+    the row indices, the pair mask, the gathered directions and radii, cos
+    and β·dom with dom = max(cos, 0)·ρ_cov (cos unclipped) and −1e30 off the
+    mask."""
+    b, qoff, coff, deep = tiles.unbind(1)
+    ar = torch.arange(cap, device=U.device)
+    q = qoff[:, None] + ar
+    c = coff[:, None] + ar
+    if cov_pos is None:
+        crow, cself = c, c
+    else:
+        crow = c + deep[:, None] * n
+        cself = torch.where(deep[:, None] > 0, cov_pos[c], c)
+    ok = (bin_s[c] == b[:, None])[:, None, :] & (q[:, :, None] != cself[:, None, :])
+    qu, cu, cr = U[q], U[crow], R[crow]
+    with _full_f32_matmul(U):
+        cos = torch.bmm(qu, cu.transpose(1, 2))
+    x = torch.clamp_min(cos, 0.0).mul_(cr[:, None, :]).masked_fill_(~ok, -_BIG_SOFT).mul_(beta)
+    return q, crow, ok, qu, cu, cr, cos, x
+
+
+class _BinnedLSE(torch.autograd.Function):
+    """lse[t, i] = logsumexpⱼ(β·dom) of every query row of every tile of one
+    grid, in chunks of ``chunk`` tiles: nothing of size T·cap² is kept
+    between forward and backward. The backward recomputes each chunk; the
+    derivative of max(cos, 0) is ½ at cos = 0, as ``jnp.maximum`` splits
+    it. The softmax weights are exp(x − max)/Σ, from the row's max and sum
+    kept by the forward, not exp(x − lse): β·dom reaches ~10⁵·10^(r−2),
+    where one rounding of lse would scale a row's weights by e^ulp."""
+
+    @staticmethod
+    def forward(ctx, U, R, beta, bin_s, cov_pos, tiles, cap, chunk):
+        n = bin_s.shape[0]
+        top = U.new_empty((tiles.shape[0], cap))
+        total = U.new_empty((tiles.shape[0], cap))
+        with torch.profiler.record_function(SOFT_BINNED_RANGE):
+            for t0 in range(0, tiles.shape[0], chunk):
+                t1 = t0 + chunk
+                x = _binned_tiles(U, R, beta, bin_s, cov_pos, tiles[t0:t1], n, cap)[-1]
+                top[t0:t1] = torch.amax(x, dim=2)
+                total[t0:t1] = torch.sum(torch.exp_(x.sub_(top[t0:t1, :, None])), dim=2)
+        ctx.save_for_backward(U, R, beta, bin_s, cov_pos, tiles, top, total)
+        ctx.cap, ctx.chunk = cap, chunk
+        return top + torch.log(total)
+
+    @staticmethod
+    def backward(ctx, g):
+        U, R, beta, bin_s, cov_pos, tiles, top, total = ctx.saved_tensors
+        n, cap, chunk = bin_s.shape[0], ctx.cap, ctx.chunk
+        dU, dR = torch.zeros_like(U), torch.zeros_like(R)
+        with torch.profiler.record_function(SOFT_BINNED_RANGE), _full_f32_matmul(U):
+            for t0 in range(0, tiles.shape[0], chunk):
+                t1 = t0 + chunk
+                q, crow, ok, qu, cu, cr, cos, x = _binned_tiles(
+                    U, R, beta, bin_s, cov_pos, tiles[t0:t1], n, cap)
+                # ∂L/∂dom = g·β·softmax weight, 0 off the mask
+                t = torch.exp_(x.sub_(top[t0:t1, :, None])).mul_(
+                    (beta * g[t0:t1] / total[t0:t1])[:, :, None]).masked_fill_(~ok, 0.0)
+                dR.index_add_(0, crow.reshape(-1),
+                              torch.sum(t * torch.clamp_min(cos, 0.0), dim=1).reshape(-1))
+                h = (cos > 0).to(cos.dtype).add_((cos >= 0).to(cos.dtype)).mul_(0.5)
+                a = t.mul_(cr[:, None, :]).mul_(h)  # ∂L/∂cos
+                dU.index_add_(0, q.reshape(-1), torch.bmm(a, cu).reshape(-1, 3))
+                dU.index_add_(0, crow.reshape(-1),
+                              torch.bmm(a.transpose(1, 2), qu).reshape(-1, 3))
+        return dU, dR, None, None, None, None, None, None
+
+
+def hpr_mask_soft_binned(
+    points: torch.Tensor,
+    r_param: float = 2.0,
+    *,
+    sharpness: float = 400.0,
+    tau: float = 0.02,
+    cap: int = 1024,
+    safety: float = 3.0,
+    stratified_coverers: bool = True,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Differentiable HPR at scale: direction-binned dominance, O(N·cap).
+
+    The smooth visibility of :func:`hpr_mask_soft`, σ(β(ρᵢ + τ·scale −
+    softmaxⱼ cosθᵢⱼ·ρⱼ)), with each point competing only against members of
+    its own angular bin (:func:`_binned_grids`), in four staggered grids
+    whose soft maxima combine by elementwise max. Per grid, one stable sort
+    by (bin, ‖p‖) makes each bin contiguous, closest first; the bin's
+    queries run in tiles of ``cap`` rows against ``cap`` coverers: chunk 0
+    against the exact closest-``cap`` prefix, deeper chunks, with
+    ``stratified_coverers``, against a tiered distance-rank sample that
+    reaches ~16·cap deep (:func:`_stratified_priority`, a second sort by
+    (bin, priority)); the sample is skipped where its key would overflow
+    (2n ≥ 2^frac_bits). The tiles are reduced in chunks sized by
+    ``TILE_BUDGET`` (:class:`_BinnedLSE`) and each row takes the max of the
+    tiles that cover it (``scatter_reduce``): max is order-independent, so
+    this equals the twin's scan over tiles. Only the tiles of non-empty bins
+    are formed (one host read of their count per grid).
+
+    ``valid``: padded points set neither radius nor scale, cover no one and
+    report 0. Returns (N,) visibility in (0, 1).
+    """
+    n = points.shape[0]
+    cap = min(cap, n)
+    dev = points.device
+    norms = safe_norm(points, dim=-1)  # a finite gradient at ‖p‖ = 0
+    if valid is not None:
+        v = valid > 0
+        norms_v = torch.where(v, norms, torch.zeros_like(norms))
+    else:
+        v = None
+        norms_v = norms
+    radius = _maximum(torch.amax(norms_v), 1e-12) * 10.0 ** r_param
+    rho = 2.0 * radius - norms
+    scale = torch.clamp(torch.amax(norms_v), min=1e-6).detach()
+    beta = sharpness / scale
+    u = points / _maximum(norms, 1e-12)[:, None]
+    lat, az = _direction_angles(u)
+    chunk = max(1, TILE_BUDGET["cuda" if points.is_cuda else "cpu"] // (cap * cap))
+    ar = torch.arange(cap, device=dev)
+
+    _, grids = _binned_grids(r_param, tau, safety)
+    smax = torch.full((n,), -_BIG_SOFT, dtype=points.dtype, device=dev)
+    for grid in grids:
+        key, frac_bits, n_bins = _grid_bin_key(grid, lat, az, norms, scale, v)
+        key_s, u0_s, u1_s, u2_s, rho_s, perm = _cosort(key, u[:, 0], u[:, 1], u[:, 2], rho)
+        bin_s = key_s >> frac_bits
+        u_s = torch.stack([u0_s, u1_s, u2_s], dim=1)
+        # bins are sorted: member counts by binary search
+        edges = torch.searchsorted(
+            bin_s, torch.arange(n_bins + 1, dtype=bin_s.dtype, device=dev))
+        counts, starts = edges[1:] - edges[:-1], edges[:-1]
+
+        strat = stratified_coverers and cap < n and (2 * n) < (1 << frac_bits)
+        if strat:
+            # rank in bin: segment starts by one cummax pass
+            iota = torch.arange(n, device=dev)
+            seg_first = torch.ones(n, dtype=torch.bool, device=dev)
+            seg_first[1:] = bin_s[1:] != bin_s[:-1]
+            rank = iota - torch.cummax(torch.where(seg_first, iota, 0), dim=0).values
+            prio = _stratified_priority(rank, max(cap // 4, 1), n)
+            key2 = bin_s * (1 << frac_bits) + prio.to(bin_s.dtype)
+            _, cov_u0, cov_u1, cov_u2, cov_rho, cov_pos = _cosort(
+                key2, u0_s, u1_s, u2_s, rho_s)
+            # both layouts in one table: the stratified one at rows n..2n
+            U = torch.cat([u_s, torch.stack([cov_u0, cov_u1, cov_u2], dim=1)])
+            R = torch.cat([rho_s, cov_rho])
+        else:
+            U, R, cov_pos = u_s, rho_s, None
+
+        tiles_per_bin = (counts + cap - 1) // cap  # 0 for empty bins
+        tile_cum = torch.cat([tiles_per_bin.new_zeros(1), torch.cumsum(tiles_per_bin, 0)])
+        slot = torch.arange(int(tile_cum[-1]), device=dev)  # every tile is a real one
+        tile_bin = torch.searchsorted(tile_cum, slot, right=True) - 1
+        within = slot - tile_cum[tile_bin]
+        qoff = torch.clamp(starts[tile_bin] + within * cap, 0, n - cap)
+        coff = torch.clamp(starts[tile_bin], 0, n - cap)
+        deep = (within >= 1).long() if strat else torch.zeros_like(within)
+        tiles = torch.stack([tile_bin, qoff, coff, deep], dim=1)
+
+        lse = _BinnedLSE.apply(U, R, beta, bin_s, cov_pos, tiles, cap, chunk)
+        # each query row of bin b takes the max over the tiles of b that hold it
+        q = qoff[:, None] + ar
+        rows = torch.where(bin_s[q] == tile_bin[:, None], lse / beta, -_BIG_SOFT)
+        smax_g = torch.full((n,), -_BIG_SOFT, dtype=points.dtype, device=dev).scatter_reduce(
+            0, q.reshape(-1), rows.reshape(-1), "amax", include_self=True)
+        smax = torch.maximum(smax, _unpermute(perm, smax_g))
+
+    out = torch.sigmoid(beta * (rho + tau * scale - smax))
+    if v is not None:
+        out = out * v.to(out.dtype)
+    return out
+
+
+#: the binned tier's knob defaults, read off the signature above
+SOFT_BINNED_DEFAULTS = {
+    k: p.default
+    for k, p in inspect.signature(hpr_mask_soft_binned).parameters.items()
+    if p.default is not inspect.Parameter.empty and k != "valid"
+}
+
+
+def soft_hpr_gate(cam: torch.Tensor, valid: Optional[torch.Tensor], problem) -> torch.Tensor:
     """The occlusion gate of the pose and trajectory losses on one camera's
-    (N, 3) points: the dense ``hpr_mask_soft`` up to ``dense_max`` points.
-    Above it the JAX twin runs the direction-binned tier, which is not
-    ported: raise."""
-    if cam.shape[0] > dense_max:
-        raise NotImplementedError(
-            f"{what}: {cam.shape[0]} points exceed soft_hpr_dense_max={dense_max}, and the "
-            "direction-binned soft HPR (hpr_mask_soft_binned) that serves such clouds is not "
-            "ported yet (ROADMAP.md Q1 item 9)"
-        )
+    (N, 3) points: the dense ``hpr_mask_soft`` up to the problem's
+    ``soft_hpr_dense_max`` points, the binned tier above it with the
+    problem's ``hpr_cap`` and ``hpr_safety`` (the twin's defaults where the
+    problem has none)."""
+    if cam.shape[0] > problem.soft_hpr_dense_max:
+        return hpr_mask_soft_binned(
+            cam, valid=valid,
+            cap=getattr(problem, "hpr_cap", SOFT_BINNED_DEFAULTS["cap"]),
+            safety=getattr(problem, "hpr_safety", SOFT_BINNED_DEFAULTS["safety"]))
     return hpr_mask_soft(cam, valid=valid)
