@@ -120,7 +120,28 @@ Phases, each printing one line (any failure raises and exits non-zero):
    (100 steps, every per-waypoint gain >= 1, mean > 1) and 3 steps with soft
    HPR; the distance-reward model and the finite-difference pose loss
    against the CPU (rtol 1e-4 and 2e-3; counts equal).
-9. times — per-stage and per-step ms, kernel and plain, peak memory, and
+9. frozen — the frozen-routing soft-HPR engine (``models/traj_frozen.py``,
+   eager PyTorch: no kernel of its own) at bench.py's shapes.
+   ``FrozenTrajOptimizer`` on cloud 10 and path 10 (14 waypoints, cap 512,
+   lr 0.1/0.02, the default ``FrozenPlanConfig``: async refresh every 8
+   steps): 2 warm-up steps, 3 windows of 12 steps each ending in a sync
+   (ms/step, peak memory, refreshes and the blocked build seconds); one
+   step between refreshes under ``torch.cuda.set_sync_debug_mode("error")``
+   (it must make no host sync), then the other steps up to the next
+   refresh traced (device operations per step, busy share, the tiles'
+   share). At a refresh: the frozen loss, rewards and gradient against the
+   per-step routed binned tier (``traj_forward(soft_hpr=True,
+   soft_hpr_dense_max=0)``), the sparse mean against the embedding path
+   (tests/test_torch_traj_frozen.py's pins, ``FROZEN_PINS``), and the f32
+   frozen step against float64 within ``BINNED_TOL``.
+   ``FrozenPoseOptimizer`` on 262,144 uniform ±40 m points (min_dist 1,
+   max_dist 12, refresh_every 10,000) beside ``PoseOptimizer(soft_hpr=
+   True)``, its first loss against the per-step loss (rtol 1e-4) and the
+   loss falling; ``FrozenWpsOptimizer`` with the 27 waypoints of path 10
+   (cap 1024), the same checks against ``wps_forward``; 500 steps of path
+   10 displaced +12 m in z at the default config, the median and worst
+   20-step window.
+10. times — per-stage and per-step ms, kernel and plain, peak memory, and
    the device's busy share of a step from a 20-step ``torch.profiler`` trace;
    K6/K7 ms through the wrapper and the kernel alone (``torch.profiler``)
    beside their plain versions, bounds, share of the bound and the first
@@ -136,7 +157,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
    step, each loop beside a bound from the pairs it touches; the binned
    tier's mask ms, soft pose ms/step at both sizes, trajectory and
    waypoints ms/step, peak memory and the binned tiles' share of a traced
-   call, each beside a bound from its tiles' pairs.
+   call, each beside a bound from its tiles' pairs; the frozen engine's
+   ms/step beside a bound from the pairs of the tiles it computes.
 
 The line before the last is the kernels' JSON record (all nine kernels, each
 with its bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -146,6 +168,7 @@ on the pairs these inputs need); the last line is ``{"ok": true, "device":
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -406,6 +429,20 @@ HPR_TOL = 2e-3
 # own f32 gradient is up to 1.4e-2 of its largest entry from float64 on the
 # planar scenes of tests/test_hpr.py.
 BINNED_TOL = 1e-2
+# [frozen], the frozen-routing engine (models/traj_frozen.py), at bench.py's
+# shapes: bench_soft_hpr_traj_step (warm-up steps, windows, steps per
+# window), bench_frozen_pose_long_range (points, timed steps), the waypoints
+# demo's 27 waypoints (timed steps) and bench_occl_traj_worst_window (steps,
+# steps per window). At a refresh the frozen losses are held to
+# tests/test_torch_traj_frozen.py's pins: against the per-step routed binned
+# tier loss rtol 1e-5, rewards atol 1e-6, gradient relnorm 1e-4; the sparse
+# mean against the embedding path loss rtol 1e-6, mean reward atol 1e-6,
+# gradient relnorm 1e-4; the pose and waypoints variants rtol 1e-4.
+FROZEN_WINDOWS = (2, 3, 12)
+FROZEN_POSE = (262_144, 8)
+FROZEN_WPS_STEPS = 5
+WORST = (500, 20)
+FROZEN_PINS = {"loss": 1e-5, "rewards": 1e-6, "grad": 1e-4, "mean": 1e-6, "variant": 1e-4}
 
 
 def splat_work(offsets, entries, use_runs: bool, tiles_y: int, tiles_x: int):
@@ -1557,6 +1594,311 @@ def print_hpr_times(card: str, hp) -> None:
           flush=True)
 
 
+def frozen_tile_pairs(plan, meta):
+    """(pairs in every tile of the plan, pairs in the tiles that hold a
+    query): a frozen forward computes cap² pairs per tile that holds a
+    query and skips the rest (the tile-count ladder's padding tiles and
+    coverer-only tiles)."""
+    return (meta.n_sel * meta.n_grids * meta.tiles * meta.cap ** 2,
+            int(plan["live"].numel()) * meta.cap ** 2)
+
+
+def frozen_checks(dev, intr, cloud10, path10, sync):
+    """Phase [frozen]: the frozen-routing engine on the card at bench.py's
+    shapes. (a) ``FrozenTrajOptimizer`` on cloud 10 and path 10: ms/step,
+    a traced window of steps between refreshes, a step between refreshes
+    under ``torch.cuda.set_sync_debug_mode("error")``; (b) at a refresh,
+    the frozen loss against the per-step routed binned tier, the f32 step
+    against float64, the sparse mean against the embedding path; (c)
+    ``FrozenPoseOptimizer`` beside the per-step soft pose step on a uniform
+    ±40 m cloud; (d) ``FrozenWpsOptimizer`` at the waypoints demo's shape;
+    (e) 500 steps of the displaced path at the production config, median
+    and worst 20-step window. Returns the numbers for [times] and the
+    record."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from trajectory_optimization_tpu_torch.api import PoseOptimizer
+    from trajectory_optimization_tpu_torch.models import traj_frozen as tf
+    from trajectory_optimization_tpu_torch.models.pose import PoseProblem, init_pose_params
+    from trajectory_optimization_tpu_torch.models.traj import (
+        TrajProblem, init_traj_params, traj_forward, waypoint_stride,
+    )
+    from trajectory_optimization_tpu_torch.models.wps_opt import (
+        WpsOptProblem, init_wps_params, wps_forward,
+    )
+    from trajectory_optimization_tpu_torch.opt.engine import OptimizerConfig, value_and_grad
+    from trajectory_optimization_tpu_torch.utils.data import identity_quaternions
+
+    res = {}
+    K_np = intr.matrix_np()
+    K = torch.as_tensor(K_np, device=dev)
+    q10 = identity_quaternions(len(path10))
+    stride = waypoint_stride(path10, 0.5)
+    prob = TrajProblem(intr.width, intr.height, wps_step=stride, soft_hpr=True,
+                       soft_hpr_dense_max=0)
+    cfg = OptimizerConfig(lr_pose=0.1, lr_quat=0.02)
+
+    def finite(*xs):
+        return all(bool(torch.isfinite(x).all()) for x in xs)
+
+    def timed_windows(opt, params, st, n_win, per):
+        sync()
+        times = []
+        for _ in range(n_win):
+            t0 = time.perf_counter()
+            for _ in range(per):
+                params, st, loss, _ = opt.step(params, st)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3 / per)
+        if not finite(loss, *params.values()):
+            fail(f"{type(opt).__name__}: non-finite loss or parameters")
+        return params, st, times
+
+    # ---- (a) bench_soft_hpr_traj_step's shape ------------------------------
+    warm, n_win, per = FROZEN_WINDOWS
+    opt = tf.FrozenTrajOptimizer(cloud10, K_np, path10, q10, prob, cfg, tf.FrozenPlanConfig(),
+                                 device=dev)
+    params = init_traj_params(path10, q10, dev)
+    st = opt.init(params)
+    for _ in range(warm):
+        params, st, loss0, _ = opt.step(params, st)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    params, st, times = timed_windows(opt, params, st, n_win, per)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    # a step between refreshes reads nothing back: run one under the sync
+    # debug mode, after the pending plan build has finished
+    while opt._steps_since_refresh != 1:
+        params, st, _, _ = opt.step(params, st)
+    if opt._pending is not None:
+        opt._pending.result()
+    sync()
+    if dev.type == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, st, _, _ = opt.step(params, st)
+    except RuntimeError as e:
+        fail(f"FrozenTrajOptimizer: a step between refreshes synchronised with the host: {e}")
+    finally:
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode("default")
+    # the other steps up to the next refresh, traced
+    n_trace = opt.plan_cfg.refresh_every - opt._steps_since_refresh
+    box = [params, st]
+
+    def window():
+        for _ in range(n_trace):
+            box[0], box[1], _, _ = opt.step(box[0], box[1])
+
+    trace = traced_share(window, sync, tf.FROZEN_TILES_RANGE)
+    pairs = frozen_tile_pairs(opt._plan, opt._meta)
+    res["traj"] = {"waypoints": opt._meta.n_sel, "meta": dataclasses.asdict(opt._meta),
+                   "ms_per_step": statistics.median(times), "windows_ms": times,
+                   "peak_mib": peak, "pairs": pairs, "traced_steps": n_trace, "trace": trace,
+                   "stats": dict(opt.stats)}
+    opt.close()
+    print(f"[frozen] FrozenTrajOptimizer on cloud 10 ({len(cloud10)} points) and path 10 "
+          f"({res['traj']['waypoints']} waypoints at stride {stride}, cap {prob.hpr_cap}, "
+          f"lr 0.1/0.02, FrozenPlanConfig() (async refresh every 8 steps)): {warm} warm-up "
+          f"steps, then {n_win} windows of {per} steps "
+          + ", ".join(f"{t:.3f}" for t in times) + f" ms/step (median "
+          f"{res['traj']['ms_per_step']:.3f}; the routed step 692-1,090), peak {peak:.1f} MiB; "
+          f"plan {res['traj']['meta']}, {pairs[0]:.4e} pairs per forward ({pairs[1]:.4e} in "
+          f"tiles holding a query, the tiles computed); {opt.stats['refreshes']} refreshes, blocked build "
+          f"{opt.stats['build_s']:.3f} s, swaps {opt.stats['swap_s']:.3f} s; a step between "
+          f"refreshes under set_sync_debug_mode('error'): no host sync", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) at a refresh, on the card -------------------------------------
+    P = torch.as_tensor(cloud10, device=dev)
+    p0, qq0 = torch.as_tensor(path10, device=dev), torch.as_tensor(q10, device=dev)
+    sel = slice(None, None, stride)
+    plan_e, meta_e = tf.build_traj_plan(cloud10, None, path10[sel], q10[sel], K_np, prob)
+    dplan_e = tf.put_plan(plan_e, meta_e, dev)
+    plan_s, meta_s = tf.build_traj_plan(cloud10, None, path10[sel], q10[sel], K_np, prob,
+                                        embed=False)
+    dplan_s = tf.put_plan(plan_s, meta_s, dev)
+    start = init_traj_params(path10, q10, dev)
+    l_f, a_f, g_f = value_and_grad(lambda p: tf.traj_forward_frozen(
+        p, dplan_e, meta_e, P, K, p0, qq0, prob), start)
+    l_r, a_r, g_r = value_and_grad(lambda p: traj_forward(p, P, K, p0, qq0, prob), start)
+    l_s, a_s, g_s = value_and_grad(lambda p: tf.traj_forward_frozen_mean(
+        p, dplan_s, meta_s, P, K, p0, qq0, prob), start)
+
+    def relnorm(a, b):
+        return float(torch.linalg.norm((a - b).double()) / torch.linalg.norm(b.double()))
+
+    gap = {"loss": abs(float(l_f) - float(l_r)) / abs(float(l_r)),
+           "rewards": float((a_f["rewards"] - a_r["rewards"]).abs().max()),
+           "grad": max(relnorm(g_f[k], g_r[k]) for k in g_f)}
+    mean_gap = {"loss": abs(float(l_s) - float(l_f)) / abs(float(l_f)),
+                "mean_reward": abs(float(a_s["mean_reward"]) - float(a_f["mean_reward"])),
+                "grad": max(relnorm(g_s[k], g_f[k]) for k in g_f)}
+    if not (finite(l_f, l_s, *g_f.values(), *g_s.values()) and gap["loss"] < FROZEN_PINS["loss"]
+            and gap["rewards"] < FROZEN_PINS["rewards"] and gap["grad"] < FROZEN_PINS["grad"]):
+        fail(f"frozen loss at a refresh against the routed binned tier on cloud 10: {gap} "
+             f"(pins {FROZEN_PINS})")
+    if not (mean_gap["loss"] < FROZEN_PINS["mean"] and mean_gap["mean_reward"] < 1e-6
+            and mean_gap["grad"] < FROZEN_PINS["grad"]):
+        fail(f"sparse mean against the embedding path on cloud 10: {mean_gap} "
+             f"(pins {FROZEN_PINS})")
+
+    def mean_step(dtype):
+        c = lambda x: x.to(dtype)  # noqa: E731
+        plan = {k: (v.to(dtype) if v.is_floating_point() else v) for k, v in dplan_s.items()}
+        loss, _, g = value_and_grad(lambda p: tf.traj_forward_frozen_mean(
+            p, plan, meta_s, c(P), c(K), c(p0), c(qq0), prob), {k: c(v) for k, v in start.items()})
+        return [loss.cpu().double()] + [g[k].cpu().double() for k in ("poses", "quats")]
+
+    s32, s64 = mean_step(torch.float32), mean_step(torch.float64)
+    f64_err = [float((x - y).abs().max()) / float(y.abs().max()) for x, y in zip(s32, s64)]
+    if not max(f64_err) <= BINNED_TOL:
+        fail(f"frozen step on cloud 10, f32 against float64 on the card: relative max |err| "
+             f"(loss, poses, quats) {f64_err} (pin {BINNED_TOL})")
+    res["refresh"] = {"vs_routed": gap, "mean_vs_embed": mean_gap, "f32_vs_f64": f64_err}
+    print(f"[frozen] at a refresh on cloud 10 ({meta_e.n_sel} waypoints): frozen against the "
+          f"per-step routed binned tier loss rel {gap['loss']:.2e}, rewards max |diff| "
+          f"{gap['rewards']:.2e}, gradient relnorm {gap['grad']:.2e} (pins "
+          f"{FROZEN_PINS['loss']}, {FROZEN_PINS['rewards']}, {FROZEN_PINS['grad']}); the "
+          f"sparse mean against the embedding path loss rel {mean_gap['loss']:.2e}, mean "
+          f"reward {mean_gap['mean_reward']:.2e}, gradient {mean_gap['grad']:.2e}; the f32 "
+          f"step against float64, relative max |err| loss, poses, quats "
+          + ", ".join(f"{e:.2e}" for e in f64_err)
+          + f" (pin {BINNED_TOL}; the routed step's quaternion gradient 5.8e-3)", flush=True)
+    del dplan_e, dplan_s, P, a_f, a_r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) bench_frozen_pose_long_range ----------------------------------
+    n, steps = FROZEN_POSE
+    pts = np.random.default_rng(0).uniform(-40, 40, size=(n, 3)).astype(np.float32)
+    pprob = PoseProblem(intr.width, intr.height, min_dist=1.0, max_dist=12.0, soft_hpr=True)
+    pcfg = OptimizerConfig(lr_pose=0.02, lr_quat=0.02)
+    popt = tf.FrozenPoseOptimizer(
+        pts, K_np, pprob, pcfg,
+        tf.FrozenPlanConfig(refresh_every=10_000, async_refresh=False, prewarm=False), device=dev)
+    pp = init_pose_params(np.zeros(3), np.asarray([1.0, 0, 0, 0]), dev)
+    pst = popt.init(pp)
+    pp, pst, pl0, _ = popt.step(pp, pst)
+    pp, pst, _, _ = popt.step(pp, pst)  # warm-up
+    pp, pst, ptimes = timed_windows(popt, pp, pst, 1, steps)
+    pl1 = float(popt.step(pp, pst)[2])
+    pmeta, ppairs = popt._meta, frozen_tile_pairs(popt._plan, popt._meta)
+    popt.close()
+    ref = PoseOptimizer(device=dev, soft_hpr=True, min_dist=1.0, max_dist=12.0, lr_pose=0.02,
+                        lr_quat=0.02)
+    r0 = ref.optimize(pts, [0.0, 0.0, 0.0], n_steps=0)
+    ref.optimize(pts, [0.0, 0.0, 0.0], n_steps=2)  # warm-up
+    sync()
+    t0 = time.perf_counter()
+    ref.optimize(pts, [0.0, 0.0, 0.0], n_steps=steps)
+    sync()
+    routed_ms = (time.perf_counter() - t0) * 1e3 / steps
+    pose_gap = abs(float(pl0) - r0.loss) / abs(r0.loss)
+    if not (pose_gap < FROZEN_PINS["variant"] and pl1 < float(pl0)):
+        fail(f"FrozenPoseOptimizer at {n} points: first loss {float(pl0)} against the per-step "
+             f"{r0.loss} (rel {pose_gap:.2e}, pin {FROZEN_PINS['variant']}); after {steps + 2} "
+             f"steps {pl1}")
+    res["pose"] = {"n": n, "steps": steps, "ms_per_step": ptimes[0], "routed_ms": routed_ms,
+                   "first_loss_gap": pose_gap, "loss": (float(pl0), pl1),
+                   "meta": dataclasses.asdict(pmeta), "pairs": ppairs}
+    print(f"[frozen] FrozenPoseOptimizer on bench_frozen_pose_long_range's cloud ({n} uniform "
+          f"+-40 m points, min_dist 1, max_dist 12, refresh_every 10,000): {steps} steps "
+          f"{ptimes[0]:.3f} ms/step, the per-step soft pose step (PoseOptimizer(soft_hpr=True)) "
+          f"{routed_ms:.3f} ms/step; first loss against the per-step loss rel {pose_gap:.2e} "
+          f"(pin {FROZEN_PINS['variant']}), loss {float(pl0):.6f} -> {pl1:.6f}; plan "
+          f"{res['pose']['meta']}", flush=True)
+    del pts, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) the waypoints demo's shape ------------------------------------
+    wprob = WpsOptProblem(intr.width, intr.height, soft_hpr=True)
+    wparams, wfrozen = init_wps_params(path10, q10, dev)
+    wopt = tf.FrozenWpsOptimizer(cloud10, K_np, wfrozen, wprob,
+                                 OptimizerConfig(lr_pose=0.02, lr_quat=0.02),
+                                 tf.FrozenPlanConfig(), device=dev)
+    wst = wopt.init(wparams)
+    wp1, wst, wl0, _ = wopt.step(wparams, wst)
+    wp1, wst, wtimes = timed_windows(wopt, wp1, wst, 1, FROZEN_WPS_STEPS)
+    wl1 = float(wopt.step(wp1, wst)[2])
+    wmeta, wpairs = wopt._meta, frozen_tile_pairs(wopt._plan, wopt._meta)
+    wopt.close()
+    with torch.no_grad():
+        wl_ref, _ = wps_forward(wparams, wfrozen, torch.as_tensor(cloud10, device=dev), K, wprob)
+    wps_gap = abs(float(wl0) - float(wl_ref)) / abs(float(wl_ref))
+    if not (wps_gap < FROZEN_PINS["variant"] and wl1 < float(wl0)):
+        fail(f"FrozenWpsOptimizer on cloud 10: first loss {float(wl0)} against the per-step "
+             f"{float(wl_ref)} (rel {wps_gap:.2e}, pin {FROZEN_PINS['variant']}); after "
+             f"{FROZEN_WPS_STEPS + 1} steps {wl1}")
+    res["wps"] = {"waypoints": len(path10), "steps": FROZEN_WPS_STEPS, "ms_per_step": wtimes[0],
+                  "first_loss_gap": wps_gap, "loss": (float(wl0), wl1),
+                  "meta": dataclasses.asdict(wmeta), "pairs": wpairs}
+    print(f"[frozen] FrozenWpsOptimizer on cloud 10 and path 10 ({len(path10)} waypoints, cap "
+          f"{wprob.hpr_cap}, lr 0.02/0.02): {FROZEN_WPS_STEPS} steps {wtimes[0]:.3f} ms/step "
+          f"(the per-step soft waypoints 2,530-3,028); first loss against the per-step "
+          f"wps_forward rel {wps_gap:.2e} (pin {FROZEN_PINS['variant']}), loss "
+          f"{float(wl0):.6f} -> {wl1:.6f}; plan {res['wps']['meta']}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (e) bench_occl_traj_worst_window ----------------------------------
+    n_steps, win = WORST
+    path_d = (path10 + np.array([0.0, 0.0, 12.0], np.float32)).astype(np.float32)
+    dprob = TrajProblem(intr.width, intr.height, wps_step=waypoint_stride(path_d, 0.5),
+                        soft_hpr=True, soft_hpr_dense_max=0)
+    opt = tf.FrozenTrajOptimizer(cloud10, K_np, path_d, q10, dprob, cfg, tf.FrozenPlanConfig(),
+                                 device=dev)
+    params = init_traj_params(path_d, q10, dev)
+    st = opt.init(params)
+    for _ in range(2):
+        params, st, _, _ = opt.step(params, st)
+    params, st, wins = timed_windows(opt, params, st, n_steps // win, win)
+    res["worst"] = {"steps": n_steps // win * win, "window": win,
+                    "median_ms": statistics.median(wins), "worst_ms": max(wins),
+                    "windows_ms": wins, "stats": dict(opt.stats),
+                    "last_meta": dataclasses.asdict(opt._meta)}
+    opt.close()
+    print(f"[frozen] bench_occl_traj_worst_window: path 10 displaced +12 m in z, "
+          f"FrozenPlanConfig() (async refresh every 8), {res['worst']['steps']} steps in windows "
+          f"of {win}: median {res['worst']['median_ms']:.3f}, worst {max(wins):.3f} ms/step; "
+          f"{opt.stats['refreshes']} refreshes, blocked build {opt.stats['build_s']:.3f} s; "
+          f"last plan {res['worst']['last_meta']}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def print_frozen_times(card: str, fr) -> None:
+    """[frozen]'s lines under [times], and its bounds into ``fr["bounds"]``:
+    a frozen step runs its tiles once forward and once backward."""
+    ops = BINNED_OPS["forward"] + BINNED_OPS["backward"]
+    fr["bounds"] = {k: bound(0, fr[k]["pairs"][1] * ops) for k in ("traj", "pose", "wps")}
+    t = fr["traj"]
+    wall, busy, tiles, n_ops = t["trace"]
+    n = t["traced_steps"]
+    b = fr["bounds"]
+    print(f"[times] {card} | frozen traj step (cloud 10, {t['waypoints']} waypoints): "
+          f"{t['ms_per_step']:.3f} ms/step (median of {len(t['windows_ms'])} windows, refreshes "
+          f"included), peak {t['peak_mib']:.1f} MiB; {n} steps between refreshes traced: "
+          + (f"{wall / n:.3f} ms/step, device time not measured (no device activity)"
+             if busy is None else
+             f"{wall / n:.3f} ms/step, {n_ops / n:.1f} device operations/step, device busy "
+             f"{busy / n:.3f} ms/step ({100 * busy / wall:.1f}% of the traced time), the tiles "
+             f"{tiles / n:.3f} ms/step ({100 * tiles / busy:.1f}% of the busy time)")
+          + f"; {t['pairs'][1]:.4e} pairs in tiles holding a query ({t['pairs'][0]:.4e} in all), "
+          f"bound {b['traj'][0]:.4f} ms by {b['traj'][1]}; pose at {fr['pose']['n']} points "
+          f"{fr['pose']['ms_per_step']:.3f} ms/step (per-step {fr['pose']['routed_ms']:.3f}), "
+          f"bound {b['pose'][0]:.4f} ms by {b['pose'][1]}; waypoints (27) "
+          f"{fr['wps']['ms_per_step']:.3f} ms/step, bound {b['wps'][0]:.4f} ms by {b['wps'][1]}; "
+          f"worst window: median {fr['worst']['median_ms']:.3f}, worst "
+          f"{fr['worst']['worst_ms']:.3f} ms/step", flush=True)
+
+
 def traced_share(fn, sync, range_name=None):
     """(wall ms, device-busy ms, device ms of the kernels launched inside
     ``ops.hpr``'s profiler ranges named ``range_name`` (the soft dominance
@@ -2293,7 +2635,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     hp = hpr_checks(dev, intr, cloud10, path10, sync, cuda_ms)
 
-    # ---- 9. times ----------------------------------------------------------
+    # ---- 9. the frozen-routing engine --------------------------------------
+    torch.cuda.empty_cache()
+    fr = frozen_checks(dev, intr, cloud10, path10, sync)
+
+    # ---- 10. times ---------------------------------------------------------
     for c in cases:
         n = 50 if c["name"] == "ref" else 10
         for backend in ("kernel", "torch"):
@@ -2410,6 +2756,7 @@ def main() -> int:
           flush=True)
 
     print_hpr_times(card, hp)
+    print_frozen_times(card, fr)
 
     def vis_entry(n):
         b_ref = vis_bound(n, *shape_wn["ref"], skips["ref"], prunes["ref"])
@@ -2464,7 +2811,7 @@ def main() -> int:
                         "pose_ms_per_step": nodes["pose_ms_per_step"],
                         "pose_card_vs_cpu": nodes["pose_card_vs_cpu"],
                         "voxel_filter_ms_8m": nodes["voxel_filter_ms_8m"]},
-              "hpr": hp}
+              "hpr": hp, "frozen": fr}
     for e in record["kernels"]:
         nums = [v for k, v in e.items() if k.endswith("ms") or k == "max_abs_err"]
         if not all(isinstance(x, (int, float)) and math.isfinite(x) for x in nums if x is not None):

@@ -6,6 +6,12 @@ from trajectory_optimization_tpu_torch.models.traj import (
     waypoint_stride,
 )
 from trajectory_optimization_tpu_torch.models.evaluate import TrajEvalResult, evaluate_trajectory
+from trajectory_optimization_tpu_torch.models.traj_frozen import (
+    FrozenPlanConfig,
+    FrozenPoseOptimizer,
+    FrozenTrajOptimizer,
+    FrozenWpsOptimizer,
+)
 from trajectory_optimization_tpu_torch.models.wps_opt import (
     WpsOptProblem,
     init_wps_params,
@@ -15,6 +21,10 @@ from trajectory_optimization_tpu_torch.models.wps_opt import (
 )
 
 __all__ = [
+    "FrozenPlanConfig",
+    "FrozenPoseOptimizer",
+    "FrozenTrajOptimizer",
+    "FrozenWpsOptimizer",
     "PoseProblem",
     "pose_forward",
     "init_pose_params",

@@ -71,8 +71,9 @@ def _full_f32_matmul(t: torch.Tensor):
 
 def _maximum(x: torch.Tensor, floor: float) -> torch.Tensor:
     """max(x, floor) with the cotangent split 0.5/0.5 at a tie, as
-    ``jnp.maximum`` splits it (``torch.clamp`` passes all of it)."""
-    return torch.maximum(x, x.new_tensor(floor))
+    ``jnp.maximum`` splits it (``torch.clamp`` passes all of it). The floor
+    is filled on the tensor's device: no host-to-device copy."""
+    return torch.maximum(x, torch.full((), floor, dtype=x.dtype, device=x.device))
 
 
 def spherical_flip(points: torch.Tensor, r_param: float = 2.0) -> torch.Tensor:

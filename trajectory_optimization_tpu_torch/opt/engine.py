@@ -6,7 +6,8 @@ Twin of ``trajectory_optimization_tpu/opt/engine.py``:
     ``optax.adam(eps_root=0)``, which is ``torch.optim.Adam``'s: bias-corrected
     moments, eps added outside the sqrt. It is written as a small functional
     Adam on tensors (``adam_init`` / ``adam_update``) so an update can be
-    masked;
+    masked; ``make_optimizer`` wraps it as the twin's ``init``/``update``
+    transformation;
   * ExponentialLR stepped every k iterations (:func:`exponential_every`);
   * early stop on the visibility / smoothness gains without a host sync per
     step: ``done`` stays a device bool, every update after it is masked to a
@@ -77,6 +78,24 @@ def adam_init(params: Dict[str, torch.Tensor]) -> Dict:
     }
 
 
+def _adam_steps(grads: Dict[str, torch.Tensor], state: Dict, cfg: OptimizerConfig, lrs: Dict):
+    """Adam's additive updates -lr·m̂/(√v̂ + eps) per parameter, the new
+    moments and the new count."""
+    count = state["count"]
+    count_inc = count + 1
+    t = count_inc.to(torch.float32)
+    bc1 = 1.0 - cfg.b1 ** t
+    bc2 = 1.0 - cfg.b2 ** t
+    steps, mu, nu = {}, {}, {}
+    for k, g in grads.items():
+        m = (1.0 - cfg.b1) * g + cfg.b1 * state["mu"][k]
+        v = (1.0 - cfg.b2) * (g * g) + cfg.b2 * state["nu"][k]
+        u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        lr = lrs[k]
+        steps[k], mu[k], nu[k] = (-lr(count) if callable(lr) else -lr) * u, m, v
+    return steps, mu, nu, count_inc
+
+
 @torch.no_grad()
 def adam_update(
     grads: Dict[str, torch.Tensor],
@@ -89,19 +108,8 @@ def adam_update(
     """One Adam step; returns (new_params, new_state). Where the device bool
     ``frozen`` is true, parameters and state come back unchanged."""
     count = state["count"]
-    count_inc = count + 1
-    t = count_inc.to(torch.float32)
-    bc1 = 1.0 - cfg.b1 ** t
-    bc2 = 1.0 - cfg.b2 ** t
-    new_p, mu, nu = {}, {}, {}
-    for k, p in params.items():
-        g = grads[k]
-        m = (1.0 - cfg.b1) * g + cfg.b1 * state["mu"][k]
-        v = (1.0 - cfg.b2) * (g * g) + cfg.b2 * state["nu"][k]
-        u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        lr = lrs[k]
-        step = (-lr(count) if callable(lr) else -lr) * u
-        new_p[k], mu[k], nu[k] = p + step, m, v
+    steps, mu, nu, count_inc = _adam_steps({k: grads[k] for k in params}, state, cfg, lrs)
+    new_p = {k: p + steps[k] for k, p in params.items()}
     if frozen is not None:
         keep = lambda old, new: torch.where(frozen, old, new)  # noqa: E731
         new_p = {k: keep(params[k], new_p[k]) for k in params}
@@ -109,6 +117,41 @@ def adam_update(
         nu = {k: keep(state["nu"][k], nu[k]) for k in params}
         count_inc = keep(count, count_inc)
     return new_p, {"mu": mu, "nu": nu, "count": count_inc}
+
+
+class GradientTransformation:
+    """Two-group Adam as an ``init``/``update`` pair, the shape of the JAX
+    twin's optax transformation: ``update(grads, state, params)`` returns
+    the additive updates and the new state, and ``apply_updates`` adds
+    them. The updates are :func:`adam_update`'s steps, so ``params +
+    updates`` equals its new parameters bit for bit."""
+
+    def __init__(self, cfg: OptimizerConfig, lrs: Dict):
+        self.cfg, self.lrs = cfg, lrs
+
+    def init(self, params: Dict[str, torch.Tensor]) -> Dict:
+        return adam_init(params)
+
+    @torch.no_grad()
+    def update(self, grads: Dict[str, torch.Tensor], state: Dict, params=None):
+        steps, mu, nu, count = _adam_steps(grads, state, self.cfg, self.lrs)
+        return steps, {"mu": mu, "nu": nu, "count": count}
+
+
+def make_optimizer(
+    cfg: OptimizerConfig, pose_key: str = "poses", quat_key: str = "quats"
+) -> GradientTransformation:
+    """Two-group Adam over a {pose_key: ..., quat_key: ...} parameter dict:
+    ``lr_pose`` on the first, ``lr_quat`` on the second, each decayed by
+    :func:`exponential_every` when ``decay_gamma`` and ``decay_every`` are
+    set."""
+    return GradientTransformation(cfg, group_lrs(cfg, pose_key, quat_key))
+
+
+@torch.no_grad()
+def apply_updates(params: Dict[str, torch.Tensor], updates: Dict[str, torch.Tensor]):
+    """``params + updates``, key by key."""
+    return {k: p + updates[k] for k, p in params.items()}
 
 
 def value_and_grad(loss_fn: LossFn, params: Dict[str, torch.Tensor]):
