@@ -3,10 +3,10 @@ against the JAX package.
 
 Held: every name of each JAX subpackage's ``__all__`` (the top level,
 ``ops``, ``opt``, ``utils``, ``models``, ``bus``) resolves in the port's
-twin, the facade lazily, except ``bus.ViewerNode`` (the viewer is not
-ported yet); ``make_optimizer`` over 5 steps of seeded gradients, with and
-without the exponential decay, under both key pairs of the package
-(``poses``/``quats``, ``xy``/``yaw``, ``trans``/``quat``): within rtol 1e-6
+twin, the facade lazily, ``bus.ViewerNode`` included; ``make_optimizer``
+over 5 steps of seeded gradients, with and without the exponential decay,
+under both key pairs of the package (``poses``/``quats``, ``xy``/``yaw``,
+``trans``/``quat``): within rtol 1e-6
 (atol 1e-7) of the JAX twin's optax transformation, and ``params +
 updates`` ``torch.equal`` to ``adam_update``'s new parameters at every step.
 """
@@ -28,7 +28,7 @@ from trajectory_optimization_tpu_torch.opt import engine as tengine  # noqa: E40
 
 ROOT = Path(__file__).resolve().parents[1]
 SUBPACKAGES = ("", "ops", "opt", "utils", "models", "bus")
-NOT_PORTED = {("bus", "ViewerNode")}
+NOT_PORTED = set()
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)

@@ -54,8 +54,9 @@ import chip_smoke
 bad = sorted(n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r})
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 32, names
-assert {{"models.pose", "ops.voxel", "native"}} <= {{n.split(".", 1)[1] for n in names}}, names
+assert len(names) >= 51, names
+assert {{"models.pose", "ops.voxel", "native", "__main__", "bus.rosbag", "bus.remote",
+         "bus.launch"}} <= {{n.split(".", 1)[1] for n in names}}, names
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,

@@ -687,3 +687,31 @@ def test_hpr_soft_on_the_card_matches_the_cpu(dev):
     assert (dv > 3e-3).mean() <= 2e-3 and dv.max() <= 1e-2
     assert np.isfinite(gc).all()
     assert np.linalg.norm(gc - gh) <= 1e-2 * np.linalg.norm(gh)
+
+
+def test_a_cuda_image_records_as_its_host_twin(dev, tmp_path):
+    """An ``ImageMsg`` whose data lies on the card (as the points processor
+    publishes it) records byte for byte as the same pixels in numpy, in a
+    bag and on the cross-process wire: the sinks take the host copy
+    (``bus.messages.host_image``)."""
+    from trajectory_optimization_tpu_torch.bus import remote, rosbag
+    from trajectory_optimization_tpu_torch.bus.messages import Header, ImageMsg
+
+    rng = np.random.default_rng(0)
+    imgs = [rng.uniform(size=(48, 64, 3)).astype(np.float32),
+            rng.integers(0, 255, size=(48, 64, 3), dtype=np.uint8)]
+    encodings = ["rgb32f", "rgb8"]
+
+    def msgs(on_card):
+        return [(f"/cam{i}/image", ImageMsg(
+            Header(stamp=1.0 + i, frame_id=f"cam{i}", seq=i),
+            torch.as_tensor(a, device=dev) if on_card else a, encoding=e,
+            wire_format="png" if e == "rgb8" else ""))
+            for i, (a, e) in enumerate(zip(imgs, encodings))]
+
+    paths = [str(tmp_path / f"{k}.bag") for k in ("card", "host")]
+    rosbag.write_bag(paths[0], msgs(True))
+    rosbag.write_bag(paths[1], msgs(False))
+    assert Path(paths[0]).read_bytes() == Path(paths[1]).read_bytes()
+    for (_, a), (_, b) in zip(msgs(True), msgs(False)):
+        assert remote._wire_encode(a) == remote._wire_encode(b)

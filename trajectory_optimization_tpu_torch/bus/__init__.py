@@ -15,8 +15,10 @@ from trajectory_optimization_tpu_torch.bus.messages import (
     TransformMsg,
     bgr_to_rgb,
 )
+from trajectory_optimization_tpu_torch.bus.viewer import ViewerNode
 
 __all__ = [
+    "ViewerNode",
     "Bus",
     "Subscription",
     "ApproximateTimeSynchronizer",

@@ -3,9 +3,9 @@
 Twin of ``trajectory_optimization_tpu/bus/messages.py``, copied for the
 messages the ported nodes read and write: ``Header``, ``CloudMsg``,
 ``PoseMsg``, ``PathMsg``, ``CameraInfoMsg``, ``OdometryMsg``, ``ImageMsg``
-(with ``bgr_to_rgb``) and ``TransformMsg``. Messages are immutable
-dataclasses carrying numpy arrays, except ``ImageMsg.data``, which may hold
-a CUDA tensor (see there).
+(with ``bgr_to_rgb``) and ``TransformMsg``, plus ``host_image``. Messages
+are immutable dataclasses carrying numpy arrays, except ``ImageMsg.data``,
+which may hold a CUDA tensor (see there).
 
 Quaternion conventions: bus messages carry xyzw (ROS wire order); device math
 uses wxyz.
@@ -149,6 +149,19 @@ class ImageMsg:
     data: "np.ndarray"
     encoding: str = "bgr8"
     wire_format: str = ""
+
+
+def host_image(data) -> np.ndarray:
+    """The host pixels of an ``ImageMsg.data``: a tensor (a CUDA one
+    included) is copied with ``.cpu()``, anything else read by
+    ``np.asarray``. Only the sinks that need the bytes call it (recording,
+    the cross-process wire, extraction): the points processor still
+    publishes on the card."""
+    import torch
+
+    if isinstance(data, torch.Tensor):
+        return data.detach().cpu().numpy()
+    return np.asarray(data)
 
 
 def bgr_to_rgb(img: "np.ndarray", encoding: str) -> "np.ndarray":

@@ -58,9 +58,9 @@ from trajectory_optimization_tpu_torch.ops.hpr import (
     _binned_grids,
     _full_f32_matmul,
     _maximum,
+    gate_norms,
     SOFT_BINNED_DEFAULTS as _HPR_DEF,
 )
-from trajectory_optimization_tpu_torch.ops.numerics import safe_norm
 from trajectory_optimization_tpu_torch.ops.scores import (
     camera_frames,
     camera_planes,
@@ -785,10 +785,13 @@ def _frozen_vis(
             cxp, cyp, czp, K, problem.img_width, problem.img_height,
             min_dist=problem.min_dist, max_dist=problem.max_dist,
             eps=problem.eps)  # (W, N)
-    n2 = cxp * cxp + cyp * cyp + czp * czp
+    # the norms as the routed tier takes them (gate_norms), so that a refresh
+    # equals it; on cloud 10 this moves the f32 step from 8.4e-4 of its
+    # largest entry off float64 to 3.0e-3 (chip_smoke.py [frozen], NVIDIA H100)
+    norms = gate_norms(torch.stack([cxp, cyp, czp], dim=-1))  # (W, N)
     if valid is not None:
-        n2 = torch.where(valid[None, :] > 0, n2, 0.0)
-    maxnorm = torch.sqrt(torch.amax(n2, dim=-1))  # (W,); amax splits ties as jnp.max
+        norms = torch.where(valid[None, :] > 0, norms, 0.0)
+    maxnorm = torch.amax(norms, dim=-1)  # (W,); amax splits ties as jnp.max
     if norm_allreduce is not None:
         maxnorm = norm_allreduce(maxnorm)
     radius = _maximum(maxnorm, 1e-12) * 10.0 ** r_param
@@ -797,14 +800,14 @@ def _frozen_vis(
 
     R, tR = camera_frames(quats_sel, poses_sel)
     qcam = _cam_planes_nd(plan["q_xyz"], R, tR)  # (W, G, M, 3)
-    qn = safe_norm(qcam, dim=-1)
+    qn = gate_norms(qcam)
     q_rho = 2.0 * radius[:, None, None] - qn
     qu = qcam / _maximum(qn, 1e-12)[..., None]
 
     # coverers: self-covering tiles reuse the query data; big-bin query-chunk
     # tiles pick their rows from the compact (W, G, TB, cap) ext arrays
     ccam_ext = _cam_planes_nd(plan["c_xyz_ext"], R, tR)  # (W, G, TB, cap, 3)
-    cn_ext = safe_norm(ccam_ext, dim=-1)
+    cn_ext = gate_norms(ccam_ext)
     c_rho_ext = 2.0 * radius[:, None, None, None] - cn_ext
     cu_ext = ccam_ext / _maximum(cn_ext, 1e-12)[..., None]
 

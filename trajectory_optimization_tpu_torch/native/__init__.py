@@ -1,14 +1,17 @@
 """ctypes loader for the native C++ host library, with numpy fallbacks.
 
-Twin of ``trajectory_optimization_tpu/native/__init__.py`` for its voxel and
-frustum entry points. ``trajopt_native.cpp`` and ``Makefile`` are copies of
-the JAX package's. The library is built on first use with ``g++`` and the
+Twin of ``trajectory_optimization_tpu/native/__init__.py``: the voxel and
+frustum entry points and the codec ones (lz4, jpeg, png) that ``bus/``
+calls. ``trajopt_native.cpp`` and ``Makefile`` are copies of the JAX
+package's. The library is built on first use with ``g++`` and the
 Makefile's flags (``make`` need not be installed) into
 ``build/torch_native/`` at the repository root, named by a digest of the
 sources and the flags, and never into the package directory. Without a
 toolchain every entry point falls back to the port's numpy or PyTorch
-implementation: same semantics, slower. The codec entry points in the C++
-source (lz4, jpeg, png) stay unbound until their bus modules are ported.
+implementation: same semantics, slower. A codec entry point returns None
+then, and its bus module takes its numpy path (same bytes). The digest in
+the library's name takes the place of the JAX loader's ``_stale`` check:
+a library built from other sources is never loaded.
 """
 from __future__ import annotations
 
@@ -97,6 +100,22 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
             ctypes.c_float, ctypes.c_float, ctypes.POINTER(ctypes.c_uint8),
         ]
+        u8p, i32, i64 = ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32, ctypes.c_int64
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        lib.lz4_block_decode.restype = i64
+        lib.lz4_block_decode.argtypes = [u8p, i64, u8p, i64, i64]
+        lib.lz4_block_encode.restype = i64
+        lib.lz4_block_encode.argtypes = [u8p, i64, u8p, i64]
+        lib.jpeg_probe.restype = i32
+        lib.jpeg_probe.argtypes = [u8p, i64, i32p, i32p, i32p]
+        lib.jpeg_decode.restype = i64
+        lib.jpeg_decode.argtypes = [u8p, i64, u8p, i64]
+        lib.jpeg_encode.restype = i64
+        lib.jpeg_encode.argtypes = [u8p, i32, i32, i32, i32, u8p, i64]
+        lib.jpeg_encode_sub.restype = i64
+        lib.jpeg_encode_sub.argtypes = [u8p, i32, i32, i32, i32, i32, u8p, i64]
+        lib.png_unfilter.restype = i32
+        lib.png_unfilter.argtypes = [u8p, i64, i64, i32, u8p]
         _lib = lib
         return _lib
 
@@ -191,3 +210,135 @@ def occupancy_grid_native(
         grid.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
     )
     return grid.astype(np.float64)
+
+
+def _u8p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def jpeg_decode_native(data: bytes) -> Optional[np.ndarray]:
+    """Decode a baseline or progressive JPEG with the C++ from-spec decoder.
+
+    Returns (H, W) gray or (H, W, 3) RGB uint8; None when the native
+    library is unavailable (callers fall back to the numpy decoder in
+    ``bus.jpeg``, identical numerics). Raises the ``bus.jpeg`` exception
+    types on malformed or unsupported streams, as the numpy decoder does.
+    """
+    lib = _load()
+    if lib is None:
+        return None
+    from trajectory_optimization_tpu_torch.bus.jpeg import JpegError, UnsupportedJpegError
+
+    src = np.frombuffer(data, dtype=np.uint8)
+    h, w, nc = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
+    rc = lib.jpeg_probe(_u8p(src), len(src), ctypes.byref(h), ctypes.byref(w),
+                        ctypes.byref(nc))
+    if rc == -2:
+        raise UnsupportedJpegError("unsupported JPEG coding (native probe)")
+    if rc != 0:
+        raise JpegError("malformed JPEG (native probe)")
+    out = np.empty(h.value * w.value * nc.value, dtype=np.uint8)
+    n = lib.jpeg_decode(_u8p(src), len(src), _u8p(out), out.shape[0])
+    if n == -2:
+        raise UnsupportedJpegError("unsupported JPEG coding (native decode)")
+    if n < 0:
+        raise JpegError(f"malformed JPEG (native decode rc={n})")
+    if nc.value == 1:
+        return out.reshape(h.value, w.value)
+    return out.reshape(h.value, w.value, nc.value)
+
+
+def jpeg_encode_native(img: np.ndarray, quality: int = 85,
+                       subsampling: str = "444") -> Optional[bytes]:
+    """Encode uint8 gray or (H, W, 3) RGB as baseline JPEG (4:4:4 or 4:2:0)
+    in C++. Returns None when the native library is unavailable or the
+    output outgrows 4× the raw size (``bus.jpeg``'s numpy encoder, same
+    tables and bytes, is the fallback)."""
+    lib = _load()
+    if lib is None:
+        return None
+    img = np.asarray(img)
+    sub420 = subsampling == "420" and img.ndim == 3  # gray has no chroma
+    if img.dtype != np.uint8:
+        raise ValueError(f"JPEG encode needs uint8 input, got {img.dtype}")
+    img = np.ascontiguousarray(img)
+    if img.ndim == 2:
+        ncomp = 1
+    elif img.ndim == 3 and img.shape[2] == 3:
+        ncomp = 3
+    else:
+        raise ValueError(f"cannot encode shape {img.shape} as JPEG")
+    h, w = int(img.shape[0]), int(img.shape[1])
+    if h == 0 or w == 0:
+        raise ValueError("empty image")
+    # entropy-coded noise at quality ~100 can exceed the raw size (~2.2x):
+    # 2x + headers, then once at 4x, then the growable numpy encoder
+    for mult in (2, 4):
+        cap = mult * h * w * ncomp + (1 << 16)
+        out = np.empty(cap, dtype=np.uint8)
+        if sub420:
+            n = lib.jpeg_encode_sub(_u8p(img), h, w, ncomp, int(quality), 1, _u8p(out), cap)
+        else:
+            n = lib.jpeg_encode(_u8p(img), h, w, ncomp, int(quality), _u8p(out), cap)
+        if n != -3:  # -3 = output buffer overflow
+            break
+    if n == -3:
+        return None
+    if n < 0:
+        raise ValueError(f"native jpeg_encode failed rc={n}")
+    return out[:n].tobytes()
+
+
+def png_unfilter_native(raw: bytes, height: int, stride: int,
+                        bpp: int) -> Optional[np.ndarray]:
+    """Undo PNG scanline filtering natively -> (height, stride) uint8.
+
+    Returns None when the native library is unavailable (``bus.png`` falls
+    back to its numpy loops). Raises ValueError on a bad filter byte, as
+    the fallback does.
+    """
+    lib = _load()
+    if lib is None:
+        return None
+    src = np.frombuffer(raw, dtype=np.uint8)
+    out = np.empty((height, stride), dtype=np.uint8)
+    if lib.png_unfilter(_u8p(src), int(height), int(stride), int(bpp), _u8p(out)) != 0:
+        raise ValueError("bad PNG filter type")
+    return out
+
+
+def lz4_block_encode_native(src: bytes) -> Optional[bytes]:
+    """Compress one LZ4 block in C++. Returns the compressed bytes, ``b""``
+    when the data does not shrink (the caller stores the block; the
+    encoders are bit-identical, so retrying in Python gains nothing), or
+    None when the native library is unavailable (the caller falls back to
+    the numpy encoder)."""
+    lib = _load()
+    if lib is None:
+        return None
+    s = np.frombuffer(src, dtype=np.uint8)
+    cap = len(s) - 1
+    if cap <= 0:
+        return b""
+    dst = np.empty(cap, dtype=np.uint8)
+    n = lib.lz4_block_encode(_u8p(s), len(s), _u8p(dst), cap)
+    if n < 0:
+        return b""
+    return dst[:n].tobytes()
+
+
+def lz4_block_decode_native(src: bytes, dst: np.ndarray, dst_pos: int):
+    """Decode one LZ4 block into ``dst`` (uint8, C-contiguous) at ``dst_pos``.
+
+    Returns the new write position, or None when the native library is
+    unavailable (callers fall back to the numpy decoder in ``bus.lz4``).
+    Raises ValueError on malformed input or too little capacity.
+    """
+    lib = _load()
+    if lib is None:
+        return None
+    s = np.frombuffer(src, dtype=np.uint8)
+    new_pos = lib.lz4_block_decode(_u8p(s), len(s), _u8p(dst), int(dst_pos), int(dst.shape[0]))
+    if new_pos < 0:
+        raise ValueError("malformed LZ4 block (or output buffer too small)")
+    return int(new_pos)

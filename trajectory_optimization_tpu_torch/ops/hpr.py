@@ -76,6 +76,16 @@ def _maximum(x: torch.Tensor, floor: float) -> torch.Tensor:
     return torch.maximum(x, torch.full((), floor, dtype=x.dtype, device=x.device))
 
 
+def gate_norms(points: torch.Tensor) -> torch.Tensor:
+    """‖p‖ over the last axis of ``points``, in float64 and rounded once to
+    their dtype (``safe_norm``: gradient 0 at ‖p‖ = 0): the binned and frozen
+    soft gates' ρ and directions. With the card's f32 sum of squares an f32
+    binned trajectory step came 5.8e-3 of its largest entry from float64
+    (the CPU's 2.8e-4); with the norms rounded once, 2.5e-4 (chip_smoke.py
+    [hpr], NVIDIA H100)."""
+    return safe_norm(points.to(torch.float64), dim=-1).to(points.dtype)
+
+
 def spherical_flip(points: torch.Tensor, r_param: float = 2.0) -> torch.Tensor:
     """Katz spherical flip of (N, 3) points: p' = p·(2R − ‖p‖)/‖p‖ + p with
     R = max‖p‖·10^r_param. Differentiable, with a finite gradient at
@@ -574,7 +584,7 @@ def hpr_mask_soft_binned(
     n = points.shape[0]
     cap = min(cap, n)
     dev = points.device
-    norms = safe_norm(points, dim=-1)  # a finite gradient at ‖p‖ = 0
+    norms = gate_norms(points)  # a finite gradient at ‖p‖ = 0
     if valid is not None:
         v = valid > 0
         norms_v = torch.where(v, norms, torch.zeros_like(norms))
