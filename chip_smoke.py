@@ -156,7 +156,25 @@ Phases, each printing one line (any failure raises and exits non-zero):
    node's own after ``.cpu()``; the worker's start-up seconds, each preset's
    msgs/s in-process and with processes (three windows of at least 8
    messages and 2 s), and the recorder's MB/s (five passes).
-11. times — per-stage and per-step ms, kernel and plain, peak memory, and
+11. parallel — the parallel layer (``parallel/``) over ``torch.distributed``.
+   D = 1 over nccl in this process at 1m50: ``sharded_fused_lo_sum``'s lo
+   and gradients and 20 ``make_sharded_train_step`` steps ``torch.equal``
+   to ``fused_lo_sum`` and the single-card step. Then four ranks spawned
+   over gloo, all on cuda:0 (NCCL refuses two ranks on one device): the
+   2-rank mesh at 1m50, cached and with the cache forced off (lo
+   ``torch.equal``; gradients within the JAX suite's pins, ``PAR_PINS``;
+   each of 20 steps within them of the single-card step taken from the same
+   parameters and Adam state, the 20 losses within them of the single-card
+   run's; the parameters' end-to-end gap is printed, not held: a
+   discontinuous gradient under Adam grows f32 summation order to ~1e-2
+   in 20 steps), K1–K4 or K1′/K2′/K5 launched in each rank; the 2x2 mesh at cloud 10 x 27 (lo and gradients within the pins,
+   K1–K4 launched on every rank); at D = 2 on cloud 10 the soft-HPR
+   modules against their single-card twins (``SOFT_PINS``: the binned mask
+   and its gradient, the pose, waypoints and trajectory losses and
+   gradients, ``FrozenShardedTrajOptimizer`` against
+   ``FrozenTrajOptimizer`` for 8 steps with one refresh). Any failed rank
+   fails the script.
+12. times — per-stage and per-step ms, kernel and plain, peak memory, and
    the device's busy share of a step from a 20-step ``torch.profiler`` trace;
    K6/K7 ms through the wrapper and the kernel alone (``torch.profiler``)
    beside their plain versions, bounds, share of the bound and the first
@@ -174,7 +192,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
    waypoints ms/step, peak memory and the binned tiles' share of a traced
    call, each beside a bound from its tiles' pairs; the frozen engine's
    ms/step beside a bound from the pairs of the tiles it computes; [cli]'s
-   run seconds, start-up seconds, msgs/s and MB/s.
+   run seconds, start-up seconds, msgs/s and MB/s; [parallel]'s ms per
+   configuration, labelled as ranks sharing one card.
 
 The line before the last is the kernels' JSON record (all nine kernels, each
 with its bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -2260,6 +2279,597 @@ def cli_checks(dev, intr, cloud10, path10, sync):
     return res
 
 
+# ---------------------------------------------------------------------------
+# 11. the parallel layer: ranks of torch.distributed on the card
+# ---------------------------------------------------------------------------
+
+PAR_STEPS = 20  # train steps held against the single-card step
+PAR_WORLD = 4  # spawned gloo ranks sharing the card: the 2-rank and 2x2 meshes
+PAR_FROZEN = (8, 4)  # FrozenShardedTrajOptimizer steps, refresh_every: one refresh after the first plan
+# tests/test_sharded_pallas.py's pins: lo, gradients, the train step's losses and params
+PAR_PINS = {"lo": (1e-4, 2e-4), "grad": (2e-3, 2e-3), "loss": 1e-4, "params": (5e-3, 5e-4)}
+# tests/test_hpr_sharded.py's and tests/test_traj_sharded.py's pins for the soft-HPR modules
+SOFT_PINS = {"mean": 1e-4, "far": (0.01, 1e-3), "loss": 1e-4, "grad": 5e-3, "rewards": 5e-5,
+             "runner": 1e-3, "runner_poses": 0.01}
+PAR_WPS = 4  # waypoints of path 10 in the soft waypoints check
+
+
+def parallel_inputs():
+    """The phase's inputs, numpy, made alike in the parent and in every rank:
+    the 1m50 shape of [kernels] (seeded cloud, 50 waypoints, every third
+    rotated), cloud 10 padded to a multiple of 2,048 with the 27 waypoints of
+    path 10 (every third rotated), and seeded cotangents and weights."""
+    import numpy as np
+
+    from trajectory_optimization_tpu_torch.models.traj import waypoint_stride
+    from trajectory_optimization_tpu_torch.utils.data import (
+        identity_quaternions, load_path, load_point_cloud, pad_points)
+
+    rng = np.random.default_rng(0)
+    big_pts = rng.uniform(-20, 20, size=(1_048_576, 3)).astype(np.float32)
+    t = np.linspace(0, 1, 50, dtype=np.float32)
+    big_path = np.stack([30 * t, 10 * np.sin(4 * t), np.zeros_like(t)], axis=1).astype(np.float32)
+    q50 = identity_quaternions(50)
+    q50[::3] = [0.9, 0.1, -0.3, 0.2]
+    cloud10 = load_point_cloud(str(ROOT / "data/points/point_cloud_10.npz"))
+    path10 = load_path(str(ROOT / "data/paths/path_poses_10.npz"))
+    p10, v10 = pad_points(cloud10, multiple=2048)
+    q27 = identity_quaternions(len(path10))
+    q27[::3] = [0.9, 0.1, -0.3, 0.2]
+    q27 = q27 / np.linalg.norm(q27, axis=1, keepdims=True)
+    g = np.random.default_rng(1)
+    return dict(big=big_pts, big_path=big_path, q50=q50,
+                stride50=waypoint_stride(big_path, 0.5), g_big=g.normal(size=len(big_pts)).astype(np.float32),
+                p10=p10, v10=v10, path10=path10, q27=q27, stride10=waypoint_stride(path10, 0.5),
+                g10=g.normal(size=len(p10)).astype(np.float32),
+                w10=g.normal(size=len(p10)).astype(np.float32))
+
+
+def _par_problems(intr, X):
+    from trajectory_optimization_tpu_torch.models.pose import PoseProblem
+    from trajectory_optimization_tpu_torch.models.traj import TrajProblem
+    from trajectory_optimization_tpu_torch.models.wps_opt import WpsOptProblem
+
+    soft = dict(soft_hpr=True, soft_hpr_dense_max=0)
+    return {"traj50": TrajProblem(intr.width, intr.height, wps_step=X["stride50"]),
+            "traj27": TrajProblem(intr.width, intr.height, wps_step=1),
+            "pose": PoseProblem(intr.width, intr.height, min_dist=1.0, max_dist=12.0, **soft),
+            "wps": WpsOptProblem(intr.width, intr.height, min_dist=1.0, max_dist=12.0, **soft),
+            "soft": TrajProblem(intr.width, intr.height, wps_step=X["stride10"], **soft)}
+
+
+def _warm_ms(fn, n: int):
+    """(fn()'s last result, the median wall ms of n synchronized calls after
+    a warm-up call)."""
+    import torch
+
+    out = fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return out, statistics.median(times)
+
+
+def _par_lo_grads(lo_fn, q, t, dev, reduce):
+    """(lo, dq, dt, ms) of lo_fn(quats, trans) and the gradient of
+    reduce(Σ lo·g) inside it; ms is the median of 3 forward and backward
+    passes after a warm-up."""
+    import torch
+
+    def once():
+        qq = torch.tensor(q, device=dev, requires_grad=True)
+        tt = torch.tensor(t, device=dev, requires_grad=True)
+        lo, loss = lo_fn(qq, tt)
+        dq, dt = torch.autograd.grad(reduce(loss), [qq, tt])
+        return lo.detach(), dq, dt
+
+    out, ms = _warm_ms(once, 3)
+    return (*out, ms)
+
+
+def _par_train(step_fn, init_fn, params, args, n):
+    """n steps; (losses, params, ms/step over the steps after the first,
+    the states each step started from: {name: (n, ...)} of the parameters
+    and the Adam moments, and the (n,) counts)."""
+    import torch
+
+    opt = init_fn(params)
+    losses, states = [], []
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(n):
+        states.append({**{f"p/{k}": v for k, v in params.items()},
+                       **{f"mu/{k}": v for k, v in opt["mu"].items()},
+                       **{f"nu/{k}": v for k, v in opt["nu"].items()}, "count": opt["count"]})
+        params, opt, loss, _ = step_fn(params, opt, *args)
+        losses.append(loss)
+        if i == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t1) / max(n - 1, 1)
+    states = {k: torch.stack([s[k] for s in states]) for k in states[0]}
+    return torch.stack(losses), params, ms, states
+
+
+def _single_train(loss_fn, params, cfg, n, tx=None):
+    """The single-card step the sharded steps are held to: value_and_grad of
+    the loss, ``make_optimizer``'s update, ``apply_updates``."""
+    import torch
+
+    from trajectory_optimization_tpu_torch.opt.engine import (
+        apply_updates, make_optimizer, value_and_grad)
+
+    tx = tx or make_optimizer(cfg)
+    opt = tx.init(params)
+    losses = []
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(n):
+        loss, _, grads = value_and_grad(loss_fn, params)
+        upd, opt = tx.update(grads, opt, params)
+        params = apply_updates(params, upd)
+        losses.append(loss)
+        if i == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return torch.stack(losses), params, 1e3 * (time.perf_counter() - t1) / max(n - 1, 1)
+
+
+def parallel_rank(rank, world, port, out_dir):
+    """One spawned rank of the [parallel] phase: gloo on the card (cuda:0,
+    shared with the other ranks), the kernels loaded from the parent's
+    build; saves its arrays, launch counts and times to out_dir."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from trajectory_optimization_tpu_torch.ops import _kernels
+
+    _kernels._load()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank)
+    try:
+        res = _parallel_rank_body(rank, world, torch.device("cuda", 0))
+        np.savez(Path(out_dir) / f"rank{rank}.npz", **res)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _parallel_rank_body(rank, world, dev):
+    import numpy as np
+    import torch
+
+    from trajectory_optimization_tpu_torch.models.pose import init_pose_params
+    from trajectory_optimization_tpu_torch.models.traj import init_traj_params
+    from trajectory_optimization_tpu_torch.models.traj_frozen import FrozenPlanConfig
+    from trajectory_optimization_tpu_torch.models.wps_opt import init_wps_params
+    from trajectory_optimization_tpu_torch.ops import _kernels
+    from trajectory_optimization_tpu_torch.ops import fused_vis as fv
+    from trajectory_optimization_tpu_torch.opt.engine import OptimizerConfig, value_and_grad
+    from trajectory_optimization_tpu_torch.parallel.hpr_sharded import hpr_mask_soft_binned_sharded
+    from trajectory_optimization_tpu_torch.parallel.mesh import all_reduce, make_mesh, points_sharding
+    from trajectory_optimization_tpu_torch.parallel.pose_sharded import pose_loss_sharded
+    from trajectory_optimization_tpu_torch.parallel.sharded import make_sharded_train_step
+    from trajectory_optimization_tpu_torch.parallel.sharded_pallas import sharded_fused_lo_sum
+    from trajectory_optimization_tpu_torch.parallel.traj_frozen_sharded import (
+        FrozenShardedTrajOptimizer)
+    from trajectory_optimization_tpu_torch.parallel.traj_sharded import traj_soft_hpr_loss_sharded
+    from trajectory_optimization_tpu_torch.parallel.wps_sharded import wps_loss_sharded
+    from trajectory_optimization_tpu_torch.utils.intrinsics import default_intrinsics
+
+    intr = default_intrinsics()
+    K = intr.matrix(device=dev)
+    X = parallel_inputs()
+    probs = _par_problems(intr, X)
+    cfg = OptimizerConfig(lr_pose=0.1, lr_quat=0.02)
+    m2 = make_mesh(2, devices=[dev] * world)
+    m22 = make_mesh(4, wps=2, devices=[dev] * world)
+    res = {}
+
+    def put(key, v):
+        res[key] = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+    def fused_case(tag, mesh, pts, valid, g, q, t, prob, steps):
+        P, V, G = (points_sharding(mesh, x) for x in (pts, valid, g))
+        sel = slice(None, None, prob.wps_step)
+        _kernels.reset_launches()
+        lo, dq, dt, ms = _par_lo_grads(
+            lambda qq, tt: (lambda lo: (lo, torch.sum(lo * G)))(sharded_fused_lo_sum(
+                mesh, P, qq, tt, K, intr.width, intr.height, valid=V)),
+            q[sel], t[sel], dev, lambda x: all_reduce(x, mesh, "pts"))
+        for k, v in (("lo", lo), ("dq", dq), ("dt", dt), ("lo_ms", ms)):
+            put(f"{tag}/{k}", v)
+        if steps:
+            init_fn, step_fn = make_sharded_train_step(mesh, prob, cfg)
+            losses, params, ms, states = _par_train(
+                step_fn, init_fn, init_traj_params(t, q, device=dev),
+                (P, V, K, torch.as_tensor(t, device=dev), torch.as_tensor(q, device=dev)), steps)
+            for k, v in (("losses", losses), ("poses", params["poses"]),
+                         ("quats", params["quats"]), ("step_ms", ms)):
+                put(f"{tag}/{k}", v)
+            for k, v in states.items():
+                put(f"{tag}/state/{k}", v)
+        for k, v in _kernels.LAUNCHES.items():
+            put(f"{tag}/launches/{k}", v)
+
+    budget = fv.SCORE_CACHE_MAX_BYTES
+    if m2.member:
+        for regime, b in (("cached", budget), ("uncached", 0)):
+            fv.SCORE_CACHE_MAX_BYTES = b
+            fused_case(f"d2/{regime}", m2, X["big"], np.ones(len(X["big"]), np.float32),
+                       X["g_big"], X["q50"], X["big_path"], probs["traj50"], PAR_STEPS)
+        fv.SCORE_CACHE_MAX_BYTES = budget
+    torch.cuda.empty_cache()
+    fused_case("m22", m22, X["p10"], X["v10"], X["g10"], X["q27"], X["path10"], probs["traj27"], 0)
+    torch.cuda.empty_cache()
+
+    if m2.member:  # the soft-HPR modules at D = 2 on cloud 10
+        P, V, W = (points_sharding(m2, x) for x in (X["p10"], X["v10"], X["w10"]))
+        cam = points_sharding(m2, X["p10"] - X["path10"][9]).requires_grad_(True)
+        def mask_and_grad():
+            vis = hpr_mask_soft_binned_sharded(cam, m2, valid=V)
+            return vis, torch.autograd.grad(all_reduce(torch.sum(vis * W), m2, "pts"), [cam])[0]
+
+        (vis, d_cam), ms = _warm_ms(mask_and_grad, 1)
+        put("soft/hpr_ms", ms)
+        put("soft/hpr/vis", vis)
+        put("soft/hpr/dcam", d_cam)
+        q0 = np.array([1.0, 0.0, 0.0, 0.0], np.float32)
+        wparams, wfrozen = init_wps_params(X["path10"][:PAR_WPS],
+                                           np.tile(q0, (PAR_WPS, 1)), device=dev)
+        cases = {
+            "pose": (lambda p: (lambda lo: (lo[0], {"obs": lo[1]}))(pose_loss_sharded(
+                m2, p, P, V, K, probs["pose"])), init_pose_params(X["path10"][0], q0, device=dev)),
+            "wps": (lambda p: wps_loss_sharded(m2, p, wfrozen, P, V, K, probs["wps"]), wparams),
+            "traj": (lambda p: traj_soft_hpr_loss_sharded(
+                m2, p, P, V, K, torch.as_tensor(X["path10"], device=dev), probs["soft"]),
+                init_traj_params(X["path10"], X["q27"], device=dev)),
+        }
+        for name, (fn, params) in cases.items():
+            (loss, aux, grads), ms = _warm_ms(lambda: value_and_grad(fn, params), 1)
+            put(f"soft/{name}_ms", ms)
+            put(f"soft/{name}/loss", loss)
+            for k, v in grads.items():
+                put(f"soft/{name}/d{k}", v)
+            if name == "traj":
+                put("soft/traj/rewards", aux["rewards"])
+        n, every = PAR_FROZEN
+        opt = FrozenShardedTrajOptimizer(
+            m2, X["p10"], K, X["path10"], X["q27"], probs["soft"], cfg,
+            FrozenPlanConfig(refresh_every=every, async_refresh=False), valid=X["v10"])
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p_end, losses = opt.run(init_traj_params(X["path10"], X["q27"], device=dev), n)
+            torch.cuda.synchronize()
+            put("soft/frozen_ms", 1e3 * (time.perf_counter() - t0) / n)
+            put("soft/frozen/losses", losses)
+            put("soft/frozen/poses", p_end["poses"])
+            put("soft/frozen/refreshes", opt.stats["refreshes"])
+        finally:
+            opt.close()
+    return res
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_checks(dev, intr, sync):
+    """[parallel]: the parallel layer on the card. D = 1 over nccl in this
+    process at 1m50; then PAR_WORLD spawned gloo ranks sharing the card: the
+    2-rank mesh at 1m50 in both regimes, the 2x2 mesh at cloud 10 x 27, the
+    soft-HPR modules at D = 2 on cloud 10; every result held against the
+    single-card function on the card here."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from trajectory_optimization_tpu_torch.models.pose import init_pose_params, pose_forward
+    from trajectory_optimization_tpu_torch.models.traj import init_traj_params, traj_forward
+    from trajectory_optimization_tpu_torch.models.traj_frozen import (
+        FrozenPlanConfig, FrozenTrajOptimizer)
+    from trajectory_optimization_tpu_torch.models.wps_opt import init_wps_params, wps_forward
+    from trajectory_optimization_tpu_torch.ops import _kernels
+    from trajectory_optimization_tpu_torch.ops import fused_vis as fv
+    from trajectory_optimization_tpu_torch.ops.hpr import hpr_mask_soft_binned
+    from trajectory_optimization_tpu_torch.opt.engine import (
+        OptimizerConfig, make_optimizer, value_and_grad)
+    from trajectory_optimization_tpu_torch.parallel.mesh import all_reduce, make_mesh, points_sharding
+    from trajectory_optimization_tpu_torch.parallel.sharded import make_sharded_train_step
+    from trajectory_optimization_tpu_torch.parallel.sharded_pallas import sharded_fused_lo_sum
+
+    t_phase = time.perf_counter()
+    K = intr.matrix(device=dev)
+    X = parallel_inputs()
+    probs = _par_problems(intr, X)
+    cfg = OptimizerConfig(lr_pose=0.1, lr_quat=0.02)
+    out = {"ms": {}, "launches": {}}
+    T = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+
+    def equal(what, got, want):
+        if not torch.equal(got, want):
+            fail(f"[parallel] {what}: not torch.equal (max |diff| "
+                 f"{float((got.float() - want.float()).abs().max()):.3e})")
+
+    def close(what, got, want, rtol, atol):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        if not np.allclose(got, want, rtol=rtol, atol=atol):
+            err = np.abs(got - want) - atol - rtol * np.abs(want)
+            fail(f"[parallel] {what}: off by {float(err.max()):.3e} beyond rtol {rtol} / atol {atol}")
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+    # ---- single-card references, on the card ---------------------------------
+    def single_lo(pts, valid, g, q, t, prob):
+        P, V, G = T(pts), T(valid), T(g)
+        sel = slice(None, None, prob.wps_step)
+        lo, dq, dt, ms = _par_lo_grads(
+            lambda qq, tt: (lambda lo: (lo, torch.sum(lo * G)))(fv.fused_lo_sum(
+                P, qq, tt, K, intr.width, intr.height, valid=V)),
+            q[sel], t[sel], dev, lambda x: x)
+        return dict(lo=lo, dq=dq, dt=dt, lo_ms=ms)
+
+    def single_steps(pts, valid, q, t, prob, n):
+        P, V, p0, q0 = T(pts), T(valid), T(t), T(q)
+        Pt = P.t().contiguous()
+        losses, params, ms = _single_train(
+            lambda p: traj_forward(p, P, K, p0, q0, prob, valid=V, points_t=Pt),
+            init_traj_params(t, q, device=dev), cfg, n)
+        return dict(losses=losses, poses=params["poses"], quats=params["quats"], step_ms=ms)
+
+    ones = np.ones(len(X["big"]), np.float32)
+    budget = fv.SCORE_CACHE_MAX_BYTES
+    ref = {}
+    for regime, b in (("cached", budget), ("uncached", 0)):
+        fv.SCORE_CACHE_MAX_BYTES = b
+        ref[regime] = {**single_lo(X["big"], ones, X["g_big"], X["q50"], X["big_path"],
+                                   probs["traj50"]),
+                       **single_steps(X["big"], ones, X["q50"], X["big_path"], probs["traj50"],
+                                      PAR_STEPS)}
+    fv.SCORE_CACHE_MAX_BYTES = budget
+    ref["m22"] = single_lo(X["p10"], X["v10"], X["g10"], X["q27"], X["path10"], probs["traj27"])
+    out["ms"]["single 1m50 cached step"] = ref["cached"]["step_ms"]
+    out["ms"]["single 1m50 uncached step"] = ref["uncached"]["step_ms"]
+
+    # ---- D = 1 over nccl, in this process ------------------------------------
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        m1 = make_mesh(1, devices=[dev])
+        P, V, G = T(X["big"]), T(ones), T(X["g_big"])
+        sel = slice(None, None, probs["traj50"].wps_step)
+        _kernels.reset_launches()
+        lo, dq, dt, _ = _par_lo_grads(
+            lambda qq, tt: (lambda lo: (lo, torch.sum(lo * G)))(sharded_fused_lo_sum(
+                m1, P, qq, tt, K, intr.width, intr.height, valid=V)),
+            X["q50"][sel], X["big_path"][sel], dev, lambda x: all_reduce(x, m1, "pts"))
+        for k, v in (("lo", lo), ("dq", dq), ("dt", dt)):
+            equal(f"D=1 nccl 1m50 {k} against fused_lo_sum", v, ref["cached"][k])
+        init_fn, step_fn = make_sharded_train_step(m1, probs["traj50"], cfg)
+        losses, params, ms, _ = _par_train(
+            step_fn, init_fn, init_traj_params(X["big_path"], X["q50"], device=dev),
+            (P, V, K, T(X["big_path"]), T(X["q50"])), PAR_STEPS)
+        equal("D=1 nccl 1m50 20-step losses", losses, ref["cached"]["losses"])
+        equal("D=1 nccl 1m50 20-step poses", params["poses"], ref["cached"]["poses"])
+        equal("D=1 nccl 1m50 20-step quats", params["quats"], ref["cached"]["quats"])
+        out["launches"]["D=1 nccl 1m50"] = dict(_kernels.LAUNCHES)
+        out["ms"]["D=1 nccl 1m50 cached step"] = ms
+    finally:
+        dist.destroy_process_group()
+    for k in ("pass_a", "pass_b", "bwd_stats", "bwd_apply"):
+        if not out["launches"]["D=1 nccl 1m50"][k]:
+            fail(f"[parallel] D=1: {k} did not launch on the sharded path")
+    print(f"[parallel] D=1 nccl cuda:0 1m50: sharded_fused_lo_sum's lo and gradients and "
+          f"{PAR_STEPS} make_sharded_train_step steps torch.equal to fused_lo_sum and the "
+          f"single-card step; launches {out['launches']['D=1 nccl 1m50']}", flush=True)
+
+    # ---- the spawned ranks ---------------------------------------------------
+    soft = {}
+    P10, V10, W10 = T(X["p10"]), T(X["v10"]), T(X["w10"])
+    cam = (P10 - T(X["path10"][9])).requires_grad_(True)
+
+    def mask_and_grad():
+        vis = hpr_mask_soft_binned(cam, valid=V10)
+        return vis.detach(), torch.autograd.grad(torch.sum(vis * W10), [cam])[0]
+
+    (vis, d_cam), out["ms"]["single soft hpr mask + grad"] = _warm_ms(mask_and_grad, 1)
+    soft["hpr"] = dict(vis=vis, dcam=d_cam)
+    q0 = np.array([1.0, 0.0, 0.0, 0.0], np.float32)
+    wparams, wfrozen = init_wps_params(X["path10"][:PAR_WPS], np.tile(q0, (PAR_WPS, 1)), device=dev)
+    for name, fn, params in (
+            ("pose", lambda p: pose_forward(p, P10, K, probs["pose"], valid=V10),
+             init_pose_params(X["path10"][0], q0, device=dev)),
+            ("wps", lambda p: wps_forward(p, wfrozen, P10, K, probs["wps"], valid=V10), wparams),
+            ("traj", lambda p: traj_forward(p, P10, K, T(X["path10"]), T(X["q27"]),
+                                            probs["soft"], valid=V10),
+             init_traj_params(X["path10"], X["q27"], device=dev))):
+        (loss, aux, grads), out["ms"][f"single soft {name} loss + grad"] = _warm_ms(
+            lambda: value_and_grad(fn, params), 1)
+        soft[name] = dict(loss=loss, **{f"d{k}": v for k, v in grads.items()})
+        if name == "traj":
+            soft[name]["rewards"] = aux["rewards"]
+    n, every = PAR_FROZEN
+    fopt = FrozenTrajOptimizer(X["p10"], K, X["path10"], X["q27"], probs["soft"], cfg,
+                               FrozenPlanConfig(refresh_every=every, async_refresh=False),
+                               valid=X["v10"], device=dev)
+    try:
+        t0 = time.perf_counter()
+        p_end, f_losses = fopt.run(init_traj_params(X["path10"], X["q27"], device=dev), n)
+        sync()
+        out["ms"]["single frozen step"] = 1e3 * (time.perf_counter() - t0) / n
+    finally:
+        fopt.close()
+    soft["frozen"] = dict(losses=np.asarray(f_losses), poses=p_end["poses"])
+
+    out_dir = ROOT / "build" / "parallel_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.glob("rank*.npz"):
+        f.unlink()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.start_processes(parallel_rank, args=(PAR_WORLD, _free_port(), str(out_dir)),
+                       nprocs=PAR_WORLD, join=True, start_method="spawn")
+    out["ms"]["spawned ranks, wall"] = 1e3 * (time.perf_counter() - t0)
+    rk = [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(PAR_WORLD)]
+
+    def cat(key, ranks, axis=0):
+        return np.concatenate([rk[r][key] for r in ranks], axis=axis)
+
+    def single_step_parity(regime, tag):
+        """Each of the rank's sharded steps against the single-card step
+        taken from the same parameters and Adam state: new parameters within
+        PAR_PINS["params"], the loss within PAR_PINS["loss"]. Returns the
+        largest |difference| of a parameter."""
+        from trajectory_optimization_tpu_torch.opt.engine import apply_updates
+
+        P, V = T(X["big"]), T(ones)
+        Pt, p0, q0 = P.t().contiguous(), T(X["big_path"]), T(X["q50"])
+        tx = make_optimizer(cfg)
+        worst = -np.inf
+        for i in range(PAR_STEPS):
+            st = {k[len(f"{tag}/state/"):]: T(v[i]) for k, v in rk[0].items()
+                  if k.startswith(f"{tag}/state/")}
+            params = {k: st[f"p/{k}"] for k in ("poses", "quats")}
+            opt = {"mu": {k: st[f"mu/{k}"] for k in params},
+                   "nu": {k: st[f"nu/{k}"] for k in params}, "count": st["count"]}
+            loss, _, grads = value_and_grad(
+                lambda p: traj_forward(p, P, K, p0, q0, probs["traj50"], valid=V, points_t=Pt),
+                params)
+            upd, _ = tx.update(grads, opt, params)
+            new_p = apply_updates(params, upd)
+            nxt = ({k: rk[0][f"{tag}/state/p/{k}"][i + 1] for k in params} if i + 1 < PAR_STEPS
+                   else {k: rk[0][f"{tag}/{k}"] for k in params})
+            close(f"D=2 {regime} step {i} loss", rk[0][f"{tag}/losses"][i], loss.cpu(),
+                  PAR_PINS["loss"], 0.0)
+            for k in params:
+                close(f"D=2 {regime} step {i} {k}", nxt[k], new_p[k].cpu(), *PAR_PINS["params"])
+                worst = max(worst, float(np.abs(np.asarray(nxt[k], np.float64)
+                                                - new_p[k].cpu().numpy()).max()))
+        return worst
+
+    # D = 2 at 1m50, both regimes
+    for regime in ("cached", "uncached"):
+        tag, want = f"d2/{regime}", ref[regime]
+        lo = cat(f"{tag}/lo", [0, 1])
+        equal(f"D=2 gloo 1m50 {regime} lo against fused_lo_sum", torch.as_tensor(lo),
+              want["lo"].cpu())
+        fv.SCORE_CACHE_MAX_BYTES = budget if regime == "cached" else 0
+        step_err = single_step_parity(regime, tag)
+        fv.SCORE_CACHE_MAX_BYTES = budget
+        for r in (0, 1):
+            for k in ("dq", "dt"):
+                close(f"D=2 {regime} {k} (rank {r})", rk[r][f"{tag}/{k}"], want[k].cpu(),
+                      *PAR_PINS["grad"])
+            close(f"D=2 {regime} 20-step losses (rank {r})", rk[r][f"{tag}/losses"],
+                  want["losses"].cpu(), PAR_PINS["loss"], 0.0)
+        drift = max(float(np.abs(rk[0][f"{tag}/{k}"] - want[k].cpu().numpy()).max())
+                    for k in ("poses", "quats"))
+        out["drift"] = {**out.get("drift", {}), regime: drift}
+        launched = {k: int(rk[0][f"{tag}/launches/{k}"]) for k in VIS}
+        need = CACHED if regime == "cached" else UNCACHED
+        for k in need:
+            if not launched[k]:
+                fail(f"[parallel] D=2 {regime}: {k} did not launch on the sharded path")
+        if any(launched[k] for k in VIS if k not in need):
+            fail(f"[parallel] D=2 {regime}: launched {launched}, only {need} may")
+        out["launches"][f"D=2 gloo 1m50 {regime}"] = launched
+        out["ms"][f"D=2 gloo 1m50 {regime} step"] = float(rk[0][f"{tag}/step_ms"])
+        out["ms"][f"D=2 gloo 1m50 {regime} lo + grad"] = float(rk[0][f"{tag}/lo_ms"])
+        print(f"[parallel] D=2 gloo (2 ranks on cuda:0) 1m50 {regime}: lo torch.equal to "
+              f"fused_lo_sum; gradients within {PAR_PINS['grad']}; {PAR_STEPS} steps, each "
+              f"within {PAR_PINS['params']} (params) and {PAR_PINS['loss']} (loss) of the "
+              f"single-card step from the same state (largest |diff| {step_err:.3e}), losses "
+              f"within {PAR_PINS['loss']} of the single-card run's; after {PAR_STEPS} steps the "
+              f"params {drift:.3e} from the single-card run's (not held: a discontinuous "
+              f"gradient under Adam); launches {launched}", flush=True)
+
+    # the 2x2 mesh at cloud 10 x 27
+    want = ref["m22"]
+    for row in ([0, 1], [2, 3]):
+        close("2x2 cloud 10 lo", cat("m22/lo", row), want["lo"].cpu(), *PAR_PINS["lo"])
+    for r in range(PAR_WORLD):
+        for k in ("dq", "dt"):
+            close(f"2x2 cloud 10 {k} (rank {r})", rk[r][f"m22/{k}"], want[k].cpu(),
+                  *PAR_PINS["grad"])
+        launched = {k: int(rk[r][f"m22/launches/{k}"]) for k in CACHED}
+        if not all(launched.values()):
+            fail(f"[parallel] 2x2: rank {r} launched {launched}; K1-K4 must launch")
+    out["launches"]["2x2 gloo cloud10x27 (rank 0)"] = {
+        k: int(rk[0][f"m22/launches/{k}"]) for k in VIS}
+    out["ms"]["2x2 gloo cloud10x27 lo + grad"] = float(rk[0]["m22/lo_ms"])
+    print(f"[parallel] 2x2 gloo (4 ranks on cuda:0) cloud 10 x 27: lo and gradients within "
+          f"{PAR_PINS['lo']} / {PAR_PINS['grad']} of fused_lo_sum; K1-K4 launched on every rank",
+          flush=True)
+
+    # the soft-HPR modules at D = 2 on cloud 10
+    d = np.abs(cat("soft/hpr/vis", [0, 1]) - soft["hpr"]["vis"].cpu().numpy())
+    far_t, far_share = SOFT_PINS["far"]
+    if d.mean() >= SOFT_PINS["mean"] or (d > far_t).mean() >= far_share:
+        fail(f"[parallel] hpr_mask_soft_binned_sharded: mean |diff| {d.mean():.3e}, "
+             f"{(d > far_t).mean():.2e} of points off by > {far_t}")
+    g_rel = rel(cat("soft/hpr/dcam", [0, 1]), soft["hpr"]["dcam"].cpu())
+    if g_rel >= SOFT_PINS["grad"]:
+        fail(f"[parallel] hpr_mask_soft_binned_sharded gradient {g_rel:.3e} off")
+    soft_errs = {"hpr": (float(d.mean()), g_rel)}
+    for name in ("pose", "wps", "traj"):
+        want = {k: v.cpu().numpy() for k, v in soft[name].items()}
+        for r in (0, 1):
+            close(f"{name} sharded loss (rank {r})", rk[r][f"soft/{name}/loss"], want["loss"],
+                  SOFT_PINS["loss"], 0.0)
+            errs = [rel(rk[r][f"soft/{name}/{k}"], v) for k, v in want.items()
+                    if k.startswith("d")]
+            if max(errs) >= SOFT_PINS["grad"]:
+                fail(f"[parallel] {name} sharded gradients off by {max(errs):.3e} (relative)")
+        soft_errs[name] = (abs(float(rk[0][f"soft/{name}/loss"]) / float(want["loss"]) - 1),
+                           max(errs))
+        out["ms"][f"D=2 soft {name} loss + grad"] = float(rk[0][f"soft/{name}_ms"])
+    rew = np.abs(cat("soft/traj/rewards", [0, 1]) - soft["traj"]["rewards"].cpu().numpy()).max()
+    if rew >= SOFT_PINS["rewards"]:
+        fail(f"[parallel] traj_soft_hpr_loss_sharded rewards off by {rew:.3e}")
+    out["ms"]["D=2 soft hpr mask + grad"] = float(rk[0]["soft/hpr_ms"])
+    for r in (0, 1):
+        a, b = rk[r]["soft/frozen/losses"], soft["frozen"]["losses"]
+        dev_l = float(np.max(np.abs(a - b) / np.abs(b)))
+        pd = float(np.linalg.norm(rk[r]["soft/frozen/poses"] - soft["frozen"]["poses"].cpu().numpy()))
+        if dev_l >= SOFT_PINS["runner"] or pd >= SOFT_PINS["runner_poses"]:
+            fail(f"[parallel] FrozenShardedTrajOptimizer against FrozenTrajOptimizer: losses "
+                 f"{dev_l:.3e}, poses {pd:.3e}")
+        if int(rk[r]["soft/frozen/refreshes"]) != n // every:
+            fail(f"[parallel] FrozenShardedTrajOptimizer refreshed {rk[r]['soft/frozen/refreshes']} times")
+    soft_errs["frozen"] = (dev_l, pd)
+    out["ms"]["D=2 frozen step"] = float(rk[0]["soft/frozen_ms"])
+    out["soft_errs"] = soft_errs
+    print(f"[parallel] soft-HPR modules at D=2 gloo on cloud 10 against their single-card "
+          f"twins (mean |diff| or loss rel, gradient rel): {soft_errs}; FrozenSharded"
+          f"TrajOptimizer {n} steps, refresh every {every}", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def print_parallel_times(card: str, pr) -> None:
+    print(f"[times] parallel layer ({card}; ranks sharing one card: not a scaling figure): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in pr["ms"].items())
+          + f"; phase {pr['phase_s']:.1f} s", flush=True)
+
+
 def spread(xs) -> str:
     """'median [min, max]' of a few measurements."""
     return f"{statistics.median(xs):.3f} [{min(xs):.3f}, {max(xs):.3f}]"
@@ -3020,7 +3630,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     cl = cli_checks(dev, intr, cloud10, path10, sync)
 
-    # ---- 11. times ---------------------------------------------------------
+    # ---- 11. the parallel layer ------------------------------------------------
+    torch.cuda.empty_cache()
+    pr = parallel_checks(dev, intr, sync)
+
+    # ---- 12. times ---------------------------------------------------------
     for c in cases:
         n = 50 if c["name"] == "ref" else 10
         for backend in ("kernel", "torch"):
@@ -3139,6 +3753,7 @@ def main() -> int:
     print_hpr_times(card, hp)
     print_frozen_times(card, fr)
     print_cli_times(card, cl)
+    print_parallel_times(card, pr)
 
     def vis_entry(n):
         b_ref = vis_bound(n, *shape_wn["ref"], skips["ref"], prunes["ref"])
@@ -3193,7 +3808,7 @@ def main() -> int:
                         "pose_ms_per_step": nodes["pose_ms_per_step"],
                         "pose_card_vs_cpu": nodes["pose_card_vs_cpu"],
                         "voxel_filter_ms_8m": nodes["voxel_filter_ms_8m"]},
-              "hpr": hp, "frozen": fr,
+              "hpr": hp, "frozen": fr, "parallel": pr,
               "cli": {k: cl[k] for k in ("run_s", "startup_s", "msgs_per_s", "record")}}
     for e in record["kernels"]:
         nums = [v for k, v in e.items() if k.endswith("ms") or k == "max_abs_err"]

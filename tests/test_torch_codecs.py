@@ -8,8 +8,23 @@ decodes ``assert_array_equal`` to JAX's and to the committed oracles of
 ``tests/data/imgcodec/``; the native entry points equal to the numpy
 paths; the PointCloud2 wire codec's records and round trips equal to JAX's.
 Integer codecs: no tolerance anywhere.
+
+The JAX package's loader builds its library in place with ``make`` when the
+file is missing or stale, and caches a failed load (``_tried``) for the life
+of the process. Test files of both packages that load it can start that build
+at the same moment in parallel workers, and a worker that opens the file while
+another writes it is left on the numpy fallback. ``_load_jax_native`` retries
+under a lock until the library loads, so that "native" compares the two C++
+libraries and not one library with the other package's numpy.
+
+The JAX package's own two JPEG encoders disagree at (40, 56, 3), quality 75,
+4:2:0 (956 bytes with its library, 957 with its numpy fallback): the port
+copied both, and ``test_jpeg_reference_encoders_disagree_by_one_byte`` pins
+that the port reproduces each of them there.
 """
+import fcntl
 import os
+import time
 
 import numpy as np
 import pytest
@@ -33,9 +48,26 @@ from trajectory_optimization_tpu_torch.bus import png as tpng  # noqa: E402
 from trajectory_optimization_tpu_torch.bus.messages import Header as THeader  # noqa: E402
 
 FIXDIR = os.path.join(os.path.dirname(__file__), "data", "imgcodec")
+LOCK = os.path.join(os.path.dirname(__file__), "..", "build", "jax_native_load.lock")
 JPEGS = ["rgb_q85_420.jpg", "rgb_q90_444.jpg", "rgb_q75_422.jpg", "gray_q90.jpg",
          "rgb_rst.jpg", "progressive.jpg"]
 PNGS = ["rgb.png", "depth16.png"]
+
+
+def _load_jax_native(monkeypatch, timeout=180.0):
+    """Load the JAX package's native library, waiting out a build that a
+    parallel worker runs: retry under a file lock, clearing the loader's
+    cached failure (``_tried``) before each try, until it loads. Fails the
+    test if it does not within ``timeout`` seconds."""
+    os.makedirs(os.path.dirname(LOCK), exist_ok=True)
+    deadline = time.monotonic() + timeout
+    with open(LOCK, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        while jnative._load() is None:
+            if time.monotonic() > deadline:
+                pytest.fail("the JAX package's native library did not load")
+            time.sleep(0.5)
+            monkeypatch.setattr(jnative, "_tried", False)
 
 
 @pytest.fixture(params=["native", "numpy"])
@@ -46,6 +78,8 @@ def backend(request, monkeypatch):
         monkeypatch.setattr(tnative, "_load", lambda: None)
     elif not tnative.native_available():
         pytest.skip("no C++ toolchain for the port's native library")
+    else:
+        _load_jax_native(monkeypatch)
     return request.param
 
 
@@ -82,9 +116,10 @@ def test_lz4_frames_equal_the_jax_package(name, backend):
         assert tlz4.decompress(frame) == data == jlz4.decompress(frame)
 
 
-def test_lz4_native_blocks_equal_numpy():
+def test_lz4_native_blocks_equal_numpy(monkeypatch):
     if not tnative.native_available():
         pytest.skip("no C++ toolchain for the port's native library")
+    _load_jax_native(monkeypatch)
     for data in _payloads().values():
         nat = tnative.lz4_block_encode_native(data)
         py = tlz4._encode_block_py(data)
@@ -122,6 +157,28 @@ def test_jpeg_encode_equals_the_jax_package(shape, quality, sub, backend):
     blob = tjpeg.encode_jpeg(img, quality=quality, subsampling=sub)
     assert blob == jjpeg.encode_jpeg(img, quality=quality, subsampling=sub)
     np.testing.assert_array_equal(tjpeg.decode_jpeg(blob), jjpeg.decode_jpeg(blob))
+
+
+def test_jpeg_reference_encoders_disagree_by_one_byte(monkeypatch):
+    """At (40, 56, 3), quality 75, 4:2:0 the JAX package's C++ encoder and
+    its numpy fallback give different files, 956 and 957 bytes: the port's
+    C++ encoder reproduces the JAX C++ one and its numpy path the JAX numpy
+    one, so a mismatch in the case above under mixed libraries is the
+    reference's own disagreement, not a port fault."""
+    if not tnative.native_available():
+        pytest.skip("no C++ toolchain for the port's native library")
+    _load_jax_native(monkeypatch)
+    img = _image(7 + 75, (40, 56, 3))
+    enc = lambda m: m.encode_jpeg(img, quality=75, subsampling="420")  # noqa: E731
+    t_native, j_native = enc(tjpeg), enc(jjpeg)
+    with monkeypatch.context() as m:
+        m.setattr(jnative, "_load", lambda: None)
+        m.setattr(tnative, "_load", lambda: None)
+        t_numpy, j_numpy = enc(tjpeg), enc(jjpeg)
+    assert t_native == j_native
+    assert t_numpy == j_numpy
+    assert (len(j_native), len(j_numpy)) == (956, 957)
+    assert j_native != j_numpy[: len(j_native)]
 
 
 @pytest.mark.parametrize("name", JPEGS)

@@ -2,7 +2,7 @@
 against the JAX package.
 
 Held: every name of each JAX subpackage's ``__all__`` (the top level,
-``ops``, ``opt``, ``utils``, ``models``, ``bus``) resolves in the port's
+``ops``, ``opt``, ``utils``, ``models``, ``bus``, ``parallel``) resolves in the port's
 twin, the facade lazily, ``bus.ViewerNode`` included; ``make_optimizer``
 over 5 steps of seeded gradients, with and without the exponential decay,
 under both key pairs of the package (``poses``/``quats``, ``xy``/``yaw``,
@@ -27,7 +27,7 @@ from trajectory_optimization_tpu.opt import engine as jengine  # noqa: E402
 from trajectory_optimization_tpu_torch.opt import engine as tengine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-SUBPACKAGES = ("", "ops", "opt", "utils", "models", "bus")
+SUBPACKAGES = ("", "ops", "opt", "utils", "models", "bus", "parallel")
 NOT_PORTED = set()
 
 

@@ -601,12 +601,6 @@ def stage_plan(plan: Dict[str, np.ndarray], meta: PlanMeta, pin: bool = False):
     c_row = np.where(is_self[..., None], q_row,
                      np.take_along_axis(plan["c_row_ext"].astype(np.int32), selc, axis=2))
     ext_idx = (np.arange(W)[:, None, None] * G + np.arange(G)[None, :, None]) * TB + selc[..., 0]
-    head = plan["seg_head"]
-    seg_id = np.cumsum(head, dtype=np.int64)
-    same, k = [], 1
-    while k < max(W, 2):
-        same.append(np.concatenate([seg_id[k:], np.full(k, -1)]) == seg_id)
-        k *= 2
     per_tile = lambda a: a.reshape((W * G * T,) + a.shape[3:])[live]  # noqa: E731
     arrays = {
         "q_xyz": plan["q_xyz"],
@@ -621,11 +615,16 @@ def stage_plan(plan: Dict[str, np.ndarray], meta: PlanMeta, pin: bool = False):
         "ext_idx": per_tile(ext_idx),
         "qmask": plan["qmask"],
         "align_fwd": plan["align_fwd"].astype(np.int64),
-        "combine_fwd": plan["combine_fwd"].astype(np.int64),
-        "seg_head": head,
-        "seg_same": np.stack(same),
-        "n_q": plan["n_q"].astype(np.float32),
     }
+    if "seg_head" in plan:  # the sparse criterion's arrays (a sharded plan has none)
+        head = plan["seg_head"]
+        seg_id = np.cumsum(head, dtype=np.int64)
+        same, k = [], 1
+        while k < max(W, 2):
+            same.append(np.concatenate([seg_id[k:], np.full(k, -1)]) == seg_id)
+            k *= 2
+        arrays.update(combine_fwd=plan["combine_fwd"].astype(np.int64), seg_head=head,
+                      seg_same=np.stack(same), n_q=plan["n_q"].astype(np.float32))
     if "embed_fwd" in plan:
         arrays["embed_fwd"] = plan["embed_fwd"].astype(np.int64)
     out = {k: torch.from_numpy(np.ascontiguousarray(a)) for k, a in arrays.items()}
@@ -707,7 +706,9 @@ def _frozen_tiles(qu, cu, crho, beta_t, q_bin, c_key, q_row, c_row, t0, t1):
 class _FrozenLSE(torch.autograd.Function):
     """lse[b, i] = logsumexpⱼ(β·dom) of every query row of every tile of the
     flattened (W·G·T, cap, cap) tile set, ``chunk`` tiles at a time: nothing
-    of size W·G·T·cap² is kept between forward and backward. The backward
+    of size W·G·T·cap² is kept between forward and backward. (The sharded
+    binned gate, ``parallel.hpr_sharded``, runs its (T, rows, columns)
+    tiles through it too.) The backward
     recomputes each chunk; its softmax weights are exp(x − max)/Σ from the
     row's max and sum kept by the forward, and the derivative of
     max(cos, 0) is ½ at cos = 0, as ``jnp.maximum`` splits it (the pattern
@@ -715,8 +716,8 @@ class _FrozenLSE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qu, cu, crho, beta_t, q_bin, c_key, q_row, c_row, chunk):
-        B, cap = crho.shape
-        top, total = crho.new_empty((B, cap)), crho.new_empty((B, cap))
+        B, rows = qu.shape[:2]
+        top, total = crho.new_empty((B, rows)), crho.new_empty((B, rows))
         with torch.profiler.record_function(FROZEN_TILES_RANGE):
             for t0 in range(0, B, chunk):
                 t1 = min(t0 + chunk, B)
