@@ -42,7 +42,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
    on the same cloud in Morton order (same min and max, the cache permuted),
    where pruned pairs fill whole warps, and are timed there.
 4. slice — ``TrajectoryOptimizer.optimize`` on cloud 10 for 400 steps through
-   the cached kernels (launch counters reset just before, read just after),
+   the cached kernels, its steps after the first replaying one captured step
+   (launch counters reset just before, read just after; a replay adds the
+   launches its graph recorded),
    the same run on the plain backend, ``TrajectoryOptimizer.evaluate`` of
    the optimized path (K1 and K2 once each) beside the plain backend's, 20
    steps of 1M × 50, and 20 steps of 8,388,608 points × 50 waypoints
@@ -51,7 +53,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
    on its cotangent are held against their plain versions run in chunks of
    waypoints, and 8m50's stage and step times are taken while the problem
    is on the card. The run itself must go through K1′, K2′ and K5 only, with
-   its peak memory under the size of a score cache.
+   its peak memory allocated under the size of a score cache (peak
+   reserved printed beside it).
 5. render kernels — K6 (``splat_runs``) and K7 (``splat_dense``) against
    their plain versions on the card, images ``torch.equal`` and ``n_dropped``
    equal to the CPU prologue's, on the visible set of one camera of the
@@ -174,7 +177,18 @@ Phases, each printing one line (any failure raises and exits non-zero):
    gradients, ``FrozenShardedTrajOptimizer`` against
    ``FrozenTrajOptimizer`` for 8 steps with one refresh). Any failed rank
    fails the script.
-12. times — per-stage and per-step ms, kernel and plain, peak memory, and
+12. graphs — the captured optimization loop (``opt/graphs.py``): the
+   runners' captured route held ``torch.equal`` to their eager route on the
+   card (n_iters, parameters, final loss and aux) at ref (400 steps, with
+   the visibility and smoothness gates), 1m50 and 8m50 (20 steps), launches
+   per step from the counters equal in both; ``optimize_with_history`` (50
+   steps) and ``OptimizerLoop.run(0, 1, 7, 20)`` at ref; ``PoseOptimizer``'s
+   runner at cloud 10 and 1M (200 steps); ``optimize_waypoints`` at the
+   demo's defaults; the K3/K4 scratch round trip (a graph captured at W = 14,
+   the scratch grown by a 1m50 run, the first graph replayed on the scratch
+   it holds, equal to the eager run). Times under [times].
+13. times — per-stage and per-step ms of the eager loop (the series of
+   earlier runs), kernel and plain, peak memory, and
    the device's busy share of a step from a 20-step ``torch.profiler`` trace;
    K6/K7 ms through the wrapper and the kernel alone (``torch.profiler``)
    beside their plain versions, bounds, share of the bound and the first
@@ -193,7 +207,12 @@ Phases, each printing one line (any failure raises and exits non-zero):
    call, each beside a bound from its tiles' pairs; the frozen engine's
    ms/step beside a bound from the pairs of the tiles it computes; [cli]'s
    run seconds, start-up seconds, msgs/s and MB/s; [parallel]'s ms per
-   configuration, labelled as ranks sharing one card.
+   configuration, labelled as ranks sharing one card; [graphs]' ms/step of the
+   captured and the eager route (median of 3 windows after a warm-up, in
+   turns) and of the replays alone, device-busy ms, device operations and
+   host launch calls (kernel launches, graph launches) per step of a traced
+   20-step run, capture seconds per bucket, peak MiB allocated and reserved;
+   the pose runner's and ``optimize_waypoints``' times by route.
 
 The line before the last is the kernels' JSON record (all nine kernels, each
 with its bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -2870,6 +2889,328 @@ def print_parallel_times(card: str, pr) -> None:
           + f"; phase {pr['phase_s']:.1f} s", flush=True)
 
 
+GRAPH_STEPS = {"ref": 400, "1m50": 20, "8m50": 20}  # the held runs: captured == eager
+GRAPH_WINDOW = {"ref": 100, "1m50": 20, "8m50": 10}  # steps per timed window
+GRAPH_POSE = (("cloud10", 200), ("1m", 200))  # PoseOptimizer runs held and timed
+GRAPH_TRACE = 20  # steps per traced run
+
+
+def graph_checks(dev, intr, clouds, paths, sync):
+    """Phase 12: the captured optimization loop (``opt/graphs.py``). The
+    runners' captured route against their eager route on the card, bit for
+    bit, at ref, 1m50 and 8m50 (``clouds``/``paths`` by name; the pose runs
+    also take ``clouds["1m"]``); ``optimize_with_history`` and
+    ``OptimizerLoop`` at ref; ``PoseOptimizer``'s runner at cloud 10 and 1M;
+    ``optimize_waypoints`` at the demo's defaults; the K3/K4 scratch round
+    trip; then times: ms/step of both routes (median of 3 windows after a
+    warm-up, taken in turns) and of the replays alone, device-busy ms and
+    host launch calls per step from a traced run, capture seconds, peak MiB
+    allocated and reserved. Returns the numbers for [times] and the record."""
+    import numpy as np
+    import torch
+
+    from trajectory_optimization_tpu_torch.api import TrajectoryOptimizer
+    from trajectory_optimization_tpu_torch.models import wps_opt
+    from trajectory_optimization_tpu_torch.models.pose import PoseProblem, init_pose_params
+    from trajectory_optimization_tpu_torch.models.traj import init_traj_params, traj_forward
+    from trajectory_optimization_tpu_torch.ops import _kernels
+    from trajectory_optimization_tpu_torch.opt import engine as te
+    from trajectory_optimization_tpu_torch.opt import runners
+    from trajectory_optimization_tpu_torch.opt.graphs import capture_stream
+    from trajectory_optimization_tpu_torch.utils.data import identity_quaternions, pad_points
+
+    cfg = te.OptimizerConfig(lr_pose=0.1, lr_quat=0.02)
+    facade = TrajectoryOptimizer(lr_pose=0.1, lr_quat=0.02, device=dev)
+    K = intr.matrix(device=dev)
+    res = {"traj": {}, "pose": {}}
+
+    def differ(a, b):
+        if isinstance(a, dict):
+            return [f"{k}.{d}" for k in a for d in differ(a[k], b[k])]
+        return [] if torch.equal(a, b) else [
+            f"{int((a != b).sum())} of {a.numel()} (max |diff| "
+            f"{float((a.double() - b.double()).abs().max()):.3e})"]
+
+    def same(what, a, b):
+        bad = differ(a, b)
+        if bad:
+            fail(f"[graphs] {what}: captured != eager: {'; '.join(bad)}")
+
+    def counted(fn):
+        sync()
+        _kernels.reset_launches()
+        out = fn()
+        sync()
+        return out, {k: v for k, v in _kernels.LAUNCHES.items() if v}
+
+    def peaks(fn):
+        sync()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        sync()
+        return out, (torch.cuda.max_memory_allocated() / 2**20,
+                     torch.cuda.max_memory_reserved() / 2**20)
+
+    def ms_per_step(fns, n):
+        """{route: median ms/step of 3 windows} after one warm-up call each,
+        the windows taken in turns (route order, then reversed)."""
+        for fn in fns.values():
+            fn()
+        sync()
+        times = {r: [] for r in fns}
+        order = list(fns)
+        for w in range(3):
+            for r in (order if w % 2 == 0 else order[::-1]):
+                t0 = time.perf_counter()
+                fns[r]()
+                sync()
+                times[r].append((time.perf_counter() - t0) * 1e3 / n)
+        return {r: statistics.median(v) for r, v in times.items()}
+
+    def trace_steps(fn, n):
+        """(device-busy ms per step, host kernel launches per step, graph
+        launches per step, device operations per step) of one traced call;
+        the device numbers None without device activity in the trace."""
+        prof, _, n_spans, busy_us = traced(fn, sync)
+        host = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+        kernel = sum("LaunchKernel" in h for h in host) / n
+        graph = sum("GraphLaunch" in h for h in host) / n
+        if not n_spans:
+            return None, kernel, graph, None
+        return busy_us / 1e3 / n, kernel, graph, n_spans / n
+
+    def last_bucket(runner):
+        # the bucket of the runner's latest call (runs of 1m50 and 8m50 share
+        # a runner: one problem, two buckets)
+        return list(runner.buckets._items.values())[-1]
+
+    def traj_data(name):
+        pts, path = clouds[name], paths[name]
+        padded, valid = pad_points(pts)
+        q = identity_quaternions(len(path))
+        if name == "8m50":
+            q[::3] = [0.9, 0.1, -0.3, 0.2]  # [slice]'s 8m50 quaternions
+        data = (torch.as_tensor(padded, device=dev), torch.as_tensor(valid, device=dev), K,
+                torch.as_tensor(path, device=dev), torch.as_tensor(q, device=dev))
+        return facade._traj_problem(path), path, q, data
+
+    # ---- the trajectory runner at the three shapes ------------------------
+    for name, n in GRAPH_STEPS.items():
+        problem, path, q, data = traj_data(name)
+        run = runners.traj_runner(problem, cfg, te.NEVER, n)  # the facade's runner
+        out, mem = {}, {}
+        for route in ("graph", "eager"):
+            (out[route], launches), mem[route] = peaks(lambda route=route: counted(
+                lambda: run._run(route, init_traj_params(path, q, dev), *data)))
+            out[route] = (out[route], launches)
+        (pg, ig, lg, ag), lau_g = out["graph"]
+        (pe, ie, le, ae), lau_e = out["eager"]
+        if int(ig) != int(ie) or int(ig) != n:
+            fail(f"[graphs] {name}: n_iters captured {int(ig)}, eager {int(ie)}, expected {n}")
+        same(f"{name} parameters", pg, pe)
+        same(f"{name} final loss", lg, le)
+        same(f"{name} final aux", ag, ae)
+        if lau_g != lau_e or not lau_g:
+            fail(f"[graphs] {name}: launches captured {lau_g} != eager {lau_e}")
+        vis = float(ag["mean_reward"]) / float(ag["reward0"])
+        smooth = float(ag["smooth0"]) / float(ag["loss_smooth"])
+        if name == "ref" and not (vis >= 1.1 and smooth >= 0.9):
+            fail(f"[graphs] ref 400 captured steps: visibility gain {vis:.4f} (need >= 1.1), "
+                 f"smoothness gain {smooth:.4f} (need >= 0.9)")
+        bucket = last_bucket(run)
+        per_step = {k: v / n for k, v in lau_g.items()}
+        # timed: a runner of the window's length, its own bucket (capture in the warm-up)
+        nw = GRAPH_WINDOW[name]
+        wrun = runners.traj_runner(problem, cfg, te.NEVER, nw)
+        ms = ms_per_step({r: (lambda r=r: wrun._run(r, init_traj_params(path, q, dev), *data))
+                          for r in ("graph", "eager")}, nw)
+        wb = last_bucket(wrun)
+        with torch.cuda.stream(capture_stream(dev)):
+            wb.graph.replay()  # warm-up
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(nw):
+                wb.graph.replay()
+            sync()
+        replay_ms = (time.perf_counter() - t0) * 1e3 / nw
+        # what a cached bucket holds: a fresh one (2 steps), measured after
+        # the cache is emptied: allocated = its static buffers, reserved =
+        # those and its graph's private pool
+        sync()
+        torch.cuda.empty_cache()
+        a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        runners.traj_runner(problem, cfg, te.NEVER, 2)._run(
+            "graph", init_traj_params(path, q, dev), *data)
+        sync()
+        torch.cuda.empty_cache()
+        held = ((torch.cuda.memory_allocated() - a0) / 2**20,
+                (torch.cuda.memory_reserved() - r0) / 2**20)
+        trun = runners.traj_runner(problem, cfg, te.NEVER, GRAPH_TRACE)
+        trun._run("graph", init_traj_params(path, q, dev), *data)  # capture before the trace
+        tr = {r: trace_steps(lambda r=r: trun._run(r, init_traj_params(path, q, dev), *data),
+                             GRAPH_TRACE) for r in ("graph", "eager")}
+        res["traj"][name] = {
+            "steps": n, "launches": lau_g, "launches_per_step": per_step,
+            "ms_per_step": ms, "replay_ms_per_step": replay_ms,
+            "busy_ms_per_step": {r: v[0] for r, v in tr.items()},
+            "host_kernel_launches_per_step": {r: v[1] for r, v in tr.items()},
+            "graph_launches_per_step": {r: v[2] for r, v in tr.items()},
+            "device_ops_per_step": {r: v[3] for r, v in tr.items()},
+            "capture_s": {"held run": bucket.graph.capture_s, "window": wb.graph.capture_s,
+                          "trace": last_bucket(trun).graph.capture_s},
+            "peak_mib": {r: {"allocated": a, "reserved": b} for r, (a, b) in mem.items()},
+            "bucket_mib": {"allocated": held[0], "reserved": held[1]},
+            "gains": (vis, smooth)}
+        print(f"[graphs] {name} {n} steps through traj_runner: captured == eager (torch.equal "
+              f"n_iters {int(ig)}, parameters, final loss and aux); launches per step "
+              f"{per_step} in both; visibility gain {vis:.4f}, smoothness gain {smooth:.4f}; "
+              f"ms/step captured {ms['graph']:.4f}, eager {ms['eager']:.4f}", flush=True)
+        del out, pg, pe, ag, ae, data
+
+    # ---- optimize_with_history and OptimizerLoop at ref ----------------------
+    problem, path, q, data = traj_data("ref")
+    P, V, _, p0, q0 = data
+    Pt = P.t().contiguous()
+
+    def loss_ref(p):
+        return traj_forward(p, P, K, p0, q0, problem, valid=V, points_t=Pt)
+
+    hist = {route: te._optimize_with_history(loss_ref, init_traj_params(path, q, dev), cfg, 50,
+                                             route=route) for route in ("graph", "eager")}
+    same("optimize_with_history parameters", hist["graph"][0], hist["eager"][0])
+    hg, he = hist["graph"][1], hist["eager"][1]
+    if hg.keys() != he.keys() or not all(np.array_equal(hg[k], he[k]) for k in he):
+        fail("[graphs] optimize_with_history: the captured history differs from the eager one")
+    # the public entry points take the captured route on the card
+    pub = te.optimize_with_history(loss_ref, init_traj_params(path, q, dev), cfg, 50)
+    same("optimize_with_history (public) parameters", pub[0], hist["eager"][0])
+    if not all(np.array_equal(pub[1][k], he[k]) for k in he):
+        fail("[graphs] optimize_with_history (public): the history differs from the eager one")
+    got = te.optimize(loss_ref, init_traj_params(path, q, dev), cfg, 50)
+    want = te._optimize(loss_ref, init_traj_params(path, q, dev), cfg, 50, route="eager")
+    same("optimize (public) parameters", got[0], want[0])
+    if got[1:] != want[1:]:
+        fail(f"[graphs] optimize (public): n_iters, loss {got[1:]} != eager {want[1:]}")
+    loops = {}
+    for route in ("graph", "eager"):
+        loops[route] = te.OptimizerLoop(loss_ref, init_traj_params(path, q, dev), cfg)
+        if loops[route]._route != "graph":
+            fail(f"[graphs] OptimizerLoop on the card routes {loops[route]._route!r}")
+        loops[route]._route = route
+    for m in (0, 1, 7, 20):
+        got, want = loops["graph"].run(m), loops["eager"].run(m)
+        same(f"OptimizerLoop.run({m}) loss", got[0], want[0])
+        same(f"OptimizerLoop.run({m}) aux", got[1], want[1])
+        same(f"OptimizerLoop.run({m}) parameters", loops["graph"].params, loops["eager"].params)
+    print(f"[graphs] ref: optimize_with_history 50 steps (history of {sorted(hg)}; private "
+          f"route and public entry point), optimize 50 steps (public) and "
+          f"OptimizerLoop.run(0, 1, 7, 20): captured == eager (torch.equal); the loop replayed "
+          f"{loops['graph']._graph.replays} steps", flush=True)
+
+    # ---- the pose runner (PoseOptimizer's) at cloud 10 and 1M ---------------
+    pose_problem = PoseProblem(img_width=intr.width, img_height=intr.height)
+    for name, n in GRAPH_POSE:
+        padded, valid = pad_points(clouds[name])
+        Pp, Vp = torch.as_tensor(padded, device=dev), torch.as_tensor(valid, device=dev)
+        init, adv = runners.pose_runner(pose_problem, te.OptimizerConfig(lr_pose=0.1,
+                                                                         lr_quat=0.0), n)
+
+        def pose_run(route, adv=adv, init=init, Pp=Pp, Vp=Vp):
+            p = init_pose_params(np.array([[6.0, 2.0, 0.0]], np.float32),
+                                 np.array([[1.0, 0.0, 0.0, 0.0]], np.float32), dev)
+            return adv._advance(route, p, init(p), Pp, Vp, K)
+
+        got, want = pose_run("graph"), pose_run("eager")
+        for what, a, b in zip(("parameters", "Adam state", "loss", "aux"), got, want):
+            same(f"pose {name} {what}", a, b)
+        ms = ms_per_step({r: (lambda r=r: pose_run(r)) for r in ("graph", "eager")}, n)
+        b = last_bucket(adv)
+        res["pose"][name] = {"steps": n, "ms_per_step": ms, "capture_s": b.graph.capture_s}
+        print(f"[graphs] PoseOptimizer's runner {name} {n} steps: captured == eager (torch.equal "
+              f"parameters, Adam state, loss, observations); ms/step captured {ms['graph']:.4f}, "
+              f"eager {ms['eager']:.4f}", flush=True)
+
+    # ---- optimize_waypoints at the demo's defaults ---------------------------
+    q_id = identity_quaternions(len(paths["ref"]))
+    wprob = wps_opt.WpsOptProblem(img_width=intr.width, img_height=intr.height)
+    wps = {}
+    route_of = wps_opt.capture_route
+    for route in ("graph", "eager"):
+        # the eager reference: the module's route predicate answers "eager"
+        wps_opt.capture_route = (lambda *a, route=route: route)
+        try:
+            sync()
+            t0 = time.perf_counter()
+            wps[route] = wps_opt.optimize_waypoints(
+                clouds["ref"], paths["ref"], q_id, intr.matrix_np(), wprob, n_steps=WPS_STEPS,
+                lr_xy=0.02, lr_yaw=0.02, device=dev)
+            sync()
+            wps[route + "_s"] = time.perf_counter() - t0
+        finally:
+            wps_opt.capture_route = route_of
+    for i, what in enumerate(("positions", "quaternions", "aux")):
+        same(f"optimize_waypoints {what}", wps["graph"][i], wps["eager"][i])
+    res["wps"] = {"steps": WPS_STEPS, "s": {r: wps[r + "_s"] for r in ("graph", "eager")}}
+    print(f"[graphs] optimize_waypoints at the demo's defaults ({WPS_STEPS} steps, cloud 10, "
+          f"path 10): captured == eager (torch.equal positions, quaternions, aux); "
+          f"{wps['graph_s']:.3f} s captured, {wps['eager_s']:.3f} s eager", flush=True)
+
+    # ---- the K3/K4 scratch: capture at W = 14, grow it at W = 50, replay ----
+    side = capture_stream(dev)
+    _kernels._reduction_scratch.pop((dev, side.cuda_stream), None)  # a fresh, small scratch
+    problem, path, q, data = traj_data("ref")
+    small = runners.traj_runner(problem, cfg, te.NEVER, 10)
+    first = small._run("graph", init_traj_params(path, q, dev), *data)
+    held = last_bucket(small).graph.scratch
+    bproblem, bpath, bq, bdata = traj_data("1m50")
+    runners.traj_runner(bproblem, cfg, te.NEVER, 5)._run("graph",
+                                                         init_traj_params(bpath, bq, dev), *bdata)
+    grown = _kernels._reduction_scratch[(dev, side.cuda_stream)]
+    if held is None or grown[1] is held[1] or grown[1].numel() <= held[1].numel():
+        fail("[graphs] the 1m50 run did not replace the scratch the W = 14 graph holds: the "
+             "round trip shows nothing")
+    again = small._run("graph", init_traj_params(path, q, dev), *data)
+    eager = small._run("eager", init_traj_params(path, q, dev), *data)
+    for what, a in (("first run", first), ("replay after the scratch grew", again)):
+        same(f"scratch round trip, {what}, parameters", a[0], eager[0])
+        same(f"scratch round trip, {what}, final loss", a[2], eager[2])
+    res["scratch_doubles"] = (held[1].numel(), grown[1].numel())
+    print(f"[graphs] K3/K4 scratch round trip: captured at W = 14 with {held[1].numel()} "
+          f"partial doubles, the 1m50 run grew the stream's scratch to {grown[1].numel()}, the "
+          f"W = 14 graph replayed on the scratch it holds: equal to the eager run", flush=True)
+    return res
+
+
+def print_graph_times(card: str, gr) -> None:
+    for name, t in gr["traj"].items():
+        busy = t["busy_ms_per_step"]
+
+        def b(r):
+            return "not measured" if busy[r] is None else f"{busy[r]:.4f}"
+
+        print(f"[times] {card} | graphs {name}: ms/step captured {t['ms_per_step']['graph']:.4f} "
+              f"(replays alone {t['replay_ms_per_step']:.4f}), eager {t['ms_per_step']['eager']:.4f}"
+              f" ({GRAPH_WINDOW[name]}-step runs, median of 3); device busy ms/step captured "
+              f"{b('graph')}, eager {b('eager')}; host launch calls per step captured "
+              f"{t['host_kernel_launches_per_step']['graph']:.2f} kernels + "
+              f"{t['graph_launches_per_step']['graph']:.2f} graphs, eager "
+              f"{t['host_kernel_launches_per_step']['eager']:.2f} kernels + "
+              f"{t['graph_launches_per_step']['eager']:.2f} graphs ({GRAPH_TRACE}-step traced "
+              f"runs); capture s " + ", ".join(f"{k} {v:.3f}" for k, v in t["capture_s"].items())
+              + "; peak MiB " + ", ".join(
+                  f"{r} {m['allocated']:.1f} allocated / {m['reserved']:.1f} reserved"
+                  for r, m in t["peak_mib"].items())
+              + f"; a cached bucket holds {t['bucket_mib']['allocated']:.1f} MiB allocated "
+              f"(static buffers), {t['bucket_mib']['reserved']:.1f} MiB reserved (with its "
+              f"graph's pool)", flush=True)
+    print(f"[times] {card} | graphs PoseOptimizer ms/step " + "; ".join(
+        f"{name} captured {t['ms_per_step']['graph']:.4f}, eager {t['ms_per_step']['eager']:.4f}"
+        f" (capture {t['capture_s']:.3f} s)" for name, t in gr["pose"].items())
+        + f"; optimize_waypoints {gr['wps']['steps']} steps: "
+        + ", ".join(f"{r} {s:.3f} s" for r, s in gr["wps"]["s"].items()), flush=True)
+
+
 def spread(xs) -> str:
     """'median [min, max]' of a few measurements."""
     return f"{statistics.median(xs):.3f} [{min(xs):.3f}, {max(xs):.3f}]"
@@ -2931,7 +3272,7 @@ def main() -> int:
     from trajectory_optimization_tpu_torch.ops import _kernels
     from trajectory_optimization_tpu_torch.ops import fused_vis as fv
     from trajectory_optimization_tpu_torch.ops import quat as quat_ops
-    from trajectory_optimization_tpu_torch.opt.engine import NEVER, OptimizerConfig, run_until_done
+    from trajectory_optimization_tpu_torch.opt.engine import NEVER, OptimizerConfig, _run_until_done
     from trajectory_optimization_tpu_torch.utils.data import (
         identity_quaternions, in_view_case, load_path, load_point_cloud, pad_points,
     )
@@ -3011,7 +3352,7 @@ def main() -> int:
         the traced wall time) from a torch.profiler trace of n steps; None if
         the trace holds no device activity."""
         _, wall_ms, n_spans, busy_us = traced(
-            lambda: run_until_done(loss_fn, p0, cfg, n, NEVER), sync)
+            lambda: eager_steps(loss_fn, p0, n), sync)
         if not n_spans:
             return None
         return n_spans / n, busy_us / 1e3 / n, busy_us / 1e3 / wall_ms
@@ -3021,16 +3362,22 @@ def main() -> int:
             return "busy share not measured (no device activity in the trace)"
         return f"{b[0]:.1f} device ops/step, busy {b[1]:.4f} ms/step, {100 * b[2]:.1f}% of the traced step"
 
+    def eager_steps(loss_fn, p0, n):
+        # the eager loop: [times] keeps the series of earlier runs; [graphs]
+        # times the captured loop beside it
+        return _run_until_done(loss_fn, p0, cfg, n, NEVER, route="eager")
+
     def step_times(loss_fn, p0, n):
-        """Median ms/step of 3 windows of n steps after a warm-up window, the
-        peak MiB of those windows, and ``device_busy`` over 20 traced steps."""
-        run_until_done(loss_fn, p0, cfg, n, NEVER)  # warm-up
+        """Median ms/step of 3 windows of n eager steps after a warm-up
+        window, the peak MiB of those windows, and ``device_busy`` over 20
+        traced steps."""
+        eager_steps(loss_fn, p0, n)  # warm-up
         sync()
         torch.cuda.reset_peak_memory_stats()
         windows = []
         for _ in range(3):
             t0 = time.perf_counter()
-            run_until_done(loss_fn, p0, cfg, n, NEVER)
+            eager_steps(loss_fn, p0, n)
             sync()
             windows.append((time.perf_counter() - t0) * 1e3 / n)
         peak = torch.cuda.max_memory_allocated() / 2**20
@@ -3594,6 +3941,7 @@ def main() -> int:
     slice8_s = time.perf_counter() - t0
     launches8 = dict(_kernels.LAUNCHES)
     peak8 = torch.cuda.max_memory_allocated() / 2**20
+    peak8_reserved = torch.cuda.max_memory_reserved() / 2**20
     if not (all(launches8[n] > 0 for n in UNCACHED) and all(launches8[n] == 0 for n in CACHED)):
         fail(f"the 8m50 run did not run exactly K1', K2' and K5: {launches8}")
     if not (np.all(np.isfinite(res8.poses)) and np.isfinite(res8.loss) and res8.n_iters == 20
@@ -3604,7 +3952,7 @@ def main() -> int:
     print(f"[slice] 8m50 N={N8} W={W8} 20 steps in {slice8_s:.2f} s: loss {res8.loss:.6f}, "
           f"visibility gain {res8.visibility_gain:.4f}; first forward and K5 against chunked "
           f"plain versions, max|err| " + ", ".join(f"{n}={v:.2e}" for n, v in e8.items())
-          + f", K1' and K1 bit-equal to the plain pass A, K5 tie counts equal; peak {peak8:.1f} MiB (a score cache alone: {cache_mib:.1f} MiB); launches "
+          + f", K1' and K1 bit-equal to the plain pass A, K5 tie counts equal; peak {peak8:.1f} MiB allocated, {peak8_reserved:.1f} reserved (a score cache alone: {cache_mib:.1f} MiB); launches "
           f"{launches8}; {prune_text(prunes['8m50'])}; {skip_text(skips['8m50'])}", flush=True)
 
     # ---- 5.-6. the render path: K6, K7 and the points processor ------------
@@ -3634,7 +3982,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     pr = parallel_checks(dev, intr, sync)
 
-    # ---- 12. times ---------------------------------------------------------
+    # ---- 12. the captured optimization loop ------------------------------------
+    torch.cuda.empty_cache()
+    pts8 = np.random.default_rng(8).uniform(-20, 20, size=(N_8M, 3)).astype(np.float32)
+    gr = graph_checks(dev, intr, {"ref": cloud10, "1m50": big_pts, "8m50": pts8,
+                                  "cloud10": cloud10, "1m": big_pts},
+                      {"ref": path10, "1m50": big_path, "8m50": big_path}, sync)
+    del pts8
+
+    # ---- 13. times ---------------------------------------------------------
     for c in cases:
         n = 50 if c["name"] == "ref" else 10
         for backend in ("kernel", "torch"):
@@ -3650,13 +4006,13 @@ def main() -> int:
 
     for c in cases:
         name = c["name"]
-        print(f"[times] {card} | {name}: ms/step kernel {step_ms[(name, 'kernel')]:.4f} "
+        print(f"[times] {card} | {name}: eager loop ms/step kernel {step_ms[(name, 'kernel')]:.4f} "
               f"plain {step_ms[(name, 'torch')]:.4f}; peak MiB kernel "
               f"{peak_mb[(name, 'kernel')]:.1f} plain {peak_mb[(name, 'torch')]:.1f}; stage ms "
               + ", ".join(f"{s} {a:.4f}/{b:.4f}" for s, (a, b) in stage_ms[name].items())
               + f" (kernel/plain); device, kernel: {busy_text(busy[(name, 'kernel')])}; "
               f"plain: {busy_text(busy[(name, 'torch')])}", flush=True)
-    print(f"[times] {card} | 8m50: ms/step kernel {step_ms[('8m50', 'kernel')]:.4f}; peak MiB "
+    print(f"[times] {card} | 8m50: eager loop ms/step kernel {step_ms[('8m50', 'kernel')]:.4f}; peak MiB "
           f"kernel {peak_mb[('8m50', 'kernel')]:.1f} (optimize run {peak8:.1f}); stage ms "
           + ", ".join(f"{s} {a:.4f}" for s, a in stage_ms["8m50"].items())
           + f" (kernel); device, kernel: {busy_text(busy[('8m50', 'kernel')])}", flush=True)
@@ -3754,6 +4110,7 @@ def main() -> int:
     print_frozen_times(card, fr)
     print_cli_times(card, cl)
     print_parallel_times(card, pr)
+    print_graph_times(card, gr)
 
     def vis_entry(n):
         b_ref = vis_bound(n, *shape_wn["ref"], skips["ref"], prunes["ref"])
@@ -3791,7 +4148,7 @@ def main() -> int:
 
     record = {"kernels": [vis_entry(n) for n in VIS] + [splat_entry(n) for n in SPLAT],
               "step_ms": {f"{a}/{b}": v for (a, b), v in step_ms.items()},
-              "peak_mib_8m50": peak8,
+              "peak_mib_8m50": peak8, "peak_reserved_mib_8m50": peak8_reserved,
               "cached_backward_ms": {sh: {"k3_plus_k4": ms, "cache_read_bound": b,
                                           "kernel_alone": dev_ms[sh]}
                                      for sh, (ms, b) in joint.items()},
@@ -3808,7 +4165,7 @@ def main() -> int:
                         "pose_ms_per_step": nodes["pose_ms_per_step"],
                         "pose_card_vs_cpu": nodes["pose_card_vs_cpu"],
                         "voxel_filter_ms_8m": nodes["voxel_filter_ms_8m"]},
-              "hpr": hp, "frozen": fr, "parallel": pr,
+              "hpr": hp, "frozen": fr, "parallel": pr, "graphs": gr,
               "cli": {k: cl[k] for k in ("run_s", "startup_s", "msgs_per_s", "record")}}
     for e in record["kernels"]:
         nums = [v for k, v in e.items() if k.endswith("ms") or k == "max_abs_err"]

@@ -163,13 +163,16 @@ class TrajOptNode:
             EarlyStop(rewards_th=cfg.rewards_th, smoothness_th=cfg.smoothness_th),
             cfg.opt_steps,
         )
+        # the data goes from the host straight into the runner's static
+        # buffers on the parameters' device (one copy, no device tensor per
+        # message); the runner replays its captured step there
         params, n_iters, loss, aux = run(
             init_traj_params(poses0, quats0, dev),
-            torch.as_tensor(points, device=dev),
-            torch.as_tensor(valid, device=dev),
-            self.intr.matrix(device=dev),
-            torch.as_tensor(poses0, device=dev),
-            torch.as_tensor(quats0, device=dev),
+            torch.from_numpy(points),
+            torch.from_numpy(valid),
+            self.intr.matrix(),
+            torch.from_numpy(poses0),
+            torch.from_numpy(quats0),
         )
         # every result in one flat f32 tensor, one device-to-host copy
         leaves = [params["poses"].reshape(-1), params["quats"].reshape(-1), loss.reshape(1),

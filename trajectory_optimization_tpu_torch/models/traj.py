@@ -146,6 +146,22 @@ def _resolve_backend(problem: TrajProblem, points: torch.Tensor) -> str:
     return backend
 
 
+def capture_route(problem, n_points: int) -> str:
+    """How a step of this configuration runs on the card: ``"graph"``, captured
+    once per shape bucket and replayed (``opt/graphs.py``), or ``"eager"``
+    where the step reads the host. Soft HPR above ``soft_hpr_dense_max``
+    points takes the direction-binned tier, which sizes its tile table on the
+    host (``int(tile_cum[-1])`` in ``ops.hpr.hpr_mask_soft_binned``): eager.
+    Every other configuration (the kernel and plain backends, the dense soft
+    tier, a precomputed occlusion mask) captures. Decided from the problem
+    and N alone; ``problem`` is duck-typed (``soft_hpr``,
+    ``soft_hpr_dense_max``) as for ``gated_waypoint_scores``, so the
+    trajectory, pose and waypoint models all route through here."""
+    if problem.soft_hpr and n_points > problem.soft_hpr_dense_max:
+        return "eager"
+    return "graph"
+
+
 def plain_lo_sum(points, quats_sel, poses_sel, K, problem: TrajProblem, valid=None):
     """The plain path's score → log-odds → sum over waypoints, (N,)."""
     p = waypoint_scores(

@@ -24,6 +24,15 @@ C entry point returns a CUDA error, and only then adds one to its entry in
 arrive; the partials and the arrival counters, which the kernels leave
 zeroed, live in a scratch that is made once per device and stream
 (``_launch_reduced``).
+
+Every wrapper can be recorded into a CUDA graph (``opt/graphs.py``): the
+stream is read at call time, and the device state made on first use (pass
+A's sentinels, the reduction scratch) must exist before a capture starts,
+which the captured engine's eager first step on the capture stream sees to;
+a wrapper that would have to make it while its stream captures raises. A
+capture holds a reference to the scratch it recorded
+(``reduction_scratch``) and takes back the counts its wrappers raised:
+each replay adds them (``add_launches``).
 """
 from __future__ import annotations
 
@@ -73,6 +82,23 @@ build_log = ""  # nvcc's output (ptxas register/spill report) of the library's b
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def add_launches(counts) -> None:
+    """Add ``counts`` ({kernel: launches}) to ``LAUNCHES``: a replayed
+    graph's launches, which no wrapper sees."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+def reduction_scratch(device, stream: int):
+    """The (arrival counters, partial sums) K3 and K4 use on ``device`` and
+    ``stream``, or None: a captured graph keeps this pair alive."""
+    return _reduction_scratch.get((torch.device(device), stream))
 
 
 def on_cpu(t: torch.Tensor) -> bool:
@@ -236,6 +262,9 @@ def _minmax_out(W: int, device) -> torch.Tensor:
     it with atomic min/max): the wrapper's one initialising op."""
     col = _sentinels.get(device)
     if col is None:
+        if _capturing():  # a host-to-device copy: illegal while the stream captures
+            raise RuntimeError("pass A's sentinels must be made before a CUDA graph capture: "
+                               "run the step once eagerly first")
         col = _sentinels[device] = torch.tensor([[BIG], [-BIG]], dtype=torch.float32,
                                                 device=device)
     return col.repeat(1, W)  # always a copy (expand().contiguous() is col itself at W = 1)
@@ -284,16 +313,28 @@ def _launch_reduced(fn, args, W: int, device, stream: int, tail) -> int:
     once, when they are made) and a float64 buffer for the blocks' partial
     sums, which the launcher sizes: it launches nothing and returns the
     doubles it needs, negated, while the buffer is too small. Calls on one
-    stream run one after the other, so they share the scratch."""
+    stream run one after the other, so they share the scratch. A larger
+    problem replaces the pair (a graph captured with the old one keeps
+    it); while the stream captures, the pair must already fit."""
     arrivals, part = _reduction_scratch.get((device, stream), (None, None))
     if arrivals is None or arrivals.numel() < W:
+        _no_growth_in_capture()
         arrivals = torch.zeros(max(W, 4096), dtype=torch.int32, device=device)
     if part is None:
         part = torch.empty(0, dtype=torch.float64, device=device)
     while (rc := fn(*args, part.data_ptr(), part.numel(), arrivals.data_ptr(), *tail)) < 0:
+        _no_growth_in_capture()
         part = torch.empty(-rc, dtype=torch.float64, device=device)
     _reduction_scratch[(device, stream)] = (arrivals, part)
     return rc
+
+
+def _no_growth_in_capture() -> None:
+    # arrival counters zeroed inside a capture would be zeroed only at
+    # replay, and an eager call could meet them before that
+    if _capturing():
+        raise RuntimeError("the K3/K4 scratch must be sized before a CUDA graph capture: run "
+                           "the step once eagerly on the capture stream first")
 
 
 def bwd_stats(norm, scores, valid, g, eps):

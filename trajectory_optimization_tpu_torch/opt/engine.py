@@ -14,7 +14,14 @@ Twin of ``trajectory_optimization_tpu/opt/engine.py``:
     no-op (parameters, moments and step count all frozen), and the host reads
     ``done`` only every ``check_every`` steps to leave the loop early. The
     result equals the JAX ``lax.while_loop``'s: same ``n_iters``, same
-    parameters.
+    parameters;
+  * on CUDA tensors the step loops run as the JAX engine's jitted loops run,
+    as one program: the step is captured once as a CUDA graph over static
+    buffers and replayed (``opt/graphs.py``), the first step of a run eager;
+    on CPU tensors they run the eager loop. Both give the same bits. A
+    generic ``loss_fn`` is captured as ``jax.jit`` traces it: if it reads
+    the host, the capture raises. Callers that know their step reads the
+    host call the private loops (``_run_until_done``) with ``route="eager"``.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+
+from trajectory_optimization_tpu_torch.opt.graphs import StepGraph, device_route, on_capture_stream
 
 LossFn = Callable[[Dict], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -179,20 +188,137 @@ class EarlyStop:
 NEVER = EarlyStop(rewards_th=float("inf"), smoothness_th=float("inf"))
 
 
-def run_until_done(
-    loss_fn: LossFn,
-    params: Dict[str, torch.Tensor],
-    cfg: OptimizerConfig,
-    n_steps: int,
-    stop: EarlyStop,
-    *,
-    pose_key: str = "poses",
-    quat_key: str = "quats",
-    check_every: int = 16,
-):
-    """The masked early-stopping loop shared by :func:`optimize` and
-    ``opt.runners.traj_runner``. Returns a dict of device tensors: params,
-    state, i (steps taken), loss (of the last step taken), reward0, smooth0."""
+
+def _params_device(params: Dict[str, torch.Tensor]) -> torch.device:
+    return next(iter(params.values())).device
+
+
+def assign(dst, src) -> None:
+    """``dst.copy_(src)`` over matching (nested) dicts of tensors."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            assign(dst[k], v)
+        else:
+            dst[k].copy_(v)
+
+
+def clone_tree(tree):
+    """A copy of a (nested) dict of tensors."""
+    return {k: clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+class AdamStep:
+    """The static buffers of one Adam-driven loop and its step: the
+    parameters and the Adam state live in tensors whose addresses never
+    change, and ``step()`` computes the new ones exactly as the eager loop
+    does, then ``copy_``s them back. Capturing ``step`` as a CUDA graph and
+    replaying it iterates in place. ``loss_fn`` must read only tensors that
+    outlive the object (static inputs or the caller's data).
+
+    ``keep_output`` keeps the loss and aux of the step's forward (taken
+    before its update) in static buffers ``loss`` and ``aux``, made by the
+    first step; ``frozen`` (a static bool) masks the update as
+    ``adam_update`` does."""
+
+    def __init__(self, loss_fn: LossFn, params, cfg: OptimizerConfig, lrs: Dict, *,
+                 state: Optional[Dict] = None, keep_output: bool = False):
+        self.loss_fn, self.cfg, self.lrs = loss_fn, cfg, lrs
+        self.params = clone_tree({k: v.detach() for k, v in params.items()})
+        self.state = clone_tree(state) if state is not None else adam_init(self.params)
+        self.keep_output = keep_output
+        self.loss, self.aux = None, None
+
+    def update(self, frozen: Optional[torch.Tensor] = None):
+        """Forward, gradient and masked Adam step on the static buffers:
+        (loss, aux) of the forward, the parameters already updated in place."""
+        loss, aux, grads = value_and_grad(self.loss_fn, self.params)
+        new_p, new_state = adam_update(grads, self.state, self.params, self.cfg, self.lrs,
+                                       frozen=frozen)
+        assign(self.params, new_p)
+        assign(self.state, new_state)
+        if self.keep_output:
+            if self.loss is None:
+                self.loss, self.aux = loss.clone(), clone_tree(aux)
+            else:
+                self.loss.copy_(loss)
+                assign(self.aux, aux)
+        return loss, aux
+
+    def step(self) -> None:
+        self.update()
+
+
+class UntilDoneStep(AdamStep):
+    """The masked early-stopping loop's static buffers (``done``, ``i``,
+    the last loss taken, ``reward0``, ``smooth0``) beside the Adam step's.
+    ``step(first=True)`` also records ``reward0`` and ``smooth0``: the
+    first step of a run, run eagerly, outside any capture."""
+
+    def __init__(self, loss_fn: LossFn, params, cfg: OptimizerConfig, lrs: Dict,
+                 stop: EarlyStop):
+        super().__init__(loss_fn, params, cfg, lrs)
+        dev = _params_device(self.params)
+        self.stop = stop
+        self.done = torch.zeros((), dtype=torch.bool, device=dev)
+        self.i = torch.zeros((), dtype=torch.int64, device=dev)
+        self.last_loss = torch.full((), float("inf"), device=dev)
+        self.reward0 = torch.full((), 1e-6, device=dev)
+        self.smooth0 = torch.zeros((), device=dev)
+
+    def reset(self, params) -> None:
+        """Start a new run from ``params``, every buffer at its initial
+        value (``run_until_done``'s)."""
+        assign(self.params, params)
+        for k in self.params:
+            self.state["mu"][k].zero_()
+            self.state["nu"][k].zero_()
+        self.state["count"].zero_()
+        self.done.zero_()
+        self.i.zero_()
+        self.last_loss.fill_(float("inf"))
+        self.reward0.fill_(1e-6)
+        self.smooth0.zero_()
+
+    def step(self, first: bool = False) -> None:
+        stop, done = self.stop, self.done
+        # the update reads `done` before it changes: new values first, copies last
+        loss, aux = self.update(frozen=done)
+        if first:
+            self.reward0.copy_(aux[stop.reward_key])
+            self.smooth0.copy_(aux[stop.smooth_key])
+        last_loss = torch.where(done, self.last_loss, loss)
+        i = self.i + (~done).to(self.i.dtype)
+        new_done = done | (
+            (aux[stop.reward_key] / self.reward0 > stop.rewards_th)
+            & (self.smooth0 / aux[stop.smooth_key] > stop.smoothness_th)
+        )
+        self.last_loss.copy_(last_loss)
+        self.i.copy_(i)
+        self.done.copy_(new_done)
+
+    def result(self) -> Dict:
+        """``run_until_done``'s dict, on the static buffers themselves."""
+        return {"params": self.params, "state": self.state, "i": self.i, "loss": self.last_loss,
+                "reward0": self.reward0, "smooth0": self.smooth0}
+
+
+def drive_until_done(run: UntilDoneStep, graph: StepGraph, n_steps: int, *,
+                     check_every: int = 16) -> None:
+    """Take up to ``n_steps`` steps: the first eagerly (it records the gains'
+    baselines), the rest through ``graph``; read ``done`` on the host every
+    ``check_every`` steps, where the eager loop reads it."""
+    stop = run.stop
+    can_stop = math.isfinite(stop.rewards_th) or math.isfinite(stop.smoothness_th)
+    for step in range(n_steps):
+        if step == 0:
+            run.step(first=True)
+        else:
+            graph()
+        if can_stop and (step + 1) % check_every == 0 and bool(run.done):
+            break
+
+
+def _eager_until_done(loss_fn, params, cfg, n_steps, stop, *, pose_key, quat_key, check_every):
     lrs = group_lrs(cfg, pose_key, quat_key)
     state = adam_init(params)
     device = next(iter(params.values())).device
@@ -219,6 +345,58 @@ def run_until_done(
             "reward0": reward0, "smooth0": smooth0}
 
 
+def _run_until_done(
+    loss_fn: LossFn,
+    params: Dict[str, torch.Tensor],
+    cfg: OptimizerConfig,
+    n_steps: int,
+    stop: EarlyStop,
+    *,
+    route: str,
+    pose_key: str = "poses",
+    quat_key: str = "quats",
+    check_every: int = 16,
+):
+    """``run_until_done`` on the given route (see ``opt/graphs.py``)."""
+    if route == "eager":
+        return _eager_until_done(loss_fn, params, cfg, n_steps, stop, pose_key=pose_key,
+                                 quat_key=quat_key, check_every=check_every)
+    with on_capture_stream(_params_device(params), route):
+        run = UntilDoneStep(loss_fn, params, cfg, group_lrs(cfg, pose_key, quat_key), stop)
+        drive_until_done(run, StepGraph(run.step, route), int(n_steps), check_every=check_every)
+    return run.result()
+
+
+def run_until_done(
+    loss_fn: LossFn,
+    params: Dict[str, torch.Tensor],
+    cfg: OptimizerConfig,
+    n_steps: int,
+    stop: EarlyStop,
+    *,
+    pose_key: str = "poses",
+    quat_key: str = "quats",
+    check_every: int = 16,
+):
+    """The masked early-stopping loop shared by :func:`optimize` and
+    ``opt.runners.traj_runner``. Returns a dict of device tensors: params,
+    state, i (steps taken), loss (of the last step taken), reward0, smooth0.
+    On CUDA tensors the steps after the first replay one captured step."""
+    return _run_until_done(loss_fn, params, cfg, n_steps, stop,
+                           route=device_route(_params_device(params)), pose_key=pose_key,
+                           quat_key=quat_key, check_every=check_every)
+
+
+def _optimize(loss_fn, params, cfg, n_steps, *, route: str, early_stop=None,
+              pose_key="poses", quat_key="quats"):
+    """:func:`optimize` on the given route."""
+    out = _run_until_done(
+        loss_fn, params, cfg, int(n_steps), early_stop or NEVER, route=route,
+        pose_key=pose_key, quat_key=quat_key,
+    )
+    return out["params"], int(out["i"]), float(out["loss"])
+
+
 def optimize(
     loss_fn: LossFn,
     params: Dict[str, torch.Tensor],
@@ -232,11 +410,59 @@ def optimize(
     """Run the optimization; return (params, n_iters, loss). With
     ``early_stop`` the run ends once the gain thresholds clear; without, it
     takes exactly ``n_steps`` steps."""
-    out = run_until_done(
-        loss_fn, params, cfg, int(n_steps), early_stop or NEVER,
-        pose_key=pose_key, quat_key=quat_key,
-    )
-    return out["params"], int(out["i"]), float(out["loss"])
+    return _optimize(loss_fn, params, cfg, n_steps, route=device_route(_params_device(params)),
+                     early_stop=early_stop, pose_key=pose_key, quat_key=quat_key)
+
+
+class HistoryStep(AdamStep):
+    """:func:`optimize_with_history`'s static buffers: besides the Adam
+    step's, one (n_steps,) row per scalar of the forward (made by the first
+    step) and the device index of the row the next step writes."""
+
+    def __init__(self, loss_fn: LossFn, params, cfg: OptimizerConfig, lrs: Dict, n_steps: int):
+        super().__init__(loss_fn, params, cfg, lrs)
+        self.n_steps = n_steps
+        self.rows: Optional[Dict[str, torch.Tensor]] = None
+        self.idx = torch.zeros((1,), dtype=torch.int64, device=_params_device(self.params))
+
+    def step(self) -> None:
+        loss, aux = self.update()
+        scalars = {k: v for k, v in aux.items() if v.dim() == 0}
+        scalars["loss"] = loss
+        if self.rows is None:
+            self.rows = {k: torch.empty(self.n_steps, dtype=v.dtype, device=v.device)
+                         for k, v in scalars.items()}
+        for k, v in scalars.items():
+            self.rows[k].index_copy_(0, self.idx, v.reshape(1))
+        self.idx.add_(1)
+
+
+def _optimize_with_history(loss_fn, params, cfg, n_steps, *, route: str, pose_key="poses",
+                           quat_key="quats"):
+    """:func:`optimize_with_history` on the given route."""
+    lrs = group_lrs(cfg, pose_key, quat_key)
+    n_steps = int(n_steps)
+    if route == "eager":
+        state = adam_init(params)
+        rows = []
+        for _ in range(n_steps):
+            loss, aux, grads = value_and_grad(loss_fn, params)
+            params, state = adam_update(grads, state, params, cfg, lrs)
+            scalars = {k: v for k, v in aux.items() if v.dim() == 0}
+            scalars["loss"] = loss
+            rows.append(scalars)
+        keys = rows[0].keys() if rows else ()
+        return params, {k: torch.stack([r[k] for r in rows]).cpu().numpy() for k in keys}
+    with on_capture_stream(_params_device(params), route):
+        run = HistoryStep(loss_fn, params, cfg, lrs, n_steps)
+        graph = StepGraph(run.step, route)
+        for step in range(n_steps):
+            if step == 0:
+                run.step()
+            else:
+                graph()
+    rows = run.rows or {}
+    return run.params, {k: v.cpu().numpy() for k, v in rows.items()}
 
 
 def optimize_with_history(
@@ -249,25 +475,20 @@ def optimize_with_history(
     quat_key: str = "quats",
 ):
     """Fixed-length optimization returning the per-step history of the loss
-    and every scalar aux term, as numpy arrays (one host transfer at the end)."""
-    lrs = group_lrs(cfg, pose_key, quat_key)
-    state = adam_init(params)
-    rows = []
-    for _ in range(int(n_steps)):
-        loss, aux, grads = value_and_grad(loss_fn, params)
-        params, state = adam_update(grads, state, params, cfg, lrs)
-        scalars = {k: v for k, v in aux.items() if v.dim() == 0}
-        scalars["loss"] = loss
-        rows.append(scalars)
-    keys = rows[0].keys() if rows else ()
-    history = {k: torch.stack([r[k] for r in rows]).cpu().numpy() for k in keys}
-    return params, history
+    and every scalar aux term, as numpy arrays (one host transfer at the end).
+    On CUDA tensors each step after the first replays one captured step,
+    which writes its scalars into row i of the history on the device."""
+    return _optimize_with_history(loss_fn, params, cfg, n_steps,
+                                  route=device_route(_params_device(params)),
+                                  pose_key=pose_key, quat_key=quat_key)
 
 
 class OptimizerLoop:
     """Stepwise optimization with persistent state, for callers that
     interleave device steps with host work. ``run(n)`` advances n steps and
-    returns the (loss, aux) of the last forward evaluation."""
+    returns the (loss, aux) of the last forward evaluation. On CUDA tensors
+    the loop's first step runs eagerly and every later one replays a step
+    captured once for the loop."""
 
     def __init__(
         self,
@@ -284,6 +505,9 @@ class OptimizerLoop:
         self._params = params
         self._state = adam_init(params)
         self._aux = None
+        self._route = device_route(_params_device(params))
+        self._step: Optional[AdamStep] = None  # the static buffers, from the first step
+        self._graph: Optional[StepGraph] = None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -294,13 +518,28 @@ class OptimizerLoop:
         return self._aux
 
     def run(self, n: int):
-        if int(n) == 0:
+        n = int(n)
+        if n == 0:
             with torch.no_grad():
                 loss, aux = self._loss_fn(self._params)
-        for _ in range(int(n)):
-            loss, aux, grads = value_and_grad(self._loss_fn, self._params)
-            self._params, self._state = adam_update(
-                grads, self._state, self._params, self._cfg, self._lrs
-            )
+        elif self._route == "eager":
+            for _ in range(n):
+                loss, aux, grads = value_and_grad(self._loss_fn, self._params)
+                self._params, self._state = adam_update(
+                    grads, self._state, self._params, self._cfg, self._lrs
+                )
+        else:
+            with on_capture_stream(_params_device(self._params), self._route):
+                if self._step is None:
+                    self._step = AdamStep(self._loss_fn, self._params, self._cfg, self._lrs,
+                                          state=self._state, keep_output=True)
+                    self._graph = StepGraph(self._step.step, self._route)
+                    self._step.step()  # the loop's first step, eagerly
+                    n -= 1
+                for _ in range(n):
+                    self._graph()
+            # results the next run leaves alone, as the eager loop's are
+            self._params = clone_tree(self._step.params)
+            loss, aux = self._step.loss.clone(), clone_tree(self._step.aux)
         self._aux = aux
         return loss, aux
