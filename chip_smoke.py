@@ -104,7 +104,7 @@ Phases, each printing one line (any failure raises and exits non-zero):
    ``PoseOptNode(use_hpr=True)`` over the bus (20 finite /odom, the last
    equal to the optimizer's). Soft HPR at the dense size, cloud 10
    voxel-filtered at leaf 0.15 (23,288 centroids, padded 24,576):
-   ``PoseOptimizer(soft_hpr=True)`` 200 steps, ``TrajectoryOptimizer(
+   ``PoseOptimizer(soft_hpr=True)`` 100 steps, ``TrajectoryOptimizer(
    soft_hpr=True)`` 20 steps with path 10 (loss below that after its first
    step, visibility gain > 1) and ``evaluate`` of the result; one step of
    each, loss and gradients, against the same step on the CPU within 2e-3
@@ -120,8 +120,12 @@ Phases, each printing one line (any failure raises and exits non-zero):
    (14 waypoints, cap 512) for 10 steps, one step in f32 on the card and on
    the CPU against the card's float64 step (1e-3 of the largest entry);
    ``optimize_waypoints`` at the demo's defaults
-   (100 steps, every per-waypoint gain >= 1, mean > 1) and 3 steps with soft
-   HPR; the distance-reward model and the finite-difference pose loss
+   (100 steps, every per-waypoint gain >= 1, mean > 1; with soft HPR it is
+   held and timed under 12). These soft runs above ``soft_hpr_dense_max``
+   are captured: each timed pose run replays the step its warm-up run
+   captured, the timed trajectory run takes its first step eagerly and
+   captures the rest; the traced steps are eager (a replay runs no
+   profiler range). Then the distance-reward model and the finite-difference pose loss
    against the CPU (rtol 1e-4 and 2e-3; counts equal).
 9. frozen — the frozen-routing soft-HPR engine (``models/traj_frozen.py``,
    eager PyTorch: no kernel of its own) at bench.py's shapes.
@@ -142,7 +146,7 @@ Phases, each printing one line (any failure raises and exits non-zero):
    max_dist 12, refresh_every 10,000) beside ``PoseOptimizer(soft_hpr=
    True)``, its first loss against the per-step loss (rtol 1e-4) and the
    loss falling; ``FrozenWpsOptimizer`` with the 27 waypoints of path 10
-   (cap 1024), the same checks against ``wps_forward``; 500 steps of path
+   (cap 1024), the same checks against ``wps_forward``; 200 steps of path
    10 displaced +12 m in z at the default config, the median and worst
    20-step window.
 10. cli — the shell entry point, ``__main__.main([...])`` in this process
@@ -158,7 +162,7 @@ Phases, each printing one line (any failure raises and exits non-zero):
    per camera) and with ``--processes``, each recorded image equal to the
    node's own after ``.cpu()``; the worker's start-up seconds, each preset's
    msgs/s in-process and with processes (three windows of at least 8
-   messages and 2 s), and the recorder's MB/s (five passes).
+   messages and 1 s), and the recorder's MB/s (five passes).
 11. parallel — the parallel layer (``parallel/``) over ``torch.distributed``.
    D = 1 over nccl in this process at 1m50: ``sharded_fused_lo_sum``'s lo
    and gradients and 20 ``make_sharded_train_step`` steps ``torch.equal``
@@ -183,10 +187,19 @@ Phases, each printing one line (any failure raises and exits non-zero):
    the visibility and smoothness gates), 1m50 and 8m50 (20 steps), launches
    per step from the counters equal in both; ``optimize_with_history`` (50
    steps) and ``OptimizerLoop.run(0, 1, 7, 20)`` at ref; ``PoseOptimizer``'s
-   runner at cloud 10 and 1M (200 steps); ``optimize_waypoints`` at the
+   runner at cloud 10 and 1M (100 steps); ``optimize_waypoints`` at the
    demo's defaults; the K3/K4 scratch round trip (a graph captured at W = 14,
    the scratch grown by a 1m50 run, the first graph replayed on the scratch
-   it holds, equal to the eager run). Times under [times].
+   it holds, equal to the eager run). Soft HPR above ``soft_hpr_dense_max``
+   (the binned tier on its static tile slots, ``soft_graph_checks``): the
+   trajectory runner on cloud 10 and path 10, the pose runner on bench.py's
+   cloud at 262,144 and 1,048,576 points and ``optimize_waypoints`` on cloud
+   10, each called captured, eager, eager, captured (the waypoints without
+   the last): ``torch.equal`` to the
+   eager calls where those agree bit for bit, otherwise the captured and the
+   eager step (loss and gradient) each against the card's float64 step
+   (``BINNED_STEP_TOL``; a pose step at ``HPR_TOL``); the real tiles against
+   the static slots per grid. Times under [times].
 13. times — per-stage and per-step ms of the eager loop (the series of
    earlier runs), kernel and plain, peak memory, and
    the device's busy share of a step from a 20-step ``torch.profiler`` trace;
@@ -212,7 +225,11 @@ Phases, each printing one line (any failure raises and exits non-zero):
    turns) and of the replays alone, device-busy ms, device operations and
    host launch calls (kernel launches, graph launches) per step of a traced
    20-step run, capture seconds per bucket, peak MiB allocated and reserved;
-   the pose runner's and ``optimize_waypoints``' times by route.
+   the pose runner's and ``optimize_waypoints``' times by route; per soft
+   configuration, ms/step of whole calls and of replays alone, busy ms,
+   device operations and host launch calls of a traced step by each route,
+   capture seconds, the memory the cached graph holds, peak MiB and the
+   tiles against the slots; the seconds each phase took.
 
 The line before the last is the kernels' JSON record (all nine kernels, each
 with its bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -506,7 +523,7 @@ BINNED_STEP_TOL = 1e-3
 FROZEN_WINDOWS = (2, 3, 12)
 FROZEN_POSE = (262_144, 8)
 FROZEN_WPS_STEPS = 5
-WORST = (500, 20)
+WORST = (200, 20)
 FROZEN_PINS = {"loss": 1e-5, "rewards": 1e-6, "grad": 1e-4, "mean": 1e-6, "variant": 1e-4}
 
 
@@ -1226,24 +1243,24 @@ def hpr_checks(dev, intr, cloud10, path10, sync, cuda_ms):
             errs.append(err / scale)
         return errs
 
-    # pose: 200 steps, one step against the CPU, a traced step
+    # pose: 100 steps, one step against the CPU, a traced step
     opt = PoseOptimizer(device=dev, soft_hpr=True)
     r0 = opt.optimize(vox, start, n_steps=0)
     opt.optimize(vox, start, n_steps=3)  # warm-up
     sync()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    r = opt.optimize(vox, start, n_steps=200)
+    r = opt.optimize(vox, start, n_steps=100)
     sync()
-    res["soft_pose_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / 200
+    res["soft_pose_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / 100
     res["soft_pose_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
     if not (np.all(np.isfinite(r.position)) and np.isfinite(r.loss) and r.loss < r0.loss):
-        fail(f"PoseOptimizer(soft_hpr=True) 200 steps: loss {r.loss} from {r0.loss}")
+        fail(f"PoseOptimizer(soft_hpr=True) 100 steps: loss {r.loss} from {r0.loss}")
     res["soft_pose_vs_cpu"] = against_cpu("soft pose step", pose_step(dev), pose_step("cpu"))
     res["soft_pose_trace"] = traced_share(lambda: pose_step(dev), sync)
     res["soft_pose"] = (r0.loss, r.loss)
     print(f"[hpr] PoseOptimizer(soft_hpr=True) on cloud 10 voxel-filtered at leaf {SOFT_LEAF} "
-          f"({len(vox)} centroids padded to {len(vpad)}, dense): 200 steps, loss {r0.loss:.6f} "
+          f"({len(vox)} centroids padded to {len(vpad)}, dense): 100 steps, loss {r0.loss:.6f} "
           f"-> {r.loss:.6f}; one step on the card against the CPU: relative max |err| loss, "
           f"trans, quat {[f'{e:.2e}' for e in res['soft_pose_vs_cpu']]} (pin {HPR_TOL})",
           flush=True)
@@ -1316,15 +1333,31 @@ def f32_gate_norms(module):
     return patched()
 
 
-def binned_pairs(cams, valid=None, cap: int = 1024, safety: float = 3.0) -> int:
-    """(query, coverer) pairs that ``hpr_mask_soft_binned`` computes on each
-    (N, 3) cloud of ``cams``, summed: 4 grids × the tiles of their non-empty
-    bins × cap², from the same bin keys on these inputs."""
+def camera_clouds(P, poses, quats):
+    """The (N, 3) camera-frame clouds of ``P`` at each (pose, wxyz quat)."""
+    import torch
+
+    from trajectory_optimization_tpu_torch.ops.scores import camera_planes
+
+    out = []
+    for t, q in zip(poses, quats):
+        cx, cy, cz = camera_planes(P, torch.as_tensor(q, dtype=torch.float32,
+                                                      device=P.device)[None],
+                                   torch.as_tensor(t, dtype=torch.float32, device=P.device)[None])
+        out.append(torch.stack([cx[0], cy[0], cz[0]], dim=-1))
+    return out
+
+
+def binned_tiles(cams, valid=None, cap: int = 1024, safety: float = 3.0):
+    """[(real tiles, static slots)] of ``hpr_mask_soft_binned`` per grid of
+    each (N, 3) cloud of ``cams``: the tiles its non-empty bins need,
+    Σ⌈count/cap⌉, from the same bin keys on these inputs, against the slots
+    it computes, ``n_bins + ⌈N/cap⌉``."""
     import torch
 
     from trajectory_optimization_tpu_torch.ops import hpr
 
-    pairs = 0
+    out = []
     v = None if valid is None else valid > 0
     for P in cams:
         n = P.shape[0]
@@ -1336,8 +1369,26 @@ def binned_pairs(cams, valid=None, cap: int = 1024, safety: float = 3.0) -> int:
         for grid in hpr._binned_grids(2.0, 0.02, safety)[1]:
             key, fb, nb = hpr._grid_bin_key(grid, lat, az, norms, scale, v)
             counts = torch.bincount((key >> fb).long(), minlength=nb + 1)[:nb]
-            pairs += int(((counts + c - 1) // c).sum()) * c * c
-    return pairs
+            out.append((int(((counts + c - 1) // c).sum()), nb + -(-n // c)))
+    return out
+
+
+def binned_pairs(cams, valid=None, cap: int = 1024, safety: float = 3.0) -> int:
+    """(query, coverer) pairs in the real tiles of ``hpr_mask_soft_binned``
+    on each (N, 3) cloud of ``cams``, summed: 4 grids × the tiles of their
+    non-empty bins × cap² (``binned_tiles``; the empty slots it also
+    computes are not counted)."""
+    tiles = binned_tiles(cams, valid, cap, safety)
+    return sum(real * min(cap, P.shape[0]) ** 2
+               for (real, _), P in zip(tiles, [P for P in cams for _ in range(4)]))
+
+
+def tiles_text(tiles) -> str:
+    """'real a-b of slots c-d per grid (static/real e-f)' from ``binned_tiles``."""
+    real, slots = [r for r, _ in tiles], [t for _, t in tiles]
+    ratio = [t / max(r, 1) for r, t in tiles]
+    return (f"real tiles {min(real)}-{max(real)} of static slots {min(slots)}-{max(slots)} per "
+            f"grid (static/real {min(ratio):.2f}-{max(ratio):.2f})")
 
 
 def binned_checks(dev, intr, cloud10, path10, sync, cuda_ms):
@@ -1357,25 +1408,18 @@ def binned_checks(dev, intr, cloud10, path10, sync, cuda_ms):
     from trajectory_optimization_tpu_torch.api import PoseOptimizer, TrajectoryOptimizer
     from trajectory_optimization_tpu_torch.models import distance_reward as dr
     from trajectory_optimization_tpu_torch.models import frustum_fd as ffd
+    from trajectory_optimization_tpu_torch.models.pose import (
+        PoseProblem, init_pose_params, pose_forward,
+    )
     from trajectory_optimization_tpu_torch.models.traj import (
         TrajProblem, init_traj_params, traj_forward, waypoint_stride,
     )
     from trajectory_optimization_tpu_torch.models.wps_opt import WpsOptProblem, optimize_waypoints
     from trajectory_optimization_tpu_torch.ops import hpr
-    from trajectory_optimization_tpu_torch.ops.scores import camera_planes
+    from trajectory_optimization_tpu_torch.opt import runners
     from trajectory_optimization_tpu_torch.utils.data import identity_quaternions, pad_points
 
     res = {}
-
-    def cams_of(P, poses, quats):
-        out = []
-        for t, q in zip(poses, quats):
-            cx, cy, cz = camera_planes(P, torch.as_tensor(q, dtype=torch.float32,
-                                                          device=P.device)[None],
-                                       torch.as_tensor(t, dtype=torch.float32,
-                                                       device=P.device)[None])
-            out.append(torch.stack([cx[0], cy[0], cz[0]], dim=-1))
-        return out
 
     # ---- the mask: cloud 10 from waypoint 9, against Qhull and the CPU -----
     cam = (cloud10 - path10[9]).astype(np.float32)
@@ -1418,13 +1462,22 @@ def binned_checks(dev, intr, cloud10, path10, sync, cuda_ms):
     del P, V
 
     # ---- soft pose steps at 262,144 and 1,048,576 points -------------------
+    def pose_step(Pd):
+        params = {k: v.requires_grad_(True) for k, v in init_pose_params(
+            np.zeros((1, 3), np.float32), np.array([[1.0, 0, 0, 0]], np.float32), dev).items()}
+        loss, _ = pose_forward(params, Pd, intr.matrix(device=dev),
+                               PoseProblem(intr.width, intr.height, soft_hpr=True))
+        loss.backward()
+
     res["pose"] = {}
     for n, steps in BINNED_POSE:
         rng = np.random.default_rng(0)
         pts = (rng.normal(size=(n, 3)).astype(np.float32) * [6, 6, 2] + [5, 0, 1]).astype(np.float32)
         opt = PoseOptimizer(device=dev, soft_hpr=True, lr_pose=0.02, lr_quat=0.02)
         r0 = opt.optimize(pts, [0.0, 0.0, 0.0], n_steps=0)
-        opt.optimize(pts, [0.0, 0.0, 0.0], n_steps=1)  # warm-up
+        # warm-up: the run's runner makes its bucket, runs its first step eagerly
+        # and captures the step; the timed run replays it
+        opt.optimize(pts, [0.0, 0.0, 0.0], n_steps=steps)
         sync()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1439,15 +1492,15 @@ def binned_checks(dev, intr, cloud10, path10, sync, cuda_ms):
         entry = {"steps": steps, "ms_per_step": ms, "peak_mib": peak, "loss": (r0.loss, r.loss),
                  "pairs": binned_pairs([Pd])}
         if n == BINNED_POSE[0][0]:
-            entry["trace"] = traced_share(
-                lambda: opt.optimize(pts, [0.0, 0.0, 0.0], n_steps=1), sync,
-                hpr.SOFT_BINNED_RANGE)
+            # an eager step: a replayed one runs no profiler range
+            entry["trace"] = traced_share(lambda: pose_step(Pd), sync, hpr.SOFT_BINNED_RANGE)
         res["pose"][n] = entry
         print(f"[hpr] PoseOptimizer(soft_hpr=True) on bench.py's cloud (rng(0) normal x [6, 6, 2] "
               f"+ [5, 0, 1]) at {n} points, camera at the origin: binned (cap 1024), {steps} "
-              f"steps after a warm-up, {ms:.3f} ms/step, peak {peak:.1f} MiB, loss "
-              f"{r0.loss:.6f} -> {r.loss:.6f}", flush=True)
+              f"captured steps (replays) after a warm-up run, {ms:.3f} ms/step, peak "
+              f"{peak:.1f} MiB, loss {r0.loss:.6f} -> {r.loss:.6f}", flush=True)
         del Pd, opt
+        runners.pose_runner.cache_clear()  # the run's captured step and its memory pool
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1504,20 +1557,23 @@ def binned_checks(dev, intr, cloud10, path10, sync, cuda_ms):
     res["traj"] = {"waypoints": len(wps), "ms_per_step": traj_ms, "peak_mib": traj_peak,
                    "loss": (loss1, tr.loss), "visibility_gain": tr.visibility_gain,
                    "vs_cpu": errs,
-                   "pairs": binned_pairs(cams_of(Pd, wps, identity_quaternions(len(wps))),
+                   "pairs": binned_pairs(camera_clouds(Pd, wps, identity_quaternions(len(wps))),
                                          torch.as_tensor(valid, device=dev), cap=512),
                    "trace": traced_share(lambda: traj_step(dev, path10), sync,
                                          hpr.SOFT_BINNED_RANGE)}
     del Pd
     print(f"[hpr] TrajectoryOptimizer(soft_hpr=True) on the full cloud 10 ({len(cloud10)} points "
           f"padded to {len(padded)}: binned, cap 512) with path 10 ({len(wps)} waypoints at "
-          f"stride {stride}): 10 steps {traj_ms:.3f} ms/step, peak {traj_peak:.1f} MiB, loss "
+          f"stride {stride}): 10 steps (the first eager, the capture, nine replays; clean "
+          f"replays under [graphs] soft traj) {traj_ms:.3f} ms/step, peak {traj_peak:.1f} MiB, "
+          f"loss "
           f"after 1 step {loss1:.6f}, after 10 {tr.loss:.6f}, visibility gain "
           f"{tr.visibility_gain:.4f}; one step of path 10's first 3 waypoints, relative max "
           f"|err| loss, poses, quats: " + "; ".join(
               f"{k.replace('_', ' ')} {[f'{e:.2e}' for e in v]}" for k, v in errs.items())
           + f" (pin {BINNED_STEP_TOL} against float64; the step with the gate's norms in f32 "
           f"is not held)", flush=True)
+    runners.traj_runner.cache_clear()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1537,26 +1593,16 @@ def binned_checks(dev, intr, cloud10, path10, sync, cuda_ms):
             and bool(torch.isfinite(trans).all()) and bool(torch.isfinite(quats).all())):
         fail(f"optimize_waypoints on cloud 10, {WPS_STEPS} steps: per-waypoint gains {gains.tolist()} "
              f"(every gain >= 1, mean > 1)")
-    soft = WpsOptProblem(img_width=intr.width, img_height=intr.height, soft_hpr=True)
-    sync()
-    t0 = time.perf_counter()
-    strans, _, saux = optimize_waypoints(cloud10, path10, q_id, K, soft, n_steps=3, device=dev)
-    sync()
-    soft_ms = (time.perf_counter() - t0) * 1e3 / 3
-    if not (bool(torch.isfinite(strans).all()) and bool(torch.isfinite(saux["losses"]).all())):
-        fail("optimize_waypoints(soft_hpr=True) on cloud 10, 3 steps: non-finite result")
     Pd = torch.as_tensor(cloud10, device=dev)
     res["wps"] = {"steps_per_s": WPS_STEPS / wps_s, "gains": gains.tolist(),
-                  "soft_ms_per_step": soft_ms, "soft_gains": (
-                      saux["losses0"] / saux["losses"]).cpu().numpy().tolist(),
-                  "soft_pairs": binned_pairs(cams_of(Pd, path10, q_id))}
+                  "soft_pairs": binned_pairs(camera_clouds(Pd, path10, q_id))}
     del Pd
     print(f"[hpr] optimize_waypoints on cloud 10 + path 10 ({len(path10)} waypoints, "
           f"{WPS_STEPS} steps (the demo's), lr 0.02/0.02): {WPS_STEPS / wps_s:.2f} steps/s, "
           f"per-waypoint visibility gains "
           f"min {gains.min():.4f}, mean {gains.mean():.4f}, max {gains.max():.4f} (every gain "
           f">= 1, mean > 1); with soft_hpr=True ({len(path10)} binned masks of {len(cloud10)} "
-          f"points per step, cap 1024) 3 steps at {soft_ms:.1f} ms/step", flush=True)
+          f"points per step, cap 1024) under [graphs] soft wps", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1671,8 +1717,9 @@ def print_hpr_times(card: str, hp) -> None:
           f"{b['traj']['pairs']:.4e} pairs per forward, bound {bb['binned_traj_step'][0]:.4f} ms "
           f"by {bb['binned_traj_step'][1]}, one step " + binned_share(b["traj"]["trace"])
           + f"; optimize_waypoints {b['wps']['steps_per_s']:.2f} steps/s plain, soft "
-          f"{b['wps']['soft_ms_per_step']:.1f} ms/step ({b['wps']['soft_pairs']:.4e} pairs per "
-          f"forward, bound {bb['binned_wps_step'][0]:.4f} ms by {bb['binned_wps_step'][1]})",
+          f"({b['wps']['soft_pairs']:.4e} pairs per forward, bound "
+          f"{bb['binned_wps_step'][0]:.4f} ms by {bb['binned_wps_step'][1]}) timed under "
+          f"graphs soft wps",
           flush=True)
     print(f"[times] {card} | soft HPR dense ({hp['soft_n'][0]} points padded to "
           f"{hp['soft_n'][1]}): PoseOptimizer(soft_hpr=True) {hp['soft_pose_ms_per_step']:.3f} "
@@ -1702,7 +1749,7 @@ def frozen_checks(dev, intr, cloud10, path10, sync):
     against float64, the sparse mean against the embedding path; (c)
     ``FrozenPoseOptimizer`` beside the per-step soft pose step on a uniform
     ±40 m cloud; (d) ``FrozenWpsOptimizer`` at the waypoints demo's shape;
-    (e) 500 steps of the displaced path at the production config, median
+    (e) 200 steps of the displaced path at the production config, median
     and worst 20-step window. Returns the numbers for [times] and the
     record."""
     import gc
@@ -2003,7 +2050,7 @@ CLI_PAIRS = 3  # cloud-10/path-10 pairs in the trajectory preset's bag
 # windows after one warm-up message, each window at least CLI_WINDOW messages
 # and seconds; the recorder's MB/s over CLI_RECORD_PASSES passes
 CLI_WINDOWS = 3
-CLI_WINDOW = (8, 2.0)
+CLI_WINDOW = (8, 1.0)
 CLI_RECORD_PASSES = 5
 
 
@@ -2889,9 +2936,39 @@ def print_parallel_times(card: str, pr) -> None:
           + f"; phase {pr['phase_s']:.1f} s", flush=True)
 
 
+def differ(a, b):
+    """Where two (nested) dicts, tuples or lists of tensors differ, as text;
+    empty where every leaf is ``torch.equal``."""
+    import torch
+
+    if isinstance(a, dict):
+        return [f"{k}.{d}" for k in a for d in differ(a[k], b[k])]
+    if isinstance(a, (tuple, list)):
+        return [f"[{i}].{d}" for i, (x, y) in enumerate(zip(a, b)) for d in differ(x, y)]
+    return [] if torch.equal(a, b) else [
+        f"{int((a != b).sum())} of {a.numel()} (max |diff| "
+        f"{float((a.double() - b.double()).abs().max()):.3e})"]
+
+
+def trace_steps(fn, n, sync):
+    """(device-busy ms per step, host kernel launches per step, graph
+    launches per step, device operations per step) of one traced call of
+    ``fn`` that takes ``n`` steps; the device numbers None without device
+    activity in the trace."""
+    import torch
+
+    prof, _, n_spans, busy_us = traced(fn, sync)
+    host = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    kernel = sum("LaunchKernel" in h for h in host) / n
+    graph = sum("GraphLaunch" in h for h in host) / n
+    if not n_spans:
+        return None, kernel, graph, None
+    return busy_us / 1e3 / n, kernel, graph, n_spans / n
+
+
 GRAPH_STEPS = {"ref": 400, "1m50": 20, "8m50": 20}  # the held runs: captured == eager
 GRAPH_WINDOW = {"ref": 100, "1m50": 20, "8m50": 10}  # steps per timed window
-GRAPH_POSE = (("cloud10", 200), ("1m", 200))  # PoseOptimizer runs held and timed
+GRAPH_POSE = (("cloud10", 100), ("1m", 100))  # PoseOptimizer runs held and timed
 GRAPH_TRACE = 20  # steps per traced run
 
 
@@ -2923,13 +3000,6 @@ def graph_checks(dev, intr, clouds, paths, sync):
     facade = TrajectoryOptimizer(lr_pose=0.1, lr_quat=0.02, device=dev)
     K = intr.matrix(device=dev)
     res = {"traj": {}, "pose": {}}
-
-    def differ(a, b):
-        if isinstance(a, dict):
-            return [f"{k}.{d}" for k in a for d in differ(a[k], b[k])]
-        return [] if torch.equal(a, b) else [
-            f"{int((a != b).sum())} of {a.numel()} (max |diff| "
-            f"{float((a.double() - b.double()).abs().max()):.3e})"]
 
     def same(what, a, b):
         bad = differ(a, b)
@@ -2967,18 +3037,6 @@ def graph_checks(dev, intr, clouds, paths, sync):
                 sync()
                 times[r].append((time.perf_counter() - t0) * 1e3 / n)
         return {r: statistics.median(v) for r, v in times.items()}
-
-    def trace_steps(fn, n):
-        """(device-busy ms per step, host kernel launches per step, graph
-        launches per step, device operations per step) of one traced call;
-        the device numbers None without device activity in the trace."""
-        prof, _, n_spans, busy_us = traced(fn, sync)
-        host = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
-        kernel = sum("LaunchKernel" in h for h in host) / n
-        graph = sum("GraphLaunch" in h for h in host) / n
-        if not n_spans:
-            return None, kernel, graph, None
-        return busy_us / 1e3 / n, kernel, graph, n_spans / n
 
     def last_bucket(runner):
         # the bucket of the runner's latest call (runs of 1m50 and 8m50 share
@@ -3049,7 +3107,7 @@ def graph_checks(dev, intr, clouds, paths, sync):
         trun = runners.traj_runner(problem, cfg, te.NEVER, GRAPH_TRACE)
         trun._run("graph", init_traj_params(path, q, dev), *data)  # capture before the trace
         tr = {r: trace_steps(lambda r=r: trun._run(r, init_traj_params(path, q, dev), *data),
-                             GRAPH_TRACE) for r in ("graph", "eager")}
+                             GRAPH_TRACE, sync) for r in ("graph", "eager")}
         res["traj"][name] = {
             "steps": n, "launches": lau_g, "launches_per_step": per_step,
             "ms_per_step": ms, "replay_ms_per_step": replay_ms,
@@ -3179,6 +3237,302 @@ def graph_checks(dev, intr, clouds, paths, sync):
     print(f"[graphs] K3/K4 scratch round trip: captured at W = 14 with {held[1].numel()} "
           f"partial doubles, the 1m50 run grew the stream's scratch to {grown[1].numel()}, the "
           f"W = 14 graph replayed on the scratch it holds: equal to the eager run", flush=True)
+    res["soft"] = soft_graph_checks(dev, intr, clouds["cloud10"], paths["ref"], sync)
+    return res
+
+
+GRAPH_SOFT = {"traj": 3, "wps": 2}  # steps per held call
+GRAPH_SOFT_POSE = ((262_144, 5), (1_048_576, 2))  # (points, steps per held call)
+GRAPH_SOFT_REPLAYS = 2  # timed replays of each soft configuration's graph
+
+
+def soft_graph_checks(dev, intr, cloud10, path10, sync):
+    """[graphs], soft HPR above ``soft_hpr_dense_max`` (the binned tier on
+    its static tile slots): ``TrajectoryOptimizer(soft_hpr=True)``'s runner
+    on cloud 10 and path 10 (cap 512), ``PoseOptimizer(soft_hpr=True)``'s on
+    bench.py's cloud at 262,144 and 1,048,576 points (cap 1024) and
+    ``optimize_waypoints(soft_hpr=True)`` on cloud 10 (27 waypoints, cap
+    1024), each called captured and eager in turns (captured, eager, eager,
+    captured; the waypoints once captured, since each of its calls captures
+    anew). Where the two eager calls agree bit for bit, the captured calls
+    are held ``torch.equal`` to them. Where they do not (the
+    backward's ``index_add_`` adds with atomics on the card, and a coverer
+    row that takes three or more terms can take them in another order), the
+    captured and the eager step, loss and gradient at the initial
+    parameters, are each held within ``BINNED_STEP_TOL`` of the largest
+    entry of the card's float64 step. Then, per configuration: ms/step of
+    the whole calls and of the graph's replays alone, device-busy ms, device
+    operations and host launch calls of one traced step by each route
+    (a replay; an eager step), capture seconds, the memory the cached graph
+    holds (allocated and reserved, measured by dropping it), peak MiB, and
+    the real tiles against the static slots per grid, counted outside the
+    timed calls. Every cached graph is dropped before the next configuration."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from trajectory_optimization_tpu_torch.api import TrajectoryOptimizer
+    from trajectory_optimization_tpu_torch.models import wps_opt
+    from trajectory_optimization_tpu_torch.models.pose import (
+        PoseProblem, init_pose_params, pose_forward,
+    )
+    from trajectory_optimization_tpu_torch.models.traj import init_traj_params, traj_forward
+    from trajectory_optimization_tpu_torch.opt import engine as te
+    from trajectory_optimization_tpu_torch.opt import graphs, runners
+    from trajectory_optimization_tpu_torch.utils.data import identity_quaternions, pad_points
+
+    K = intr.matrix(device=dev)
+    res = {}
+
+    def rel_errs(got, want):
+        return [float((g.double() - w.double()).abs().max()) / float(w.double().abs().max())
+                for g, w in zip(got, want)]
+
+    def finite(tree):
+        if isinstance(tree, dict):
+            return all(finite(v) for v in tree.values())
+        if isinstance(tree, (tuple, list)):
+            return all(finite(v) for v in tree)
+        return not tree.is_floating_point() or bool(torch.isfinite(tree).all())
+
+    def step(loss_fn, params):
+        loss, _, grads = te.value_and_grad(loss_fn, params)
+        return [loss] + [grads[k] for k in params]
+
+    def captured_step(loss_fn, params):
+        """The loss and gradient of ``loss_fn`` at ``params`` from a CUDA
+        graph of the step's forward and backward, replayed once after an
+        eager run (the engine's order)."""
+        box = []
+
+        def fn():
+            out = step(loss_fn, params)
+            if not box:
+                box.extend(x.clone() for x in out)
+            else:
+                for dst, src in zip(box, out):
+                    dst.copy_(src)
+
+        with graphs.on_capture_stream(dev, "graph"):
+            fn()
+            graphs.StepGraph(fn, "graph", "soft loss and gradient")()
+        sync()
+        return box
+
+    def held(name, cfg_steps, call, graph_of, loss_of, params_of, keys, cams, cap, drop,
+             tol=BINNED_STEP_TOL, trace_eager=True, order=("graph", "eager", "eager", "graph")):
+        """Run the configuration's checks and measurements (docstring)."""
+        t_config = time.perf_counter()
+        outs, ms, peak = {"graph": [], "eager": []}, {"graph": [], "eager": []}, {}
+        for route in order:
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = call(route)
+            sync()
+            ms[route].append((time.perf_counter() - t0) * 1e3 / cfg_steps)
+            peak[route] = max(peak.get(route, (0.0, 0.0)), (
+                torch.cuda.max_memory_allocated() / 2**20,
+                torch.cuda.max_memory_reserved() / 2**20))
+            outs[route].append(out)
+        for route, runs in outs.items():
+            if not all(finite(o) for o in runs):
+                fail(f"[graphs] soft {name}: a {route} call returned a non-finite value")
+        n_graph = len(outs["graph"])
+        eager_bits = not differ(outs["eager"][0], outs["eager"][1])
+        entry = {"steps": cfg_steps, "eager_runs_bit_equal": eager_bits}
+        if eager_bits:
+            for i, got in enumerate(outs["graph"]):
+                bad = differ(got, outs["eager"][0])
+                if bad:
+                    fail(f"[graphs] soft {name}: captured call {i} != eager: {'; '.join(bad)}")
+            entry["held"] = "torch.equal"
+        else:
+            want = step(loss_of(torch.float64), params_of(torch.float64))
+            eager = [step(loss_of(torch.float32), params_of(torch.float32)) for _ in range(2)]
+            captured = captured_step(loss_of(torch.float32), params_of(torch.float32))
+            errs = {"eager": rel_errs(eager[0], want), "captured": rel_errs(captured, want)}
+            if not max(errs["eager"] + errs["captured"]) <= tol:
+                fail(f"[graphs] soft {name}: two eager calls differ, and the step against "
+                     f"float64, relative max |err| (loss, {', '.join(keys)}) {errs} is over "
+                     f"{tol}")
+            entry.update(held="float64", tol=tol, vs_f64=errs,
+                         captured_vs_eager=rel_errs(captured, eager[0]),
+                         eager_vs_eager=rel_errs(eager[1], eager[0]))
+        g = graph_of()
+        side = graphs.capture_stream(dev)
+        with torch.cuda.stream(side):  # warm: the held calls replayed the graph
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(GRAPH_SOFT_REPLAYS):
+                g.replay()
+            sync()
+        replay_ms = (time.perf_counter() - t0) * 1e3 / GRAPH_SOFT_REPLAYS
+
+        def replay_once():
+            with torch.cuda.stream(side):
+                g.replay()
+
+        lf, p0 = loss_of(torch.float32), params_of(torch.float32)
+        lrs = te.group_lrs(te.OptimizerConfig(), *keys)
+
+        def eager_step():
+            # the eager loop's step: forward, backward, Adam
+            _, _, grads = te.value_and_grad(lf, p0)
+            te.adam_update(grads, te.adam_init(p0), p0, te.OptimizerConfig(), lrs)
+
+        # the eager step is traced where that is cheap: a trace of ~34,000 or
+        # ~83,000 operations (trajectory, waypoints) costs tens of seconds
+        # ([hpr] traces the eager trajectory step)
+        tr = {"graph": trace_steps(replay_once, 1, sync),
+              "eager": trace_steps(eager_step, 1, sync) if trace_eager else (None,) * 4}
+        capture_s = g.capture_s
+        del g, lf, p0
+        sync()
+        torch.cuda.empty_cache()
+        a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        drop()
+        gc.collect()
+        sync()
+        torch.cuda.empty_cache()
+        entry.update({
+            "ms_per_step": {r: v for r, v in ms.items()}, "replay_ms_per_step": replay_ms,
+            "busy_ms_per_step": {r: v[0] for r, v in tr.items()},
+            "host_kernel_launches_per_step": {r: v[1] for r, v in tr.items()},
+            "graph_launches_per_step": {r: v[2] for r, v in tr.items()},
+            "device_ops_per_step": {r: v[3] for r, v in tr.items()},
+            "capture_s": capture_s,
+            "graph_mib": {"allocated": (a0 - torch.cuda.memory_allocated()) / 2**20,
+                          "reserved": (r0 - torch.cuda.memory_reserved()) / 2**20},
+            "peak_mib": {r: {"allocated": a, "reserved": b} for r, (a, b) in peak.items()},
+            "tiles": binned_tiles(cams, cams_valid.get(name), cap)})
+        entry["seconds"] = time.perf_counter() - t_config
+        res[name] = entry
+        def errs_text(v):
+            return "[" + ", ".join(f"{e:.2e}" for e in v) + "]"
+
+        how = (f"{'both captured calls' if n_graph > 1 else 'the captured call'} torch.equal "
+               "to them" if eager_bits else
+               "the step against float64, relative max |err| (loss, " + ", ".join(keys)
+               + f"): eager {errs_text(entry['vs_f64']['eager'])}, captured "
+               f"{errs_text(entry['vs_f64']['captured'])} (pin {tol}); not held: captured "
+               f"against eager {errs_text(entry['captured_vs_eager'])}, a second eager step "
+               f"against the first {errs_text(entry['eager_vs_eager'])}")
+        print(f"[graphs] soft {name}, {cfg_steps} steps per call, in turns "
+              f"{', '.join(order)}: the two eager calls {'agree' if eager_bits else 'differ'} "
+              f"bit for bit; {how}; "
+              f"{tiles_text(entry['tiles'])}", flush=True)
+
+    cams_valid = {}
+
+    # ---- the trajectory runner: cloud 10, path 10, cap 512 -----------------
+    cfg = te.OptimizerConfig(lr_pose=0.1, lr_quat=0.02)
+    problem = TrajectoryOptimizer(lr_pose=0.1, lr_quat=0.02, device=dev,
+                                  soft_hpr=True)._traj_problem(path10)
+    padded, valid = pad_points(cloud10)
+    q = identity_quaternions(len(path10))
+    data = {dt: (torch.as_tensor(padded, device=dev, dtype=dt),
+                 torch.as_tensor(valid, device=dev, dtype=dt), intr.matrix(device=dev, dtype=dt),
+                 torch.as_tensor(path10, device=dev, dtype=dt),
+                 torch.as_tensor(q, device=dev, dtype=dt))
+            for dt in (torch.float32, torch.float64)}
+    n = GRAPH_SOFT["traj"]
+    run = runners.traj_runner(problem, cfg, te.NEVER, n)
+
+    def traj_loss(dt):
+        P, V, Kd, p0, q0 = data[dt]
+        return lambda p: traj_forward(p, P, Kd, p0, q0, problem, valid=V)
+
+    def traj_params(dt):
+        return {k: v.to(dt) for k, v in init_traj_params(path10, q, dev).items()}
+
+    wps = path10[::problem.wps_step]
+    cams_valid["traj"] = data[torch.float32][1]
+    held("traj", n,
+         lambda r: run._run(r, init_traj_params(path10, q, dev), *data[torch.float32]),
+         lambda: list(run.buckets._items.values())[-1].graph, traj_loss, traj_params,
+         ("poses", "quats"),
+         camera_clouds(data[torch.float32][0], wps, identity_quaternions(len(wps))),
+         problem.hpr_cap, run.buckets._items.clear, trace_eager=False)
+    del run, data
+    runners.traj_runner.cache_clear()
+
+    # ---- the pose runner: bench.py's cloud at 262,144 and 1,048,576 --------
+    pose_problem = PoseProblem(intr.width, intr.height, soft_hpr=True)
+    pcfg = te.OptimizerConfig(lr_pose=0.02, lr_quat=0.02)
+    for npts, n in GRAPH_SOFT_POSE:
+        name = f"pose {npts}"
+        rng = np.random.default_rng(0)
+        pts = (rng.normal(size=(npts, 3)).astype(np.float32) * [6, 6, 2]
+               + [5, 0, 1]).astype(np.float32)
+        Pp = {dt: torch.as_tensor(pts, device=dev, dtype=dt)
+              for dt in (torch.float32, torch.float64)}
+        init, adv = runners.pose_runner(pose_problem, pcfg, n)
+
+        def pose_params(dt):
+            p = init_pose_params(np.zeros((1, 3), np.float32),
+                                 np.array([[1.0, 0.0, 0.0, 0.0]], np.float32), dev)
+            return {k: v.to(dt) for k, v in p.items()}
+
+        def pose_loss(dt, Pp=Pp):
+            return lambda p: pose_forward(p, Pp[dt], K.to(dt), pose_problem)
+
+        def pose_call(route, adv=adv, init=init, Pp=Pp):
+            p = pose_params(torch.float32)
+            return adv._advance(route, p, init(p), Pp[torch.float32], None, K)
+
+        # a pose step is held at HPR_TOL, as [hpr] holds one: its translation
+        # gradient sums N per-point terms that cancel (the camera sits inside
+        # the cloud), and the f32 eager step at 1,048,576 points is 1.06e-3
+        # of its largest entry from float64 on the card
+        held(name, n, pose_call, lambda adv=adv: list(adv.buckets._items.values())[-1].graph,
+             pose_loss, pose_params, ("trans", "quat"), [Pp[torch.float32]],
+             pose_problem.hpr_cap, adv.buckets._items.clear, tol=HPR_TOL)
+        del adv, init, Pp
+        runners.pose_runner.cache_clear()
+
+    # ---- optimize_waypoints at the demo's defaults: cloud 10, path 10 ------
+    wprob = wps_opt.WpsOptProblem(img_width=intr.width, img_height=intr.height, soft_hpr=True)
+    q_id = identity_quaternions(len(path10))
+    made = []
+
+    class Recording(graphs.StepGraph):
+        """The engine's StepGraph, kept: optimize_waypoints drops its own."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    route_of, step_graph = wps_opt.capture_route, te.StepGraph
+    n = GRAPH_SOFT["wps"]
+
+    def wps_call(route):
+        # the eager reference: the module's route predicate answers "eager"
+        wps_opt.capture_route = (lambda *a: route)
+        te.StepGraph = Recording
+        try:
+            return wps_opt.optimize_waypoints(cloud10, path10, q_id, intr.matrix_np(), wprob,
+                                              n_steps=n, device=dev)
+        finally:
+            wps_opt.capture_route, te.StepGraph = route_of, step_graph
+
+    Pw = {dt: torch.as_tensor(cloud10, device=dev, dtype=dt)
+          for dt in (torch.float32, torch.float64)}
+
+    def wps_params(dt):
+        params, _ = wps_opt.init_wps_params(path10, q_id, dev)
+        return {k: v.to(dt) for k, v in params.items()}
+
+    def wps_loss(dt):
+        _, frozen = wps_opt.init_wps_params(path10, q_id, dev)
+        frozen = {k: v.to(dt) for k, v in frozen.items()}
+        return lambda p: wps_opt.wps_forward(p, frozen, Pw[dt], K.to(dt), wprob)
+
+    # one captured call: each call of optimize_waypoints captures its own graph
+    held("wps", n, wps_call, lambda: made[-1], wps_loss, wps_params, ("xy", "yaw"),
+         camera_clouds(Pw[torch.float32], path10, q_id), wprob.hpr_cap, made.clear,
+         trace_eager=False, order=("graph", "eager", "eager"))
     return res
 
 
@@ -3209,6 +3563,28 @@ def print_graph_times(card: str, gr) -> None:
         f" (capture {t['capture_s']:.3f} s)" for name, t in gr["pose"].items())
         + f"; optimize_waypoints {gr['wps']['steps']} steps: "
         + ", ".join(f"{r} {s:.3f} s" for r, s in gr["wps"]["s"].items()), flush=True)
+    for name, t in gr["soft"].items():
+        def num(v, fmt=".4f"):
+            return "not measured" if v is None else format(v, fmt)
+
+        busy, ops = t["busy_ms_per_step"], t["device_ops_per_step"]
+        print(f"[times] {card} | graphs soft {name} (binned tier, static slots): ms/step of "
+              f"{t['steps']}-step calls captured "
+              + ", ".join(f"{v:.3f}" for v in t["ms_per_step"]["graph"]) + ", eager "
+              + ", ".join(f"{v:.3f}" for v in t["ms_per_step"]["eager"])
+              + f" (each call's first step eager; in turns); replays alone "
+              f"{t['replay_ms_per_step']:.3f} ms/step; one traced step: device busy ms captured "
+              f"{num(busy['graph'], '.3f')}, eager {num(busy['eager'], '.3f')}; device operations "
+              f"captured {num(ops['graph'], '.0f')}, eager {num(ops['eager'], '.0f')}; host "
+              f"launch calls captured {t['host_kernel_launches_per_step']['graph']:.0f} kernels + "
+              f"{t['graph_launches_per_step']['graph']:.0f} graph, eager "
+              f"{num(t['host_kernel_launches_per_step']['eager'], '.0f')} kernels; capture "
+              f"{t['capture_s']:.3f} s; the cached graph holds {t['graph_mib']['allocated']:.1f} "
+              f"MiB allocated, {t['graph_mib']['reserved']:.1f} MiB reserved; peak MiB "
+              + ", ".join(f"{r} {m['allocated']:.1f} allocated / {m['reserved']:.1f} reserved"
+                          for r, m in t["peak_mib"].items())
+              + f"; {tiles_text(t['tiles'])}; held by {t['held']}; {t['seconds']:.1f} s in all",
+              flush=True)
 
 
 def spread(xs) -> str:
@@ -3278,6 +3654,13 @@ def main() -> int:
     )
     from trajectory_optimization_tpu_torch.utils.intrinsics import default_intrinsics
 
+    phase_s, phase_t0 = {}, [time.perf_counter()]
+
+    def phase_done(name):
+        """Seconds of the phase that ends here, for [times] and the record."""
+        now = time.perf_counter()
+        phase_s[name], phase_t0[0] = now - phase_t0[0], now
+
     # ---- 1. device ---------------------------------------------------------
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3286,6 +3669,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
+    phase_done("device")
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     _kernels.build()
@@ -3526,6 +3910,7 @@ def main() -> int:
     errs = {k: 0.0 for k in VIS}
     stage_ms, shape_wn, skips, prunes, dev_ms = {}, {}, {}, {}, {}
 
+    phase_done("build")
     # ---- 3. kernels against their plain versions ---------------------------
     for c in cases:
         prob = c["problem"]
@@ -3777,6 +4162,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     del wp_c, dense_pt
 
+    phase_done("kernels")
     # ---- 4. the slice: 400 steps of cloud 10 through the kernels ------------
     opt = TrajectoryOptimizer(lr_pose=0.1, lr_quat=0.02, device=dev)
     sync()
@@ -3955,33 +4341,40 @@ def main() -> int:
           + f", K1' and K1 bit-equal to the plain pass A, K5 tie counts equal; peak {peak8:.1f} MiB allocated, {peak8_reserved:.1f} reserved (a score cache alone: {cache_mib:.1f} MiB); launches "
           f"{launches8}; {prune_text(prunes['8m50'])}; {skip_text(skips['8m50'])}", flush=True)
 
+    phase_done("slice")
     # ---- 5.-6. the render path: K6, K7 and the points processor ------------
     del res8
     torch.cuda.empty_cache()
     rend = render_checks(dev, intr, {"cloud10": cloud10, "8m": pts8}, cuda_ms, kernel_device_ms,
                          sync)
 
+    phase_done("render")
     # ---- 7. the optimizer nodes, the pose optimizer, the voxel operations ---
     torch.cuda.empty_cache()
     nodes = node_checks(dev, {"cloud10": cloud10, "1m": big_pts, "8m": pts8}, path10, sync)
     del pts8
 
+    phase_done("nodes")
     # ---- 8. hidden-point removal -------------------------------------------
     torch.cuda.empty_cache()
     hp = hpr_checks(dev, intr, cloud10, path10, sync, cuda_ms)
 
+    phase_done("hpr")
     # ---- 9. the frozen-routing engine --------------------------------------
     torch.cuda.empty_cache()
     fr = frozen_checks(dev, intr, cloud10, path10, sync)
 
+    phase_done("frozen")
     # ---- 10. the shell entry point -------------------------------------------
     torch.cuda.empty_cache()
     cl = cli_checks(dev, intr, cloud10, path10, sync)
 
+    phase_done("cli")
     # ---- 11. the parallel layer ------------------------------------------------
     torch.cuda.empty_cache()
     pr = parallel_checks(dev, intr, sync)
 
+    phase_done("parallel")
     # ---- 12. the captured optimization loop ------------------------------------
     torch.cuda.empty_cache()
     pts8 = np.random.default_rng(8).uniform(-20, 20, size=(N_8M, 3)).astype(np.float32)
@@ -3990,6 +4383,7 @@ def main() -> int:
                       {"ref": path10, "1m50": big_path, "8m50": big_path}, sync)
     del pts8
 
+    phase_done("graphs")
     # ---- 13. times ---------------------------------------------------------
     for c in cases:
         n = 50 if c["name"] == "ref" else 10
@@ -4111,6 +4505,9 @@ def main() -> int:
     print_cli_times(card, cl)
     print_parallel_times(card, pr)
     print_graph_times(card, gr)
+    phase_done("times")
+    print(f"[times] {card} | seconds per phase: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()), flush=True)
 
     def vis_entry(n):
         b_ref = vis_bound(n, *shape_wn["ref"], skips["ref"], prunes["ref"])
@@ -4165,7 +4562,7 @@ def main() -> int:
                         "pose_ms_per_step": nodes["pose_ms_per_step"],
                         "pose_card_vs_cpu": nodes["pose_card_vs_cpu"],
                         "voxel_filter_ms_8m": nodes["voxel_filter_ms_8m"]},
-              "hpr": hp, "frozen": fr, "parallel": pr, "graphs": gr,
+              "hpr": hp, "frozen": fr, "parallel": pr, "graphs": gr, "phase_s": phase_s,
               "cli": {k: cl[k] for k in ("run_s", "startup_s", "msgs_per_s", "record")}}
     for e in record["kernels"]:
         nums = [v for k, v in e.items() if k.endswith("ms") or k == "max_abs_err"]

@@ -9,6 +9,7 @@ neither JAX nor the JAX package and uses no conftest fixture:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_captured_cuda.py
 """
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -174,3 +175,38 @@ def test_captured_pose_runner_equals_eager(dev):
         assert _equal(g[0], e[0]) and _equal(g[1], e[1]) and torch.equal(g[2], e[2])
         assert _equal(g[3], e[3])
     assert int(outs["graph"][-1][1]["count"]) == 13
+
+
+def test_captured_soft_binned_trajectory(dev, ref):
+    """Soft HPR on cloud 10 (40,960 points, above ``soft_hpr_dense_max``:
+    the binned tier on its static tile slots, cap 512) through the
+    trajectory runner: the step captures (no CaptureError) and replays, and
+    the captured run is torch.equal to the eager run where two eager runs
+    agree bit for bit. Where they do not (the backward's index_add_ adds
+    with atomics on the card), the final losses agree within 1e-3."""
+    prob, path, q, data = ref
+    case = (dataclasses.replace(prob, soft_hpr=True), path, q, data)
+    runner = tr.TrajRunner(case[0], CFG, te.NEVER, 4)
+    (got, lg), (want, le), (again, _) = (_run(runner, r, case, dev)
+                                         for r in ("graph", "eager", "eager"))
+    graph = next(iter(runner.buckets._items.values())).graph
+    assert graph.graph is not None and graph.replays == 3 and graph.capture_s > 0
+    assert lg == le == {}  # the soft path launches no kernel of the port's
+    assert int(got[1]) == int(want[1]) == 4
+    if _equal(want[0], again[0]) and torch.equal(want[2], again[2]):
+        _assert_runs_equal(got, want)
+    else:
+        np.testing.assert_allclose(float(got[2]), float(want[2]), rtol=1e-3)
+
+
+def test_captured_two_waypoint_path(dev, ref):
+    """A path of two waypoints (no interior angle: the smoothness term's π
+    comes from a device fill, not a host copy) captures and equals the
+    eager run."""
+    prob, path, q, data = ref
+    P, V, K, _, _ = data
+    case = (prob, path[:2], q[:2], (P, V, K, data[3][:2], data[4][:2]))
+    runner = tr.TrajRunner(prob, CFG, te.NEVER, 6)
+    (got, _), (want, _) = (_run(runner, r, case, dev) for r in ("graph", "eager"))
+    assert next(iter(runner.buckets._items.values())).graph.graph is not None
+    _assert_runs_equal(got, want)

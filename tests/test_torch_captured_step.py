@@ -217,6 +217,76 @@ def test_traj_runner_zero_steps(cloud10, path10):
 
 
 # ---------------------------------------------------------------------------
+# soft HPR above soft_hpr_dense_max: the binned tier's static steps
+# ---------------------------------------------------------------------------
+
+SOFT = dict(soft_hpr=True, soft_hpr_dense_max=2048, hpr_cap=64)  # the room is binned
+
+
+def _room():
+    """tests/test_torch_hpr_binned.py's closed room (3,681 points) and its
+    path moved by seeded noise."""
+    from test_torch_hpr_binned import room_path, room_scene
+
+    path = room_path() + np.random.default_rng(0).normal(scale=0.1, size=(7, 3)).astype(
+        np.float32)
+    return room_scene(), path
+
+
+def test_soft_traj_runner_static_equals_eager():
+    """The trajectory runner with soft HPR on the binned tier (3 of 7
+    waypoints, 3 steps): parameters, n_iters, final loss and aux of the
+    static route torch.equal to the eager route's."""
+    pts, path = _room()
+    q = identity_quaternions(len(path))
+    runner = tr.traj_runner(tt.TrajProblem(INTR.width, INTR.height, wps_step=3, **SOFT), CFG,
+                            te.NEVER, 3)
+    data = (torch.as_tensor(pts), None, INTR.matrix(), torch.as_tensor(path),
+            torch.as_tensor(q))
+    got = runner._run("static", tt.init_traj_params(path, q), *data)
+    want = runner._run("eager", tt.init_traj_params(path, q), *data)
+    assert int(got[1]) == int(want[1]) == 3
+    assert _equal(got[0], want[0]) and torch.equal(got[2], want[2]) and _equal(got[3], want[3])
+    assert not torch.equal(got[0]["poses"], torch.as_tensor(path))
+
+
+def test_soft_pose_runner_static_equals_eager():
+    """The pose runner with soft HPR on the binned tier: two segments of 3
+    steps, each torch.equal to the eager segments."""
+    pts, _ = _room()
+    prob = tpose.PoseProblem(INTR.width, INTR.height, **SOFT)
+    _, adv = tr.pose_runner(prob, te.OptimizerConfig(lr_pose=0.1, lr_quat=0.05), 3)
+    outs = {}
+    for route in ("static", "eager"):
+        params = tpose.init_pose_params(np.array([[0.5, 0.3, 0.0]], np.float32),
+                                        np.array([[0.9, 0.1, -0.2, 0.3]], np.float32))
+        state, outs[route] = te.adam_init(params), []
+        for _ in range(2):
+            params, state, loss, aux = adv._advance(route, params, state, torch.as_tensor(pts),
+                                                    None, INTR.matrix())
+            outs[route].append((params, state, loss, aux))
+    for g, e in zip(outs["static"], outs["eager"]):
+        assert _equal(g[0], e[0]) and _equal(g[1], e[1]) and torch.equal(g[2], e[2])
+        assert _equal(g[3], e[3])
+
+
+def test_soft_optimize_waypoints_static_equals_eager(monkeypatch):
+    """``optimize_waypoints`` with soft HPR on the binned tier (4 waypoints,
+    3 steps): its static route (the step the card captures) torch.equal to
+    its eager route, positions, quaternions and aux."""
+    pts, path = _room()
+    q = identity_quaternions(4)
+    prob = twps.WpsOptProblem(INTR.width, INTR.height, **SOFT)
+    want = twps.optimize_waypoints(pts, path[:4], q, INTR.matrix_np(), prob, n_steps=3,
+                                   device="cpu")
+    monkeypatch.setattr(twps, "device_route", lambda device, route: "static")
+    got = twps.optimize_waypoints(pts, path[:4], q, INTR.matrix_np(), prob, n_steps=3,
+                                  device="cpu")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _equal(got[2], want[2])
+
+
+# ---------------------------------------------------------------------------
 # the static steps against the JAX twins
 # ---------------------------------------------------------------------------
 
@@ -340,23 +410,24 @@ def test_static_pose_runner_matches_jax():
 # ---------------------------------------------------------------------------
 
 ROUTE_TABLE = [
-    # (model, problem fields, points, route on the card)
+    # (model, problem fields, points, route on the card): every configuration
+    # captures, soft HPR above soft_hpr_dense_max (the binned tier) included
     ("traj", {}, 40_960, "graph"),
     ("traj", {"backend": "torch"}, 40_960, "graph"),
     ("traj", {"backend": "kernel"}, 8_388_608, "graph"),
     ("traj", {"soft_hpr": True}, 24_576, "graph"),
     ("traj", {"soft_hpr": True}, 32_768, "graph"),
-    ("traj", {"soft_hpr": True}, 32_769, "eager"),
-    ("traj", {"soft_hpr": True}, 40_960, "eager"),
-    ("traj", {"soft_hpr": True, "soft_hpr_dense_max": 2048}, 4096, "eager"),
+    ("traj", {"soft_hpr": True}, 32_769, "graph"),
+    ("traj", {"soft_hpr": True}, 40_960, "graph"),
+    ("traj", {"soft_hpr": True, "soft_hpr_dense_max": 2048}, 4096, "graph"),
     ("traj", {"soft_hpr": False, "soft_hpr_dense_max": 2048}, 4096, "graph"),
     ("pose", {}, 1_048_576, "graph"),
     ("pose", {"soft_hpr": True}, 24_576, "graph"),
-    ("pose", {"soft_hpr": True}, 262_144, "eager"),
-    ("pose", {"soft_hpr": True, "soft_hpr_dense_max": 0}, 1, "eager"),
+    ("pose", {"soft_hpr": True}, 262_144, "graph"),
+    ("pose", {"soft_hpr": True, "soft_hpr_dense_max": 0}, 1, "graph"),
     ("wps", {}, 40_960, "graph"),
     ("wps", {"soft_hpr": True}, 24_576, "graph"),
-    ("wps", {"soft_hpr": True}, 40_960, "eager"),
+    ("wps", {"soft_hpr": True}, 40_960, "graph"),
 ]
 MODELS = {"traj": tt.TrajProblem, "pose": tpose.PoseProblem, "wps": twps.WpsOptProblem}
 
@@ -364,7 +435,8 @@ MODELS = {"traj": tt.TrajProblem, "pose": tpose.PoseProblem, "wps": twps.WpsOptP
 @pytest.mark.parametrize("model,fields,n,route", ROUTE_TABLE)
 def test_capture_route_table(model, fields, n, route):
     """``models.traj.capture_route`` on each model's problem: the trajectory,
-    pose and waypoint losses share the soft gate it describes."""
+    pose and waypoint losses share the soft gate it describes, and both of
+    its tiers capture (the binned tier sizes its tiles from shapes alone)."""
     problem = MODELS[model](INTR.width, INTR.height, **fields)
     assert tt.capture_route(problem, n) == route
     assert tg.device_route(torch.device("cuda", 0), tt.capture_route(problem, n)) == route

@@ -238,8 +238,9 @@ def _rel(a, b):
     return np.linalg.norm(a - b) / np.linalg.norm(b)
 
 
-def _hold_to_jax(pts, cap, exact_grad):
-    """Mask and gradient against the JAX function, isolated points left out
+def _hold_to_jax(pts, cap, exact_grad, **kw):
+    """Mask and gradient against the JAX function (``cap`` and the knobs in
+    ``kw``), isolated points left out
     (module docstring). With ``exact_grad`` the gradient is held to JAX's
     rtol 2e-3 / atol 2e-3 of its largest entry; otherwise both gradients go
     against the port's float64 evaluation: on the planar scenes JAX's own f32
@@ -249,8 +250,8 @@ def _hold_to_jax(pts, cap, exact_grad):
     w = np.random.default_rng(1).normal(size=len(pts)).astype(np.float32)
     iso = _isolated(pts)
     w[iso] = 0.0  # the JAX mask is flat (0) there; see the module docstring
-    jv, jg = _jax(pts, w, cap=cap)
-    tv, tg = _port(pts, w, cap=cap)
+    jv, jg = _jax(pts, w, cap=cap, **kw)
+    tv, tg = _port(pts, w, cap=cap, **kw)
     keep = ~iso
     assert iso.mean() <= 0.01, iso.sum()
     d = np.abs(tv - jv)[keep]
@@ -260,7 +261,7 @@ def _hold_to_jax(pts, cap, exact_grad):
     if exact_grad:
         np.testing.assert_allclose(tg, jg, rtol=2e-3, atol=2e-3 * np.abs(jg).max())
     else:
-        dg = _port(pts.astype(np.float64), w, cap=cap)[1]
+        dg = _port(pts.astype(np.float64), w, cap=cap, **kw)[1]
         assert _rel(tg, dg) <= 1.5 * _rel(jg, dg) + 1e-3, (_rel(tg, dg), _rel(jg, dg))
         assert _rel(tg, jg) <= 2.0 * _rel(jg, dg) + 1e-3, (_rel(tg, jg), _rel(jg, dg))
     return tv

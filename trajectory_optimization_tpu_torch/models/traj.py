@@ -148,17 +148,14 @@ def _resolve_backend(problem: TrajProblem, points: torch.Tensor) -> str:
 
 def capture_route(problem, n_points: int) -> str:
     """How a step of this configuration runs on the card: ``"graph"``, captured
-    once per shape bucket and replayed (``opt/graphs.py``), or ``"eager"``
-    where the step reads the host. Soft HPR above ``soft_hpr_dense_max``
-    points takes the direction-binned tier, which sizes its tile table on the
-    host (``int(tile_cum[-1])`` in ``ops.hpr.hpr_mask_soft_binned``): eager.
-    Every other configuration (the kernel and plain backends, the dense soft
-    tier, a precomputed occlusion mask) captures. Decided from the problem
-    and N alone; ``problem`` is duck-typed (``soft_hpr``,
-    ``soft_hpr_dense_max``) as for ``gated_waypoint_scores``, so the
-    trajectory, pose and waypoint models all route through here."""
-    if problem.soft_hpr and n_points > problem.soft_hpr_dense_max:
-        return "eager"
+    once per shape bucket and replayed (``opt/graphs.py``). Every
+    configuration captures: the kernel and plain backends, both soft-HPR
+    tiers (the binned tier above ``soft_hpr_dense_max`` points sizes its
+    tiles from shapes alone, as the JAX twin's jitted scan does) and a
+    precomputed occlusion mask. The one hook through which the trajectory,
+    pose and waypoint runners pick their route; ``problem`` is duck-typed
+    and ``n_points`` the cloud's size, so a configuration that had to read
+    the host would answer ``"eager"`` here."""
     return "graph"
 
 

@@ -135,8 +135,8 @@ def optimize_waypoints(
     aux) as tensors on the device.
 
     ``n_steps`` steps of the two-group Adam engine (``lr_xy`` on positions,
-    ``lr_yaw`` on headings), a fixed-length run, captured on the card unless
-    the binned soft tier routes it eagerly (``capture_route``); aux is the
+    ``lr_yaw`` on headings), a fixed-length run, captured on the card with
+    or without soft HPR (``capture_route``); aux is the
     final forward's plus 'losses0', the initial per-waypoint losses, for
     per-waypoint visibility gains (losses0 / losses).
     """

@@ -25,6 +25,7 @@ by the cloud's size, as the JAX twin does.
 from __future__ import annotations
 
 import contextlib
+import functools
 import inspect
 from typing import Optional, Tuple
 
@@ -436,6 +437,19 @@ def _direction_angles(u: torch.Tensor):
     return lat, az
 
 
+def _device_table(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """The host array ``a`` as a tensor on ``dev``, copied on the first call
+    and reused after it (:func:`_cached_table`). A run's first step is
+    eager, so the copy never falls inside a captured step: a copy from
+    pageable host memory synchronizes, which a capture forbids."""
+    return _cached_table(a.tobytes(), a.dtype.str, a.shape, dev)
+
+
+@functools.lru_cache(maxsize=256)
+def _cached_table(data: bytes, dtype: str, shape, dev: torch.device) -> torch.Tensor:
+    return torch.tensor(np.frombuffer(data, dtype=dtype).reshape(shape), device=dev)
+
+
 def _grid_bin_key(grid, lat, az, norms, scale, v):
     """Bin ids and the quantized (bin, distance) int32 sort key for one grid
     of :func:`_binned_grids`: ``bins·2^frac_bits + ⌊frac·2^frac_bits⌋`` with
@@ -447,7 +461,9 @@ def _grid_bin_key(grid, lat, az, norms, scale, v):
 
     The arithmetic is the twin's f32: the divisors are f32 tensors on the
     device, since a CUDA tensor divided by a Python scalar is multiplied by
-    its reciprocal, which rounds differently and moves boundary points."""
+    its reciprocal, which rounds differently and moves boundary points. They
+    are filled on the device and the grid's tables copied there once
+    (:func:`_device_table`): a captured step makes no host copy."""
     n_rings, delta, lat_shift, az_shift, n_az_np, offs_np, n_bins = grid
     frac_bits = 30 - max(1, int(n_bins + 1)).bit_length()
     if frac_bits < 8:
@@ -455,9 +471,8 @@ def _grid_bin_key(grid, lat, az, norms, scale, v):
             f"binning too fine for an int32 sort key ({n_bins} bins); "
             f"lower safety/raise r_param")
     dev = lat.device
-    n_az = torch.as_tensor(n_az_np, device=dev)
-    offs = torch.as_tensor(offs_np, device=dev)
-    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    n_az, offs = _device_table(n_az_np, dev), _device_table(offs_np, dev)
+    f32 = lambda x: torch.full((), x, dtype=torch.float32, device=dev)  # noqa: E731
     ring = torch.clamp(
         torch.floor((lat + np.pi / 2) / f32(delta) + lat_shift).to(torch.int32),
         0, n_rings - 1).long()
@@ -575,8 +590,11 @@ def hpr_mask_soft_binned(
     (2n ≥ 2^frac_bits). The tiles are reduced in chunks sized by
     ``TILE_BUDGET`` (:class:`_BinnedLSE`) and each row takes the max of the
     tiles that cover it (``scatter_reduce``): max is order-independent, so
-    this equals the twin's scan over tiles. Only the tiles of non-empty bins
-    are formed (one host read of their count per grid).
+    this equals the twin's scan over tiles. The tile table is the twin's:
+    ``n_bins + ⌈n/cap⌉`` static slots per grid, a size taken from shapes
+    alone, of which the slots past the last real tile are masked out of the
+    max (``tile_ok``). The function reads nothing from the device on the
+    host, so a step that calls it can be captured as a CUDA graph.
 
     ``valid``: padded points set neither radius nor scale, cover no one and
     report 0. Returns (N,) visibility in (0, 1).
@@ -631,18 +649,23 @@ def hpr_mask_soft_binned(
 
         tiles_per_bin = (counts + cap - 1) // cap  # 0 for empty bins
         tile_cum = torch.cat([tiles_per_bin.new_zeros(1), torch.cumsum(tiles_per_bin, 0)])
-        slot = torch.arange(int(tile_cum[-1]), device=dev)  # every tile is a real one
-        tile_bin = torch.searchsorted(tile_cum, slot, right=True) - 1
+        # the twin's static slots: Σ⌈count/cap⌉ ≤ n_bins + ⌈n/cap⌉, a size
+        # from shapes alone; the slots past the last real tile are empty
+        slot = torch.arange(n_bins + -(-n // cap), device=dev)
+        tile_bin = torch.clamp(torch.searchsorted(tile_cum, slot, right=True) - 1, 0, n_bins - 1)
         within = slot - tile_cum[tile_bin]
+        tile_ok = within < tiles_per_bin[tile_bin]
         qoff = torch.clamp(starts[tile_bin] + within * cap, 0, n - cap)
         coff = torch.clamp(starts[tile_bin], 0, n - cap)
         deep = (within >= 1).long() if strat else torch.zeros_like(within)
         tiles = torch.stack([tile_bin, qoff, coff, deep], dim=1)
 
         lse = _BinnedLSE.apply(U, R, beta, bin_s, cov_pos, tiles, cap, chunk)
-        # each query row of bin b takes the max over the tiles of b that hold it
+        # each query row of bin b takes the max over the real tiles of b that
+        # hold it; an empty slot's rows stay out (their gradient is exactly 0)
         q = qoff[:, None] + ar
-        rows = torch.where(bin_s[q] == tile_bin[:, None], lse / beta, -_BIG_SOFT)
+        rows = torch.where((bin_s[q] == tile_bin[:, None]) & tile_ok[:, None], lse / beta,
+                           -_BIG_SOFT)
         smax_g = torch.full((n,), -_BIG_SOFT, dtype=points.dtype, device=dev).scatter_reduce(
             0, q.reshape(-1), rows.reshape(-1), "amax", include_self=True)
         smax = torch.maximum(smax, _unpermute(perm, smax_g))

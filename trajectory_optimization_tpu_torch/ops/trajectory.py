@@ -25,7 +25,7 @@ def mean_segment_angle(traj: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     AB = pᵢ₋₁ − pᵢ, AC = pᵢ₊₁ − pᵢ; π for a straight line. A path of fewer
     than 3 waypoints has no interior angle and reports π."""
     if traj.shape[0] < 3:
-        return torch.tensor(math.pi, dtype=traj.dtype, device=traj.device)
+        return torch.full((), math.pi, dtype=traj.dtype, device=traj.device)  # no host copy
     ab = traj[:-2] - traj[1:-1]
     ac = traj[2:] - traj[1:-1]
     cos = torch.sum(ab * ac, dim=-1) / (safe_norm(ab, dim=-1) * safe_norm(ac, dim=-1) + eps)

@@ -9,8 +9,9 @@ graph launch instead of a few hundred kernel launches.
 
 Routes:
 
-* ``"eager"`` — the Python loop of fresh tensors (CPU tensors, and the
-  configurations whose step reads the host: ``models.traj.capture_route``);
+* ``"eager"`` — the Python loop of fresh tensors (CPU tensors; on the card
+  every model configuration captures, ``models.traj.capture_route``, and
+  the eager loop is what a test or a check asks for by name);
 * ``"graph"`` — the static-buffer step, run once eagerly (the run's own
   first step: it makes the lazily created device state — cuBLAS handles,
   the kernel launcher's sentinels and scratch — on the capture stream),

@@ -15,9 +15,9 @@ intermediates) and its static buffers (points, their (3, N) transpose,
 valid, K, the initial path, the parameters and Adam state, the last
 outputs); ``MAX_BUCKETS`` of them per runner, the least recently used
 dropped first. The parameters' device is the run's device: data given on
-another device (a node's host arrays) is copied there. Configurations whose
-step reads the host (``models.traj.capture_route``) and CPU tensors run
-the eager loop.
+another device (a node's host arrays) is copied there. Every configuration
+captures on the card, soft HPR above ``soft_hpr_dense_max`` included
+(``models.traj.capture_route``); CPU tensors run the eager loop.
 """
 from __future__ import annotations
 
