@@ -104,8 +104,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
    ``PoseOptNode(use_hpr=True)`` over the bus (20 finite /odom, the last
    equal to the optimizer's). Soft HPR at the dense size, cloud 10
    voxel-filtered at leaf 0.15 (23,288 centroids, padded 24,576):
-   ``PoseOptimizer(soft_hpr=True)`` 100 steps, ``TrajectoryOptimizer(
-   soft_hpr=True)`` 20 steps with path 10 (loss below that after its first
+   ``PoseOptimizer(soft_hpr=True)`` 50 steps, ``TrajectoryOptimizer(
+   soft_hpr=True)`` 10 steps with path 10 (loss below that after its first
    step, visibility gain > 1) and ``evaluate`` of the result; one step of
    each, loss and gradients, against the same step on the CPU within 2e-3
    of the largest entry (the trajectory's on path 10's first 3 waypoints).
@@ -128,16 +128,25 @@ Phases, each printing one line (any failure raises and exits non-zero):
    profiler range). Then the distance-reward model and the finite-difference pose loss
    against the CPU (rtol 1e-4 and 2e-3; counts equal).
 9. frozen — the frozen-routing soft-HPR engine (``models/traj_frozen.py``,
-   eager PyTorch: no kernel of its own) at bench.py's shapes.
-   ``FrozenTrajOptimizer`` on cloud 10 and path 10 (14 waypoints, cap 512,
-   lr 0.1/0.02, the default ``FrozenPlanConfig``: async refresh every 8
-   steps): 2 warm-up steps, 3 windows of 12 steps each ending in a sync
-   (ms/step, peak memory, refreshes and the blocked build seconds); one
-   step between refreshes under ``torch.cuda.set_sync_debug_mode("error")``
-   (it must make no host sync), then the other steps up to the next
-   refresh traced (device operations per step, busy share, the tiles'
-   share). At a refresh: the frozen loss, rewards and gradient against the
-   per-step routed binned tier (``traj_forward(soft_hpr=True,
+   PyTorch: no kernel of its own) at bench.py's shapes, each on its two
+   routes: captured (one CUDA graph per plan shape, the default on the
+   card) and eager. ``FrozenTrajOptimizer`` on cloud 10 and path 10 (14
+   waypoints, cap 512, lr 0.1/0.02, the default ``FrozenPlanConfig``: async
+   refresh every 8 steps): the first two steps (a shape's eager first step,
+   its capture), 2 warm-up steps, 3 windows of 8 steps each ending in a
+   sync (ms/step, peak memory, refreshes, shapes, the blocked build
+   seconds); one step between refreshes under
+   ``torch.cuda.set_sync_debug_mode("error")`` (it must make no host sync),
+   then the other steps up to the next refresh traced (host kernel and
+   graph launches and copy calls, device operations and busy per step, the
+   tiles' share); the captured graph's replays alone and the memory its
+   bucket holds (the captured route pads its live-tile list to a rung, the
+   eager one does not). The stall a new shape causes (the tile floor raised a rung at a
+   sync refresh) against one refresh interval. 24 steps over 3 refreshes,
+   sync and async: every step's loss, parameters and aux captured
+   ``torch.equal`` to eager; a first capture while the worker thread runs
+   plan builds. At a refresh: the frozen loss, rewards and gradient against
+   the per-step routed binned tier (``traj_forward(soft_hpr=True,
    soft_hpr_dense_max=0)``), the sparse mean against the embedding path
    (tests/test_torch_traj_frozen.py's pins, ``FROZEN_PINS``), and the f32
    frozen step against float64 within ``BINNED_TOL``, beside the same step
@@ -146,9 +155,11 @@ Phases, each printing one line (any failure raises and exits non-zero):
    max_dist 12, refresh_every 10,000) beside ``PoseOptimizer(soft_hpr=
    True)``, its first loss against the per-step loss (rtol 1e-4) and the
    loss falling; ``FrozenWpsOptimizer`` with the 27 waypoints of path 10
-   (cap 1024), the same checks against ``wps_forward``; 200 steps of path
-   10 displaced +12 m in z at the default config, the median and worst
-   20-step window.
+   (cap 1024), the same checks against ``wps_forward``; each of the two
+   also 6 steps at refresh_every 2 (async) captured ``torch.equal`` to
+   eager; 200 steps of path 10 displaced +12 m in z at
+   the default config on both routes, the median and worst 20-step window
+   and the shapes taken.
 10. cli — the shell entry point, ``__main__.main([...])`` in this process
    with ``--device cuda:0``: ``eval`` of cloud 10 and path 10 with
    ``--optimize 100``, its printed census equal to a direct
@@ -195,11 +206,14 @@ Phases, each printing one line (any failure raises and exits non-zero):
    trajectory runner on cloud 10 and path 10, the pose runner on bench.py's
    cloud at 262,144 and 1,048,576 points and ``optimize_waypoints`` on cloud
    10, each called captured, eager, eager, captured (the waypoints without
-   the last): ``torch.equal`` to the
-   eager calls where those agree bit for bit, otherwise the captured and the
-   eager step (loss and gradient) each against the card's float64 step
-   (``BINNED_STEP_TOL``; a pose step at ``HPR_TOL``); the real tiles against
-   the static slots per grid. Times under [times].
+   the last): the two eager calls bit-equal (the binned backward adds its
+   rows in a fixed order) and the captured ones ``torch.equal`` to them;
+   one step with the fixed order against the same step with atomic adds
+   (the order before), within ``ORDER_TOL`` where it moved a bit, both
+   steps and their row accumulation alone timed; at 1,048,576 points the
+   f32 step, eager and captured (bit-equal), within ``HPR_TOL`` of the
+   card's float64 step; the real tiles against the static slots per grid.
+   Times under [times].
 13. times — per-stage and per-step ms of the eager loop (the series of
    earlier runs), kernel and plain, peak memory, and
    the device's busy share of a step from a 20-step ``torch.profiler`` trace;
@@ -484,6 +498,9 @@ BINNED_OPS = {"forward": 13, "backward": 34}
 BINNED_POSE = ((262_144, 5), (1_048_576, 2))
 WPS_STEPS = 100
 SOFT_LEAF = 0.15  # voxels_filtering.launch's leaf: cloud 10 -> 23,288 centroids
+# [hpr]'s soft runs at that dense size: pose and trajectory steps, cut from
+# 100 and 20 to hold the script's time
+SOFT_POSE_STEPS, SOFT_TRAJ_STEPS = 50, 10
 # Soft HPR, one step on the card against the same step on the CPU: the
 # largest error within 2e-3 of the largest entry, the port's gradient pin
 # against the JAX twin (tests/test_torch_pose.py). The mask's sigmoid turns
@@ -520,10 +537,13 @@ BINNED_STEP_TOL = 1e-3
 # tier loss rtol 1e-5, rewards atol 1e-6, gradient relnorm 1e-4; the sparse
 # mean against the embedding path loss rtol 1e-6, mean reward atol 1e-6,
 # gradient relnorm 1e-4; the pose and waypoints variants rtol 1e-4.
-FROZEN_WINDOWS = (2, 3, 12)
+FROZEN_WINDOWS = (2, 3, 8)
 FROZEN_POSE = (262_144, 8)
 FROZEN_WPS_STEPS = 5
 WORST = (200, 20)
+FROZEN_HELD = 24  # trajectory steps held captured == eager: refreshes at 0, 8, 16
+FROZEN_HELD_VARIANT = (6, 2)  # pose and waypoints: steps held, refresh_every
+FROZEN_REPLAYS = 20  # timed replays of a frozen step's graph alone
 FROZEN_PINS = {"loss": 1e-5, "rewards": 1e-6, "grad": 1e-4, "mean": 1e-6, "variant": 1e-4}
 
 
@@ -1243,46 +1263,46 @@ def hpr_checks(dev, intr, cloud10, path10, sync, cuda_ms):
             errs.append(err / scale)
         return errs
 
-    # pose: 100 steps, one step against the CPU, a traced step
+    # pose: SOFT_POSE_STEPS steps, one step against the CPU, a traced step
     opt = PoseOptimizer(device=dev, soft_hpr=True)
     r0 = opt.optimize(vox, start, n_steps=0)
     opt.optimize(vox, start, n_steps=3)  # warm-up
     sync()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    r = opt.optimize(vox, start, n_steps=100)
+    r = opt.optimize(vox, start, n_steps=SOFT_POSE_STEPS)
     sync()
-    res["soft_pose_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / 100
+    res["soft_pose_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / SOFT_POSE_STEPS
     res["soft_pose_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
     if not (np.all(np.isfinite(r.position)) and np.isfinite(r.loss) and r.loss < r0.loss):
-        fail(f"PoseOptimizer(soft_hpr=True) 100 steps: loss {r.loss} from {r0.loss}")
+        fail(f"PoseOptimizer(soft_hpr=True) {SOFT_POSE_STEPS} steps: loss {r.loss} from {r0.loss}")
     res["soft_pose_vs_cpu"] = against_cpu("soft pose step", pose_step(dev), pose_step("cpu"))
     res["soft_pose_trace"] = traced_share(lambda: pose_step(dev), sync)
     res["soft_pose"] = (r0.loss, r.loss)
     print(f"[hpr] PoseOptimizer(soft_hpr=True) on cloud 10 voxel-filtered at leaf {SOFT_LEAF} "
-          f"({len(vox)} centroids padded to {len(vpad)}, dense): 100 steps, loss {r0.loss:.6f} "
+          f"({len(vox)} centroids padded to {len(vpad)}, dense): {SOFT_POSE_STEPS} steps, loss {r0.loss:.6f} "
           f"-> {r.loss:.6f}; one step on the card against the CPU: relative max |err| loss, "
           f"trans, quat {[f'{e:.2e}' for e in res['soft_pose_vs_cpu']]} (pin {HPR_TOL})",
           flush=True)
 
-    # trajectory: 20 steps with path 10, evaluate, one step against the CPU
+    # trajectory: SOFT_TRAJ_STEPS steps with path 10, evaluate, one step against the CPU
     stride = waypoint_stride(path10, 0.5)  # the facade's default vis_wps_dist
     topt = TrajectoryOptimizer(device=dev, soft_hpr=True, lr_pose=0.1, lr_quat=0.02)
     # the first Adam step moves every waypoint by lr_pose and raises the
     # smoothness term (the JAX twin's run does the same): the loss falls from
-    # there on, so the 20-step loss is held below the 1-step one
+    # there on, so the last loss is held below the 1-step one
     loss0 = topt.optimize(vox, path10, n_steps=1).loss  # and a warm-up
     sync()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    tr = topt.optimize(vox, path10, n_steps=20)
+    tr = topt.optimize(vox, path10, n_steps=SOFT_TRAJ_STEPS)
     sync()
-    # per step, the run's final forward (no gradient) included in the 20
-    res["soft_traj_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / 20
+    # per step, the run's final forward (no gradient) included
+    res["soft_traj_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / SOFT_TRAJ_STEPS
     res["soft_traj_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
     if not (np.all(np.isfinite(tr.poses)) and np.isfinite(tr.loss) and tr.loss < loss0
-            and tr.visibility_gain > 1.0 and tr.n_iters == 20 and np.all(np.isfinite(tr.rewards))):
-        fail(f"TrajectoryOptimizer(soft_hpr=True) 20 steps: loss {tr.loss} (after 1 step "
+            and tr.visibility_gain > 1.0 and tr.n_iters == SOFT_TRAJ_STEPS and np.all(np.isfinite(tr.rewards))):
+        fail(f"TrajectoryOptimizer(soft_hpr=True) {SOFT_TRAJ_STEPS} steps: loss {tr.loss} (after 1 step "
              f"{loss0}), visibility gain {tr.visibility_gain}, {tr.n_iters} steps")
     ev = topt.evaluate(vox, tr.poses, tr.quats_wxyz, wps_step=stride)
     if not (np.all(np.isfinite(ev.rewards)) and 0 < ev.n_observed <= len(vox)
@@ -1300,8 +1320,8 @@ def hpr_checks(dev, intr, cloud10, path10, sync, cuda_ms):
     res["soft_traj"] = (loss0, tr.loss, tr.visibility_gain, ev.n_observed, ev.mean_reward)
     res["soft_wps"] = n_wps
     print(f"[hpr] TrajectoryOptimizer(soft_hpr=True) on the same cloud with path 10 ({n_wps} "
-          f"waypoints at stride {stride}): loss after 1 step {loss0:.6f}, after 20 "
-          f"{tr.loss:.6f}, "
+          f"waypoints at stride {stride}): loss after 1 step {loss0:.6f}, after "
+          f"{SOFT_TRAJ_STEPS} {tr.loss:.6f}, "
           f"visibility gain {tr.visibility_gain:.4f}, gradients finite; evaluate of the "
           f"optimized path: {ev.n_observed} observed, mean reward {ev.mean_reward:.6f}; one "
           f"step of path 10's first 3 waypoints (2 at stride {stride}) on the card against the "
@@ -1731,28 +1751,40 @@ def print_hpr_times(card: str, hp) -> None:
           flush=True)
 
 
-def frozen_tile_pairs(plan, meta):
+def frozen_tile_pairs(opt):
     """(pairs in every tile of the plan, pairs in the tiles that hold a
-    query): a frozen forward computes cap² pairs per tile that holds a
-    query and skips the rest (the tile-count ladder's padding tiles and
-    coverer-only tiles)."""
-    return (meta.n_sel * meta.n_grids * meta.tiles * meta.cap ** 2,
-            int(plan["live"].numel()) * meta.cap ** 2)
+    query, pairs in the tiles staged): a frozen forward computes cap² pairs
+    per tile staged, those that hold a query (the bound's work) and, on the
+    captured route, the padding tiles of their rung, and skips the rest
+    (the tile-count ladder's padding tiles and coverer-only tiles)."""
+    meta = opt._meta
+    n_real, n_staged = opt.stats["live_tiles"][-1]
+    return (meta.n_sel * meta.n_grids * meta.tiles * meta.cap ** 2, n_real * meta.cap ** 2,
+            n_staged * meta.cap ** 2)
 
 
 def frozen_checks(dev, intr, cloud10, path10, sync):
     """Phase [frozen]: the frozen-routing engine on the card at bench.py's
-    shapes. (a) ``FrozenTrajOptimizer`` on cloud 10 and path 10: ms/step,
-    a traced window of steps between refreshes, a step between refreshes
-    under ``torch.cuda.set_sync_debug_mode("error")``; (b) at a refresh,
-    the frozen loss against the per-step routed binned tier, the f32 step
+    shapes, captured (one CUDA graph per plan shape, the default on the
+    card) and eager. (a) ``FrozenTrajOptimizer`` on cloud 10 and path 10 on
+    both routes: ms/step, the first step of a shape (eager) and its capture,
+    replays alone, a traced window of steps between refreshes (device busy,
+    operations, host launch and copy calls; on the eager route the tiles'
+    share), a
+    step between refreshes under ``torch.cuda.set_sync_debug_mode("error")``,
+    the memory the captured bucket holds; then 24 steps over 3 refreshes,
+    sync and async, captured ``torch.equal`` to eager; then a first capture
+    while a plan build runs on the worker thread; (b) at a refresh, the
+    frozen loss against the per-step routed binned tier, the f32 step
     against float64, the sparse mean against the embedding path; (c)
     ``FrozenPoseOptimizer`` beside the per-step soft pose step on a uniform
-    ±40 m cloud; (d) ``FrozenWpsOptimizer`` at the waypoints demo's shape;
-    (e) 200 steps of the displaced path at the production config, median
-    and worst 20-step window. Returns the numbers for [times] and the
-    record."""
+    ±40 m cloud, and (d) ``FrozenWpsOptimizer`` at the waypoints demo's
+    shape, each on both routes and held captured == eager over 3 refreshes
+    (async); (e) 200 steps of the displaced path at the production
+    config on both routes, median and worst 20-step window, shapes
+    captured. Returns the numbers for [times] and the record."""
     import gc
+    import threading
 
     import numpy as np
     import torch
@@ -1766,10 +1798,23 @@ def frozen_checks(dev, intr, cloud10, path10, sync):
     from trajectory_optimization_tpu_torch.models.wps_opt import (
         WpsOptProblem, init_wps_params, wps_forward,
     )
+    from trajectory_optimization_tpu_torch.opt import graphs
     from trajectory_optimization_tpu_torch.opt.engine import OptimizerConfig, value_and_grad
     from trajectory_optimization_tpu_torch.utils.data import identity_quaternions
 
     res = {}
+    part_s, part_t0 = {}, [None, time.perf_counter()]
+
+    def mark(name):
+        """Seconds of the part that ends here; the next one is ``name``."""
+        now = time.perf_counter()
+        if part_t0[0] is not None:
+            part_s[part_t0[0]] = now - part_t0[1]
+        part_t0[:] = [name, now]
+
+    # the card captures; a CPU rehearsal runs the same static-buffer step uncaptured
+    GRAPH = "graph" if dev.type == "cuda" else "static"
+    ROUTES = (GRAPH, "eager")
     K_np = intr.matrix_np()
     K = torch.as_tensor(K_np, device=dev)
     q10 = identity_quaternions(len(path10))
@@ -1780,6 +1825,12 @@ def frozen_checks(dev, intr, cloud10, path10, sync):
 
     def finite(*xs):
         return all(bool(torch.isfinite(x).all()) for x in xs)
+
+    def num(v, unit=""):
+        return "not measured" if v is None else f"{v:.3f}{unit}"
+
+    def stats_of(opt):
+        return dict(opt.stats, live_tiles=list(opt.stats["live_tiles"]))
 
     def timed_windows(opt, params, st, n_win, per):
         sync()
@@ -1794,62 +1845,275 @@ def frozen_checks(dev, intr, cloud10, path10, sync):
             fail(f"{type(opt).__name__}: non-finite loss or parameters")
         return params, st, times
 
+    def first_steps(opt, params, st):
+        """The run's first two steps, each timed: the first refreshes and
+        runs the shape's first step eagerly, the second captures (on the
+        graph route) and replays. Returns (params, state, ms of each, the
+        first one's blocked build ms)."""
+        ms = []
+        for _ in range(2):
+            b0 = opt.stats["build_s"]
+            sync()
+            t0 = time.perf_counter()
+            params, st, _, _ = opt.step(params, st)
+            sync()
+            ms.append(((time.perf_counter() - t0) * 1e3, (opt.stats["build_s"] - b0) * 1e3))
+        return params, st, ms
+
+    def bucket_memory(opt):
+        """(MiB allocated, MiB reserved) the optimizer's captured bucket
+        holds: its static buffers, and with them its graph's pool."""
+        if opt._bucket is None:
+            return None
+        sync()
+        gc.collect()
+        torch.cuda.empty_cache()
+        a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        opt._drop_bucket()
+        gc.collect()
+        sync()
+        torch.cuda.empty_cache()
+        return ((a0 - torch.cuda.memory_allocated()) / 2**20,
+                (r0 - torch.cuda.memory_reserved()) / 2**20)
+
+    def replays_ms(opt, n):
+        """ms per replay of the current bucket's graph alone (no refresh, no
+        copies in or out)."""
+        g = opt._bucket.graph
+        if g is None or g.graph is None:
+            return None
+        side = graphs.capture_stream(dev)
+        with torch.cuda.stream(side):
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                g.replay()
+            sync()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    def held(make, params0, n_steps, what):
+        """Run ``n_steps`` on both routes from ``params0``: every step's
+        loss, parameters and aux ``torch.equal``. Returns (steps, refreshes
+        and shapes of the captured run)."""
+        runs, stats = {}, {}
+        for route in ROUTES:
+            opt = make()
+            opt._route = route
+            p, out = params0, []
+            st = opt.init(p)
+            for _ in range(n_steps):
+                p, st, loss, aux = opt.step(p, st)
+                out.append([loss, p, aux])
+            opt.close()
+            runs[route], stats[route] = out, stats_of(opt)
+        for i, (g, e) in enumerate(zip(runs[GRAPH], runs["eager"])):
+            bad = differ(g, e)
+            if bad:
+                fail(f"[frozen] {what}: captured step {i} != eager: {'; '.join(bad)}")
+        # the same tiles hold a query on both routes; the captured one pads
+        if ([n for n, _ in stats[GRAPH]["live_tiles"]]
+                != [n for n, _ in stats["eager"]["live_tiles"]]):
+            fail(f"[frozen] {what}: the routes built other plans: {stats}")
+        return {"steps": n_steps, "refreshes": stats[GRAPH]["refreshes"],
+                "captures": stats[GRAPH]["captures"], "live_tiles": stats[GRAPH]["live_tiles"]}
+
+    mark("traj")
     # ---- (a) bench_soft_hpr_traj_step's shape ------------------------------
     warm, n_win, per = FROZEN_WINDOWS
+    res["traj"] = {}
+    for route in ROUTES:
+        opt = tf.FrozenTrajOptimizer(cloud10, K_np, path10, q10, prob, cfg, tf.FrozenPlanConfig(),
+                                     device=dev)
+        opt._route = route
+        params = init_traj_params(path10, q10, dev)
+        st = opt.init(params)
+        params, st, first = first_steps(opt, params, st)
+        for _ in range(warm):
+            params, st, _, _ = opt.step(params, st)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        params, st, times = timed_windows(opt, params, st, n_win, per)
+        peak = (torch.cuda.max_memory_allocated() / 2**20,
+                torch.cuda.max_memory_reserved() / 2**20)
+        # a step between refreshes reads nothing back: run one under the sync
+        # debug mode, after the pending plan build has finished
+        while opt._steps_since_refresh != 1:
+            params, st, _, _ = opt.step(params, st)
+        if opt._pending is not None:
+            opt._pending.result()
+        sync()
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            params, st, _, _ = opt.step(params, st)
+        except RuntimeError as e:
+            fail(f"FrozenTrajOptimizer ({route}): a step between refreshes synchronised with "
+                 f"the host: {e}")
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+        # the other steps up to the next refresh, traced
+        n_trace = opt.plan_cfg.refresh_every - opt._steps_since_refresh
+        box = [params, st]
+
+        def window():
+            for _ in range(n_trace):
+                box[0], box[1], _, _ = opt.step(box[0], box[1])
+
+        tr = trace_window(window, n_trace, sync, tf.FROZEN_TILES_RANGE)
+        replay = replays_ms(opt, FROZEN_REPLAYS) if route == GRAPH else None
+        pairs = frozen_tile_pairs(opt)
+        capture_s = opt._bucket.graph.capture_s if route == GRAPH else None
+        entry = {"waypoints": opt._meta.n_sel, "meta": dataclasses.asdict(opt._meta),
+                 "first_steps_ms": first, "capture_s": capture_s,
+                 "ms_per_step": statistics.median(times), "windows_ms": times,
+                 "replay_ms": replay, "peak_mib": peak, "pairs": pairs,
+                 "traced_steps": n_trace, "trace": tr, "stats": stats_of(opt),
+                 "bucket_mib": bucket_memory(opt) if route == GRAPH else None}
+        opt.close()
+        res["traj"][route] = entry
+        busy, ops = tr["busy_ms"], tr["ops"]
+        print(f"[frozen] FrozenTrajOptimizer on cloud 10 ({len(cloud10)} points) and path 10 "
+              f"({entry['waypoints']} waypoints at stride {stride}, cap {prob.hpr_cap}, lr "
+              f"0.1/0.02, FrozenPlanConfig() (async refresh every 8 steps)), route {route}: "
+              f"first step {first[0][0]:.3f} ms ({first[0][1]:.3f} of it the blocked build), "
+              f"second {first[1][0]:.3f} ms"
+              + (f" (capture {capture_s:.3f} s)" if capture_s is not None else "")
+              + f"; {warm} more warm-up steps, then {n_win} windows of {per} steps "
+              + ", ".join(f"{t:.3f}" for t in times) + f" ms/step (median "
+              f"{entry['ms_per_step']:.3f})"
+              + (f", the graph's replays alone {replay:.3f} ms" if replay is not None else "")
+              + f"; {n_trace} traced steps between refreshes: host launch calls "
+              f"{tr['kernels']:.2f} kernels + {tr['graphs']:.2f} graphs + {tr['copies']:.2f} "
+              f"copies per step, "
+              + ("device time not measured" if busy is None else
+                 f"device busy {busy:.3f} ms/step, {ops:.1f} device operations/step")
+              + f"; peak {peak[0]:.1f} MiB allocated, {peak[1]:.1f} reserved"
+              + (f"; the captured bucket holds {entry['bucket_mib'][0]:.1f} MiB allocated, "
+                 f"{entry['bucket_mib'][1]:.1f} reserved" if entry["bucket_mib"] else "")
+              + f"; plan {entry['meta']}, live tiles (holding a query, staged) per refresh "
+              f"{entry['stats']['live_tiles']}; {opt.stats['refreshes']} refreshes, "
+              f"{opt.stats['captures']} shapes taken, blocked build "
+              f"{opt.stats['build_s']:.3f} s; a step between refreshes under "
+              f"set_sync_debug_mode('error'): no host sync", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    mark("stall")
+    # the stall a new plan shape causes: a sync run takes two refreshes on
+    # one shape, then the tile floor is raised a rung, so that the next
+    # refresh builds a larger shape: its step (the build excluded: a new
+    # bucket and the shape's first step, eagerly) and the step after it (the
+    # capture and a replay), each against the median of the steady steps
+    res["stall"] = {}
+    for route in (GRAPH,):
+        sopt = tf.FrozenTrajOptimizer(cloud10, K_np, path10, q10, prob, cfg,
+                                      tf.FrozenPlanConfig(async_refresh=False), device=dev)
+        sopt._route = route
+        every = sopt.plan_cfg.refresh_every
+        params = init_traj_params(path10, q10, dev)
+        st = sopt.init(params)
+        for _ in range(2 * every):
+            params, st, _, _ = sopt.step(params, st)
+        sopt._t_floor = sopt._meta.tiles + sopt.plan_cfg.tile_round
+        ms = []
+        for _ in range(every):
+            b0 = sopt.stats["build_s"]
+            sync()
+            t0 = time.perf_counter()
+            params, st, _, _ = sopt.step(params, st)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3 - (sopt.stats["build_s"] - b0) * 1e3)
+        steady = statistics.median(ms[2:])
+        cap = sopt._bucket.graph.capture_s if route == GRAPH else None
+        res["stall"][route] = {
+            "first_ms": ms[0], "second_ms": ms[1], "steady_ms": steady, "capture_s": cap,
+            "stall_ms": ms[0] + ms[1] - 2 * steady, "refresh_interval_ms": every * steady,
+            "captures": sopt.stats["captures"], "tiles": sopt._meta.tiles}
+        sopt.close()
+        gc.collect()
+    sg = res["stall"][GRAPH]
+    print(f"[frozen] a new plan shape (the tile floor raised a rung at a sync refresh, T "
+          f"{sg['tiles']}): its step {sg['first_ms']:.3f} ms (the blocked build excluded: a new "
+          f"bucket and its first step, eagerly), the next {sg['second_ms']:.3f} ms (capture "
+          f"{num(sg['capture_s'], ' s')} and a replay), steady {sg['steady_ms']:.3f} ms/step: "
+          f"a stall of {sg['stall_ms']:.3f} ms against one refresh interval of {every} steps, "
+          f"{sg['refresh_interval_ms']:.3f} ms; prewarm captures nothing ahead "
+          f"(stats['prewarms'] {res['traj'][GRAPH]['stats']['prewarms']})", flush=True)
+
+    mark("held")
+    # held: 24 steps, 3 refreshes, captured == eager, sync and async
+    res["traj_held"] = {}
+    for mode in (False, True):
+        res["traj_held"][mode] = held(
+            lambda: tf.FrozenTrajOptimizer(cloud10, K_np, path10, q10, prob, cfg,
+                                           tf.FrozenPlanConfig(async_refresh=mode), device=dev),
+            init_traj_params(path10, q10, dev), FROZEN_HELD, f"trajectory (async {mode})")
+    print(f"[frozen] FrozenTrajOptimizer on cloud 10, {FROZEN_HELD} steps, captured against "
+          "eager: every step's loss, parameters and aux torch.equal, sync refresh ("
+          f"{res['traj_held'][False]['refreshes']} refreshes, {res['traj_held'][False]['captures']}"
+          f" shapes captured) and async ({res['traj_held'][True]['refreshes']} refreshes, "
+          f"{res['traj_held'][True]['captures']} shapes)", flush=True)
+
+    mark("forced")
+    # a first capture while the worker thread builds a plan: the worker's
+    # builder is held in a loop of real builds until the capture is over
     opt = tf.FrozenTrajOptimizer(cloud10, K_np, path10, q10, prob, cfg, tf.FrozenPlanConfig(),
                                  device=dev)
+    opt._route = GRAPH
+    builds, done, real = [], threading.Event(), opt._build_staged
+
+    def building(host):
+        if threading.current_thread() is threading.main_thread():
+            return real(host)  # the first plan, built in step()
+        while True:
+            t0 = time.perf_counter()
+            out = real(host)
+            builds.append((t0, time.perf_counter()))
+            if done.is_set():
+                return out
+
+    opt._build_staged = building
     params = init_traj_params(path10, q10, dev)
     st = opt.init(params)
-    for _ in range(warm):
-        params, st, loss0, _ = opt.step(params, st)
-    sync()
-    torch.cuda.reset_peak_memory_stats()
-    params, st, times = timed_windows(opt, params, st, n_win, per)
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    # a step between refreshes reads nothing back: run one under the sync
-    # debug mode, after the pending plan build has finished
-    while opt._steps_since_refresh != 1:
-        params, st, _, _ = opt.step(params, st)
-    if opt._pending is not None:
-        opt._pending.result()
-    sync()
-    if dev.type == "cuda":
-        torch.cuda.set_sync_debug_mode("error")
+    params, st, _, _ = opt.step(params, st)  # builds, steps eagerly, starts the worker
+    deadline = time.perf_counter() + 120.0
+    while not builds:
+        if time.perf_counter() > deadline:
+            fail("[frozen] the worker thread built no plan in 120 s")
+        time.sleep(0.005)
+    t0 = time.perf_counter()
     try:
-        params, st, _, _ = opt.step(params, st)
-    except RuntimeError as e:
-        fail(f"FrozenTrajOptimizer: a step between refreshes synchronised with the host: {e}")
-    finally:
-        if dev.type == "cuda":
-            torch.cuda.set_sync_debug_mode("default")
-    # the other steps up to the next refresh, traced
-    n_trace = opt.plan_cfg.refresh_every - opt._steps_since_refresh
-    box = [params, st]
-
-    def window():
-        for _ in range(n_trace):
-            box[0], box[1], _, _ = opt.step(box[0], box[1])
-
-    trace = traced_share(window, sync, tf.FROZEN_TILES_RANGE)
-    pairs = frozen_tile_pairs(opt._plan, opt._meta)
-    res["traj"] = {"waypoints": opt._meta.n_sel, "meta": dataclasses.asdict(opt._meta),
-                   "ms_per_step": statistics.median(times), "windows_ms": times,
-                   "peak_mib": peak, "pairs": pairs, "traced_steps": n_trace, "trace": trace,
-                   "stats": dict(opt.stats)}
+        params, st, _, _ = opt.step(params, st)  # captures
+        sync()
+    except graphs.CaptureError as e:
+        fail(f"[frozen] a capture with a plan build in flight failed: {e}")
+    t1 = time.perf_counter()
+    done.set()
+    opt._pending.result()  # the build in flight ends its loop and is recorded
+    over = sum(a < t1 and b > t0 for a, b in builds)
+    if not over or opt._bucket.graph.graph is None and GRAPH == "graph":
+        fail(f"[frozen] no plan build overlapped the first capture ({builds}, {t0}-{t1})")
+    for _ in range(2 * opt.plan_cfg.refresh_every):
+        params, st, loss, _ = opt.step(params, st)
+    if not finite(loss, *params.values()):
+        fail("[frozen] the run with a build in flight at its capture went non-finite")
     opt.close()
-    print(f"[frozen] FrozenTrajOptimizer on cloud 10 ({len(cloud10)} points) and path 10 "
-          f"({res['traj']['waypoints']} waypoints at stride {stride}, cap {prob.hpr_cap}, "
-          f"lr 0.1/0.02, FrozenPlanConfig() (async refresh every 8 steps)): {warm} warm-up "
-          f"steps, then {n_win} windows of {per} steps "
-          + ", ".join(f"{t:.3f}" for t in times) + f" ms/step (median "
-          f"{res['traj']['ms_per_step']:.3f}; the routed step 692-1,090), peak {peak:.1f} MiB; "
-          f"plan {res['traj']['meta']}, {pairs[0]:.4e} pairs per forward ({pairs[1]:.4e} in "
-          f"tiles holding a query, the tiles computed); {opt.stats['refreshes']} refreshes, blocked build "
-          f"{opt.stats['build_s']:.3f} s, swaps {opt.stats['swap_s']:.3f} s; a step between "
-          f"refreshes under set_sync_debug_mode('error'): no host sync", flush=True)
+    del opt._build_staged
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith(("frozenplan", "frozenwarm"))]
+    if alive:
+        fail(f"[frozen] threads of the engine alive after close(): {alive}")
+    res["forced"] = {"capture_s": opt.stats["capture_s"], "builds_overlapping": over,
+                     "builds": len(builds)}
+    print(f"[frozen] a first capture ({1e3 * (t1 - t0):.3f} ms, capture "
+          f"{opt.stats['capture_s']:.3f} s) while the worker thread ran {over} plan builds "
+          f"(real builds, held in a loop until it ended): captured, then "
+          f"{2 * opt.plan_cfg.refresh_every} more steps finite; after close() no thread of "
+          "the engine alive", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("refresh")
     # ---- (b) at a refresh, on the card -------------------------------------
     P = torch.as_tensor(cloud10, device=dev)
     p0, qq0 = torch.as_tensor(path10, device=dev), torch.as_tensor(q10, device=dev)
@@ -1919,22 +2183,34 @@ def frozen_checks(dev, intr, cloud10, path10, sync):
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("pose")
     # ---- (c) bench_frozen_pose_long_range ----------------------------------
     n, steps = FROZEN_POSE
+    h_steps, h_every = FROZEN_HELD_VARIANT
     pts = np.random.default_rng(0).uniform(-40, 40, size=(n, 3)).astype(np.float32)
     pprob = PoseProblem(intr.width, intr.height, min_dist=1.0, max_dist=12.0, soft_hpr=True)
     pcfg = OptimizerConfig(lr_pose=0.02, lr_quat=0.02)
-    popt = tf.FrozenPoseOptimizer(
-        pts, K_np, pprob, pcfg,
-        tf.FrozenPlanConfig(refresh_every=10_000, async_refresh=False, prewarm=False), device=dev)
-    pp = init_pose_params(np.zeros(3), np.asarray([1.0, 0, 0, 0]), dev)
-    pst = popt.init(pp)
-    pp, pst, pl0, _ = popt.step(pp, pst)
-    pp, pst, _, _ = popt.step(pp, pst)  # warm-up
-    pp, pst, ptimes = timed_windows(popt, pp, pst, 1, steps)
-    pl1 = float(popt.step(pp, pst)[2])
-    pmeta, ppairs = popt._meta, frozen_tile_pairs(popt._plan, popt._meta)
-    popt.close()
+    res["pose"] = {"n": n, "steps": steps, "ms_per_step": {}}
+    for route in ROUTES:
+        popt = tf.FrozenPoseOptimizer(
+            pts, K_np, pprob, pcfg,
+            tf.FrozenPlanConfig(refresh_every=10_000, async_refresh=False, prewarm=False),
+            device=dev)
+        popt._route = route
+        pp = init_pose_params(np.zeros(3), np.asarray([1.0, 0, 0, 0]), dev)
+        pst = popt.init(pp)
+        pp, pst, pl0, _ = popt.step(pp, pst)
+        pp, pst, _, _ = popt.step(pp, pst)  # warm-up (the capture, on the graph route)
+        pp, pst, ptimes = timed_windows(popt, pp, pst, 1, steps)
+        pl1 = float(popt.step(pp, pst)[2])
+        res["pose"]["ms_per_step"][route] = ptimes[0]
+        if route == GRAPH:
+            res["pose"]["capture_s"] = popt._bucket.graph.capture_s
+            res["pose"]["replay_ms"] = replays_ms(popt, FROZEN_REPLAYS)
+            pmeta, ppairs = popt._meta, frozen_tile_pairs(popt)
+            res["pose"]["bucket_mib"] = bucket_memory(popt)
+            first_loss = (float(pl0), pl1)
+        popt.close()
     ref = PoseOptimizer(device=dev, soft_hpr=True, min_dist=1.0, max_dist=12.0, lr_pose=0.02,
                         lr_quat=0.02)
     r0 = ref.optimize(pts, [0.0, 0.0, 0.0], n_steps=0)
@@ -1944,78 +2220,122 @@ def frozen_checks(dev, intr, cloud10, path10, sync):
     ref.optimize(pts, [0.0, 0.0, 0.0], n_steps=steps)
     sync()
     routed_ms = (time.perf_counter() - t0) * 1e3 / steps
-    pose_gap = abs(float(pl0) - r0.loss) / abs(r0.loss)
-    if not (pose_gap < FROZEN_PINS["variant"] and pl1 < float(pl0)):
-        fail(f"FrozenPoseOptimizer at {n} points: first loss {float(pl0)} against the per-step "
-             f"{r0.loss} (rel {pose_gap:.2e}, pin {FROZEN_PINS['variant']}); after {steps + 2} "
-             f"steps {pl1}")
-    res["pose"] = {"n": n, "steps": steps, "ms_per_step": ptimes[0], "routed_ms": routed_ms,
-                   "first_loss_gap": pose_gap, "loss": (float(pl0), pl1),
-                   "meta": dataclasses.asdict(pmeta), "pairs": ppairs}
+    pose_gap = abs(first_loss[0] - r0.loss) / abs(r0.loss)
+    if not (pose_gap < FROZEN_PINS["variant"] and first_loss[1] < first_loss[0]):
+        fail(f"FrozenPoseOptimizer at {n} points: first loss {first_loss[0]} against the "
+             f"per-step {r0.loss} (rel {pose_gap:.2e}, pin {FROZEN_PINS['variant']}); after "
+             f"{steps + 2} steps {first_loss[1]}")
+    pp0 = init_pose_params(np.zeros(3), np.asarray([1.0, 0, 0, 0]), dev)
+    res["pose"]["held"] = held(
+        lambda: tf.FrozenPoseOptimizer(pts, K_np, pprob, pcfg, tf.FrozenPlanConfig(
+            refresh_every=h_every, prewarm=False), device=dev),
+        pp0, h_steps, f"pose at {n} points")
+    res["pose"].update(routed_ms=routed_ms, first_loss_gap=pose_gap, loss=first_loss,
+                       meta=dataclasses.asdict(pmeta), pairs=ppairs)
+    pm = res["pose"]
     print(f"[frozen] FrozenPoseOptimizer on bench_frozen_pose_long_range's cloud ({n} uniform "
           f"+-40 m points, min_dist 1, max_dist 12, refresh_every 10,000): {steps} steps "
-          f"{ptimes[0]:.3f} ms/step, the per-step soft pose step (PoseOptimizer(soft_hpr=True)) "
+          + ", ".join(f"{r} {v:.3f}" for r, v in pm["ms_per_step"].items())
+          + f" ms/step (replays alone {num(pm['replay_ms'])}, capture {num(pm['capture_s'], ' s')}"
+          + (f", the bucket holds {pm['bucket_mib'][0]:.1f} MiB allocated, "
+             f"{pm['bucket_mib'][1]:.1f} reserved" if pm["bucket_mib"] else "")
+          + f"), the per-step soft pose step (PoseOptimizer(soft_hpr=True)) "
           f"{routed_ms:.3f} ms/step; first loss against the per-step loss rel {pose_gap:.2e} "
-          f"(pin {FROZEN_PINS['variant']}), loss {float(pl0):.6f} -> {pl1:.6f}; plan "
-          f"{res['pose']['meta']}", flush=True)
+          f"(pin {FROZEN_PINS['variant']}), loss {first_loss[0]:.6f} -> {first_loss[1]:.6f}; "
+          f"plan {pm['meta']}; {h_steps} steps at refresh_every {h_every} (async), captured "
+          f"against eager: every step torch.equal ({pm['held']['refreshes']} refreshes, "
+          f"{pm['held']['captures']} shapes)", flush=True)
     del pts, ref
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("wps")
     # ---- (d) the waypoints demo's shape ------------------------------------
     wprob = WpsOptProblem(intr.width, intr.height, soft_hpr=True)
     wparams, wfrozen = init_wps_params(path10, q10, dev)
-    wopt = tf.FrozenWpsOptimizer(cloud10, K_np, wfrozen, wprob,
-                                 OptimizerConfig(lr_pose=0.02, lr_quat=0.02),
-                                 tf.FrozenPlanConfig(), device=dev)
-    wst = wopt.init(wparams)
-    wp1, wst, wl0, _ = wopt.step(wparams, wst)
-    wp1, wst, wtimes = timed_windows(wopt, wp1, wst, 1, FROZEN_WPS_STEPS)
-    wl1 = float(wopt.step(wp1, wst)[2])
-    wmeta, wpairs = wopt._meta, frozen_tile_pairs(wopt._plan, wopt._meta)
-    wopt.close()
+    wcfg = OptimizerConfig(lr_pose=0.02, lr_quat=0.02)
+    res["wps"] = {"waypoints": len(path10), "steps": FROZEN_WPS_STEPS, "ms_per_step": {}}
+    for route in ROUTES:
+        wopt = tf.FrozenWpsOptimizer(cloud10, K_np, wfrozen, wprob, wcfg, tf.FrozenPlanConfig(),
+                                     device=dev)
+        wopt._route = route
+        wst = wopt.init(wparams)
+        wp1, wst, wl0, _ = wopt.step(wparams, wst)
+        wp1, wst, _, _ = wopt.step(wp1, wst)  # the capture, on the graph route
+        wp1, wst, wtimes = timed_windows(wopt, wp1, wst, 1, FROZEN_WPS_STEPS)
+        wl1 = float(wopt.step(wp1, wst)[2])
+        res["wps"]["ms_per_step"][route] = wtimes[0]
+        if route == GRAPH:
+            res["wps"]["capture_s"] = wopt._bucket.graph.capture_s
+            res["wps"]["replay_ms"] = replays_ms(wopt, FROZEN_REPLAYS)
+            wmeta, wpairs = wopt._meta, frozen_tile_pairs(wopt)
+            res["wps"]["bucket_mib"] = bucket_memory(wopt)
+            wloss = (float(wl0), wl1)
+        wopt.close()
     with torch.no_grad():
         wl_ref, _ = wps_forward(wparams, wfrozen, torch.as_tensor(cloud10, device=dev), K, wprob)
-    wps_gap = abs(float(wl0) - float(wl_ref)) / abs(float(wl_ref))
-    if not (wps_gap < FROZEN_PINS["variant"] and wl1 < float(wl0)):
-        fail(f"FrozenWpsOptimizer on cloud 10: first loss {float(wl0)} against the per-step "
+    wps_gap = abs(wloss[0] - float(wl_ref)) / abs(float(wl_ref))
+    if not (wps_gap < FROZEN_PINS["variant"] and wloss[1] < wloss[0]):
+        fail(f"FrozenWpsOptimizer on cloud 10: first loss {wloss[0]} against the per-step "
              f"{float(wl_ref)} (rel {wps_gap:.2e}, pin {FROZEN_PINS['variant']}); after "
-             f"{FROZEN_WPS_STEPS + 1} steps {wl1}")
-    res["wps"] = {"waypoints": len(path10), "steps": FROZEN_WPS_STEPS, "ms_per_step": wtimes[0],
-                  "first_loss_gap": wps_gap, "loss": (float(wl0), wl1),
-                  "meta": dataclasses.asdict(wmeta), "pairs": wpairs}
+             f"{FROZEN_WPS_STEPS + 2} steps {wloss[1]}")
+    res["wps"]["held"] = held(
+        lambda: tf.FrozenWpsOptimizer(cloud10, K_np, wfrozen, wprob, wcfg,
+                                      tf.FrozenPlanConfig(refresh_every=h_every), device=dev),
+        wparams, h_steps, "waypoints")
+    res["wps"].update(first_loss_gap=wps_gap, loss=wloss, meta=dataclasses.asdict(wmeta),
+                      pairs=wpairs)
+    wm = res["wps"]
     print(f"[frozen] FrozenWpsOptimizer on cloud 10 and path 10 ({len(path10)} waypoints, cap "
-          f"{wprob.hpr_cap}, lr 0.02/0.02): {FROZEN_WPS_STEPS} steps {wtimes[0]:.3f} ms/step "
-          f"(the per-step soft waypoints 2,530-3,028); first loss against the per-step "
+          f"{wprob.hpr_cap}, lr 0.02/0.02): {FROZEN_WPS_STEPS} steps "
+          + ", ".join(f"{r} {v:.3f}" for r, v in wm["ms_per_step"].items())
+          + f" ms/step (replays alone {num(wm['replay_ms'])}, capture {num(wm['capture_s'], ' s')}"
+          + (f", the bucket holds {wm['bucket_mib'][0]:.1f} MiB allocated, "
+             f"{wm['bucket_mib'][1]:.1f} reserved" if wm["bucket_mib"] else "")
+          + f"; the per-step soft waypoints 2,530-3,028); first loss against the per-step "
           f"wps_forward rel {wps_gap:.2e} (pin {FROZEN_PINS['variant']}), loss "
-          f"{float(wl0):.6f} -> {wl1:.6f}; plan {res['wps']['meta']}", flush=True)
+          f"{wloss[0]:.6f} -> {wloss[1]:.6f}; plan {wm['meta']}; {h_steps} steps at "
+          f"refresh_every {h_every} (async), captured against eager: every step torch.equal "
+          f"({wm['held']['refreshes']} refreshes, {wm['held']['captures']} shapes)", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("worst")
     # ---- (e) bench_occl_traj_worst_window ----------------------------------
     n_steps, win = WORST
     path_d = (path10 + np.array([0.0, 0.0, 12.0], np.float32)).astype(np.float32)
     dprob = TrajProblem(intr.width, intr.height, wps_step=waypoint_stride(path_d, 0.5),
                         soft_hpr=True, soft_hpr_dense_max=0)
-    opt = tf.FrozenTrajOptimizer(cloud10, K_np, path_d, q10, dprob, cfg, tf.FrozenPlanConfig(),
-                                 device=dev)
-    params = init_traj_params(path_d, q10, dev)
-    st = opt.init(params)
-    for _ in range(2):
-        params, st, _, _ = opt.step(params, st)
-    params, st, wins = timed_windows(opt, params, st, n_steps // win, win)
-    res["worst"] = {"steps": n_steps // win * win, "window": win,
-                    "median_ms": statistics.median(wins), "worst_ms": max(wins),
-                    "windows_ms": wins, "stats": dict(opt.stats),
-                    "last_meta": dataclasses.asdict(opt._meta)}
-    opt.close()
-    print(f"[frozen] bench_occl_traj_worst_window: path 10 displaced +12 m in z, "
-          f"FrozenPlanConfig() (async refresh every 8), {res['worst']['steps']} steps in windows "
-          f"of {win}: median {res['worst']['median_ms']:.3f}, worst {max(wins):.3f} ms/step; "
-          f"{opt.stats['refreshes']} refreshes, blocked build {opt.stats['build_s']:.3f} s; "
-          f"last plan {res['worst']['last_meta']}", flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
+    res["worst"] = {}
+    for route in ROUTES:
+        opt = tf.FrozenTrajOptimizer(cloud10, K_np, path_d, q10, dprob, cfg,
+                                     tf.FrozenPlanConfig(), device=dev)
+        opt._route = route
+        params = init_traj_params(path_d, q10, dev)
+        st = opt.init(params)
+        for _ in range(2):
+            params, st, _, _ = opt.step(params, st)
+        params, st, wins = timed_windows(opt, params, st, n_steps // win, win)
+        res["worst"][route] = {"steps": n_steps // win * win, "window": win,
+                               "median_ms": statistics.median(wins), "worst_ms": max(wins),
+                               "windows_ms": wins, "stats": stats_of(opt),
+                               "last_meta": dataclasses.asdict(opt._meta)}
+        opt.close()
+        w = res["worst"][route]
+        print(f"[frozen] bench_occl_traj_worst_window, route {route}: path 10 displaced +12 m "
+              f"in z, FrozenPlanConfig() (async refresh every 8), {w['steps']} steps in windows "
+              f"of {win}: median {w['median_ms']:.3f}, worst {w['worst_ms']:.3f} ms/step; "
+              f"{opt.stats['refreshes']} refreshes, {opt.stats['captures']} shapes taken"
+              + (f" (capture {opt.stats['capture_s']:.3f} s in all)" if route == GRAPH else "")
+              + f", blocked build {opt.stats['build_s']:.3f} s; live tiles per refresh from "
+              f"{opt.stats['live_tiles'][0]} to {opt.stats['live_tiles'][-1]}; last plan "
+              f"{w['last_meta']}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    mark(None)
+    res["part_s"] = part_s
+    print("[frozen] seconds per part: " + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items()),
+          flush=True)
     return res
 
 
@@ -2023,33 +2343,52 @@ def print_frozen_times(card: str, fr) -> None:
     """[frozen]'s lines under [times], and its bounds into ``fr["bounds"]``:
     a frozen step runs its tiles once forward and once backward."""
     ops = BINNED_OPS["forward"] + BINNED_OPS["backward"]
-    fr["bounds"] = {k: bound(0, fr[k]["pairs"][1] * ops) for k in ("traj", "pose", "wps")}
-    t = fr["traj"]
-    wall, busy, tiles, n_ops = t["trace"]
-    n = t["traced_steps"]
+    graph, eager = (r for r in fr["traj"])
+    fr["bounds"] = {"traj": bound(0, fr["traj"][eager]["pairs"][1] * ops),
+                    "pose": bound(0, fr["pose"]["pairs"][1] * ops),
+                    "wps": bound(0, fr["wps"]["pairs"][1] * ops)}
     b = fr["bounds"]
-    print(f"[times] {card} | frozen traj step (cloud 10, {t['waypoints']} waypoints): "
-          f"{t['ms_per_step']:.3f} ms/step (median of {len(t['windows_ms'])} windows, refreshes "
-          f"included), peak {t['peak_mib']:.1f} MiB; {n} steps between refreshes traced: "
-          + (f"{wall / n:.3f} ms/step, device time not measured (no device activity)"
-             if busy is None else
-             f"{wall / n:.3f} ms/step, {n_ops / n:.1f} device operations/step, device busy "
-             f"{busy / n:.3f} ms/step ({100 * busy / wall:.1f}% of the traced time), the tiles "
-             f"{tiles / n:.3f} ms/step ({100 * tiles / busy:.1f}% of the busy time)")
-          + f"; {t['pairs'][1]:.4e} pairs in tiles holding a query ({t['pairs'][0]:.4e} in all), "
+    t = fr["traj"][eager]
+    tr = t["trace"]
+    tile_text = ("the tiles not measured" if tr["busy_ms"] is None or tr["tiles_ms"] is None
+                 else f"the tiles {tr['tiles_ms']:.3f} ms/step "
+                 f"({100 * tr['tiles_ms'] / tr['busy_ms']:.1f}% of the busy time)")
+
+    def launch_text(r):
+        x = fr["traj"][r]["trace"]
+        return (f"{x['kernels']:.2f} kernels + {x['graphs']:.2f} graphs + {x['copies']:.2f} "
+                "copies per step, " + ("device busy not measured" if x["busy_ms"] is None else
+                   f"busy {x['busy_ms']:.3f} ms/step ({100 * x['busy_ms'] / x['wall_ms']:.1f}% "
+                   f"of the traced time), {x['ops']:.1f} device operations/step"))
+
+    g = fr["traj"][graph]
+    print(f"[times] {card} | frozen traj step (cloud 10, {g['waypoints']} waypoints): captured "
+          f"{g['ms_per_step']:.3f} ms/step (replays alone "
+          + ("not measured" if g["replay_ms"] is None else f"{g['replay_ms']:.3f}")
+          + f"), eager {t['ms_per_step']:.3f} (median of {len(t['windows_ms'])} windows, "
+          f"refreshes included); between refreshes, captured {launch_text(graph)}; eager "
+          f"{launch_text(eager)}, {tile_text}; peak MiB captured {g['peak_mib'][0]:.1f} "
+          f"allocated / {g['peak_mib'][1]:.1f} reserved, eager {t['peak_mib'][0]:.1f} / "
+          f"{t['peak_mib'][1]:.1f}; stall of a new shape {fr['stall'][graph]['stall_ms']:.3f} "
+          f"ms (refresh interval {fr['stall'][graph]['refresh_interval_ms']:.3f}); "
+          f"{t['pairs'][1]:.4e} pairs in the tiles holding a query (captured, padded: "
+          f"{g['pairs'][2]:.4e}; {t['pairs'][0]:.4e} in all), "
           f"bound {b['traj'][0]:.4f} ms by {b['traj'][1]}; pose at {fr['pose']['n']} points "
-          f"{fr['pose']['ms_per_step']:.3f} ms/step (per-step {fr['pose']['routed_ms']:.3f}), "
-          f"bound {b['pose'][0]:.4f} ms by {b['pose'][1]}; waypoints (27) "
-          f"{fr['wps']['ms_per_step']:.3f} ms/step, bound {b['wps'][0]:.4f} ms by {b['wps'][1]}; "
-          f"worst window: median {fr['worst']['median_ms']:.3f}, worst "
-          f"{fr['worst']['worst_ms']:.3f} ms/step", flush=True)
+          + ", ".join(f"{r} {v:.3f}" for r, v in fr["pose"]["ms_per_step"].items())
+          + f" ms/step (per-step {fr['pose']['routed_ms']:.3f}), bound {b['pose'][0]:.4f} ms by "
+          f"{b['pose'][1]}; waypoints (27) "
+          + ", ".join(f"{r} {v:.3f}" for r, v in fr["wps"]["ms_per_step"].items())
+          + f" ms/step, bound {b['wps'][0]:.4f} ms by {b['wps'][1]}; worst window "
+          + "; ".join(f"{r}: median {w['median_ms']:.3f}, worst {w['worst_ms']:.3f} ms/step, "
+                      f"{w['stats']['captures']} shapes"
+                      for r, w in fr["worst"].items()), flush=True)
 
 
 CLI_PAIRS = 3  # cloud-10/path-10 pairs in the trajectory preset's bag
 # [cli] (d): each preset's msgs/s (clouds/s for the processor) in CLI_WINDOWS
 # windows after one warm-up message, each window at least CLI_WINDOW messages
 # and seconds; the recorder's MB/s over CLI_RECORD_PASSES passes
-CLI_WINDOWS = 3
+CLI_WINDOWS = 2
 CLI_WINDOW = (8, 1.0)
 CLI_RECORD_PASSES = 5
 
@@ -2966,6 +3305,27 @@ def trace_steps(fn, n, sync):
     return busy_us / 1e3 / n, kernel, graph, n_spans / n
 
 
+def trace_window(fn, n, sync, range_name=None):
+    """One traced call of ``fn`` that takes ``n`` steps, per step: wall ms,
+    device-busy ms, device operations, host kernel launches, graph launches
+    and copy calls (cudaMemcpy*), and the device ms of the kernels inside the profiler ranges
+    named ``range_name`` (counted on their host side); the device numbers
+    None without device activity in the trace."""
+    import torch
+
+    prof, wall_ms, n_spans, busy_us = traced(fn, sync)
+    host = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    out = {"wall_ms": wall_ms / n, "kernels": sum("LaunchKernel" in e.name for e in host) / n,
+           "graphs": sum("GraphLaunch" in e.name for e in host) / n,
+           "copies": sum("Memcpy" in e.name for e in host) / n,
+           "busy_ms": None, "ops": None, "tiles_ms": None}
+    if n_spans:
+        out.update(busy_ms=busy_us / 1e3 / n, ops=n_spans / n,
+                   tiles_ms=sum(e.device_time_total for e in host if e.name == range_name)
+                   / 1e3 / n)
+    return out
+
+
 GRAPH_STEPS = {"ref": 400, "1m50": 20, "8m50": 20}  # the held runs: captured == eager
 GRAPH_WINDOW = {"ref": 100, "1m50": 20, "8m50": 10}  # steps per timed window
 GRAPH_POSE = (("cloud10", 100), ("1m", 100))  # PoseOptimizer runs held and timed
@@ -3242,8 +3602,18 @@ def graph_checks(dev, intr, clouds, paths, sync):
 
 
 GRAPH_SOFT = {"traj": 3, "wps": 2}  # steps per held call
-GRAPH_SOFT_POSE = ((262_144, 5), (1_048_576, 2))  # (points, steps per held call)
+GRAPH_SOFT_POSE = ((262_144, 3), (1_048_576, 2))  # (points, steps per held call)
 GRAPH_SOFT_REPLAYS = 2  # timed replays of each soft configuration's graph
+# The soft step with the binned backward's rows added in a fixed order
+# (ops.hpr.add_rows) against the same step with index_add_'s atomics: loss
+# and gradient within 1e-4 of the largest entry. Each row takes the same
+# terms in another order, and the atomics' order changes from call to call:
+# at 1,048,576 points the two came 3.4e-7 (translation) and 2.4e-6
+# (quaternion, whose terms cancel) apart, 1.1e-9 in absolute terms (NVIDIA
+# H100 80GB HBM3, 700 W); 20x under HPR_TOL. A row that keeps one term
+# instead of their sum, or a chunk added twice, moves it by far more.
+ORDER_TOL = 1e-4
+ORDER_REPS = 2  # timed turns (fixed, atomic, atomic, fixed) of one step's accumulation
 
 
 def soft_graph_checks(dev, intr, cloud10, path10, sync):
@@ -3254,13 +3624,17 @@ def soft_graph_checks(dev, intr, cloud10, path10, sync):
     ``optimize_waypoints(soft_hpr=True)`` on cloud 10 (27 waypoints, cap
     1024), each called captured and eager in turns (captured, eager, eager,
     captured; the waypoints once captured, since each of its calls captures
-    anew). Where the two eager calls agree bit for bit, the captured calls
-    are held ``torch.equal`` to them. Where they do not (the
-    backward's ``index_add_`` adds with atomics on the card, and a coverer
-    row that takes three or more terms can take them in another order), the
-    captured and the eager step, loss and gradient at the initial
-    parameters, are each held within ``BINNED_STEP_TOL`` of the largest
-    entry of the card's float64 step. Then, per configuration: ms/step of
+    anew). The two eager calls must agree bit for bit (the binned backward
+    adds its rows in a fixed order, ``ops.hpr.add_rows``), and the captured
+    calls are held ``torch.equal`` to them. One step (loss and gradient at
+    the initial parameters) with the fixed order against the same step with
+    the rows added by ``index_add_`` (atomics on the card: the order
+    before): where the fixed order moved a bit, within ``ORDER_TOL`` of the
+    largest entry; both steps timed, and the step's row accumulation alone,
+    on its own rows and terms, in both orders (device ms). At 1,048,576
+    points the f32 step, eager and captured, bit-equal to each other and
+    within ``HPR_TOL`` of the largest entry of the card's float64 step (as
+    ``[hpr]`` holds a pose step). Then, per configuration: ms/step of
     the whole calls and of the graph's replays alone, device-busy ms, device
     operations and host launch calls of one traced step by each route
     (a replay; an eager step), capture seconds, the memory the cached graph
@@ -3278,6 +3652,7 @@ def soft_graph_checks(dev, intr, cloud10, path10, sync):
         PoseProblem, init_pose_params, pose_forward,
     )
     from trajectory_optimization_tpu_torch.models.traj import init_traj_params, traj_forward
+    from trajectory_optimization_tpu_torch.ops import hpr as hpr_ops
     from trajectory_optimization_tpu_torch.opt import engine as te
     from trajectory_optimization_tpu_torch.opt import graphs, runners
     from trajectory_optimization_tpu_torch.utils.data import identity_quaternions, pad_points
@@ -3320,8 +3695,56 @@ def soft_graph_checks(dev, intr, cloud10, path10, sync):
         sync()
         return box
 
+    fixed_rows = hpr_ops.add_rows
+
+    def atomic_rows(dst, rows, src):
+        # the order before: index_add_, atomic adds on the card
+        return dst.index_add_(0, rows, src)
+
+    def timed_step(loss_fn, params, rows_fn, calls=None):
+        """(one eager step's loss and gradient, its wall ms) with the
+        backward's rows added by ``rows_fn``; ``calls`` collects the
+        arguments of every accumulation of the step."""
+        def recording(dst, rows, src):
+            calls.append((dst, rows, src))
+            return rows_fn(dst, rows, src)
+
+        hpr_ops.add_rows = rows_fn if calls is None else recording
+        try:
+            sync()
+            t0 = time.perf_counter()
+            out = step(loss_fn, params)
+            sync()
+            return out, (time.perf_counter() - t0) * 1e3
+        finally:
+            hpr_ops.add_rows = fixed_rows
+
+    def accumulation_ms(calls):
+        """Device ms (CUDA events) of one step's row accumulations, the same
+        rows and terms, in the fixed order and by atomics, in turns (fixed,
+        atomic, atomic, fixed, after one warm-up of each): the best of each."""
+        dsts = {}
+        for dst, _, _ in calls:
+            dsts.setdefault(dst.data_ptr(), torch.zeros_like(dst))
+        work = [(dsts[dst.data_ptr()], rows, src) for dst, rows, src in calls]
+
+        def run(fn):
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            for dst, rows, src in work:
+                fn(dst, rows, src)
+            t1.record()
+            t1.synchronize()
+            return t0.elapsed_time(t1)
+
+        fns = {"fixed": fixed_rows, "atomic": atomic_rows}
+        times = {k: [] for k in fns}
+        for k in ("fixed", "atomic") + ("fixed", "atomic", "atomic", "fixed") * ORDER_REPS:
+            times[k].append(run(fns[k]))
+        return {k: min(v[1:]) for k, v in times.items()}
+
     def held(name, cfg_steps, call, graph_of, loss_of, params_of, keys, cams, cap, drop,
-             tol=BINNED_STEP_TOL, trace_eager=True, order=("graph", "eager", "eager", "graph")):
+             f64_tol=None, trace_eager=True, order=("graph", "eager", "eager", "graph")):
         """Run the configuration's checks and measurements (docstring)."""
         t_config = time.perf_counter()
         outs, ms, peak = {"graph": [], "eager": []}, {"graph": [], "eager": []}, {}
@@ -3342,24 +3765,50 @@ def soft_graph_checks(dev, intr, cloud10, path10, sync):
         n_graph = len(outs["graph"])
         eager_bits = not differ(outs["eager"][0], outs["eager"][1])
         entry = {"steps": cfg_steps, "eager_runs_bit_equal": eager_bits}
-        if eager_bits:
-            for i, got in enumerate(outs["graph"]):
-                bad = differ(got, outs["eager"][0])
-                if bad:
-                    fail(f"[graphs] soft {name}: captured call {i} != eager: {'; '.join(bad)}")
-            entry["held"] = "torch.equal"
-        else:
+        if not eager_bits:
+            fail(f"[graphs] soft {name}: two eager calls differ: "
+                 f"{'; '.join(differ(outs['eager'][0], outs['eager'][1]))} (the binned "
+                 "backward's rows must add in a fixed order, ops.hpr.add_rows)")
+        for i, got in enumerate(outs["graph"]):
+            bad = differ(got, outs["eager"][0])
+            if bad:
+                fail(f"[graphs] soft {name}: captured call {i} != eager: {'; '.join(bad)}")
+        entry["held"] = "torch.equal"
+        # one step (loss and gradient at the initial parameters) by each
+        # order of the backward's rows, timed: the fixed order and the rows
+        # added by index_add_ (atomics), as before. The bits the fixed order
+        # moved are held within ORDER_TOL of the largest entry; then the
+        # accumulation alone, timed in both orders on the step's own rows
+        lf32, p32 = loss_of(torch.float32), params_of(torch.float32)
+        calls = []
+        new, fixed_ms = timed_step(lf32, p32, fixed_rows, calls)
+        old, atomic_ms = timed_step(lf32, p32, atomic_rows)
+        entry["moved"] = differ(new, old)
+        entry["order_ms"] = {"step": {"fixed": fixed_ms, "atomic": atomic_ms},
+                             "accumulation": accumulation_ms(calls)}
+        del calls
+        if entry["moved"]:
+            entry["fixed_vs_atomic"] = rel_errs(new, old)
+            if not max(entry["fixed_vs_atomic"]) <= ORDER_TOL:
+                fail(f"[graphs] soft {name}: the fixed-order step against the atomic one, "
+                     f"relative max |err| (loss, {', '.join(keys)}) {entry['fixed_vs_atomic']}"
+                     f" over {ORDER_TOL}")
+        if f64_tol is not None:
+            # the f32 step, eager and captured, against the card's float64 step
             want = step(loss_of(torch.float64), params_of(torch.float64))
-            eager = [step(loss_of(torch.float32), params_of(torch.float32)) for _ in range(2)]
-            captured = captured_step(loss_of(torch.float32), params_of(torch.float32))
-            errs = {"eager": rel_errs(eager[0], want), "captured": rel_errs(captured, want)}
-            if not max(errs["eager"] + errs["captured"]) <= tol:
-                fail(f"[graphs] soft {name}: two eager calls differ, and the step against "
-                     f"float64, relative max |err| (loss, {', '.join(keys)}) {errs} is over "
-                     f"{tol}")
-            entry.update(held="float64", tol=tol, vs_f64=errs,
-                         captured_vs_eager=rel_errs(captured, eager[0]),
-                         eager_vs_eager=rel_errs(eager[1], eager[0]))
+            captured = captured_step(lf32, p32)
+            bad = differ(captured, new)
+            if bad:
+                fail(f"[graphs] soft {name}: the captured step != the eager step: "
+                     f"{'; '.join(bad)}")
+            entry["vs_f64"] = {"eager": rel_errs(new, want), "captured": rel_errs(captured, want),
+                               "atomic": rel_errs(old, want)}
+            if not max(entry["vs_f64"]["eager"] + entry["vs_f64"]["captured"]) <= f64_tol:
+                fail(f"[graphs] soft {name}: the f32 step against float64, relative max |err| "
+                     f"(loss, {', '.join(keys)}) {entry['vs_f64']} over {f64_tol}")
+            entry["f64_tol"] = f64_tol
+            del want, captured
+        del lf32, p32, new, old
         g = graph_of()
         side = graphs.capture_stream(dev)
         with torch.cuda.stream(side):  # warm: the held calls replayed the graph
@@ -3412,16 +3861,24 @@ def soft_graph_checks(dev, intr, cloud10, path10, sync):
         def errs_text(v):
             return "[" + ", ".join(f"{e:.2e}" for e in v) + "]"
 
+        om = entry["order_ms"]
         how = (f"{'both captured calls' if n_graph > 1 else 'the captured call'} torch.equal "
-               "to them" if eager_bits else
-               "the step against float64, relative max |err| (loss, " + ", ".join(keys)
-               + f"): eager {errs_text(entry['vs_f64']['eager'])}, captured "
-               f"{errs_text(entry['vs_f64']['captured'])} (pin {tol}); not held: captured "
-               f"against eager {errs_text(entry['captured_vs_eager'])}, a second eager step "
-               f"against the first {errs_text(entry['eager_vs_eager'])}")
+               "to them; against one step (loss, " + ", ".join(keys) + ") with the rows added "
+               "by index_add_ (atomics), the fixed order moved "
+               + ("no bit" if not entry["moved"] else
+                  ", ".join(entry["moved"]) + ", relative max |err| "
+                  f"{errs_text(entry['fixed_vs_atomic'])} (pin {ORDER_TOL})")
+               + (f"; the f32 step, eager and captured (torch.equal to each other), against "
+                  f"the card's float64 step, relative max |err| eager "
+                  f"{errs_text(entry['vs_f64']['eager'])}, captured "
+                  f"{errs_text(entry['vs_f64']['captured'])} (pin {f64_tol}; atomics "
+                  f"{errs_text(entry['vs_f64']['atomic'])}, not held)" if f64_tol else "")
+               + f"; one eager step (forward and backward) {om['step']['fixed']:.3f} ms with "
+               f"the fixed order, {om['step']['atomic']:.3f} ms with atomics; the step's row "
+               f"accumulation alone {om['accumulation']['fixed']:.3f} ms against "
+               f"{om['accumulation']['atomic']:.3f} ms (device, CUDA events)")
         print(f"[graphs] soft {name}, {cfg_steps} steps per call, in turns "
-              f"{', '.join(order)}: the two eager calls {'agree' if eager_bits else 'differ'} "
-              f"bit for bit; {how}; "
+              f"{', '.join(order)}: the two eager calls agree bit for bit; {how}; "
               f"{tiles_text(entry['tiles'])}", flush=True)
 
     cams_valid = {}
@@ -3482,13 +3939,12 @@ def soft_graph_checks(dev, intr, cloud10, path10, sync):
             p = pose_params(torch.float32)
             return adv._advance(route, p, init(p), Pp[torch.float32], None, K)
 
-        # a pose step is held at HPR_TOL, as [hpr] holds one: its translation
-        # gradient sums N per-point terms that cancel (the camera sits inside
-        # the cloud), and the f32 eager step at 1,048,576 points is 1.06e-3
-        # of its largest entry from float64 on the card
         held(name, n, pose_call, lambda adv=adv: list(adv.buckets._items.values())[-1].graph,
              pose_loss, pose_params, ("trans", "quat"), [Pp[torch.float32]],
-             pose_problem.hpr_cap, adv.buckets._items.clear, tol=HPR_TOL)
+             pose_problem.hpr_cap, adv.buckets._items.clear,
+             # held at 1,048,576 only: at 262,144 the f32 step's
+             # translation gradient is 5.1e-3 from float64 (PERF.md §7)
+             f64_tol=HPR_TOL if npts == 1_048_576 else None)
         del adv, init, Pp
         runners.pose_runner.cache_clear()
 
@@ -3583,6 +4039,10 @@ def print_graph_times(card: str, gr) -> None:
               f"MiB allocated, {t['graph_mib']['reserved']:.1f} MiB reserved; peak MiB "
               + ", ".join(f"{r} {m['allocated']:.1f} allocated / {m['reserved']:.1f} reserved"
                           for r, m in t["peak_mib"].items())
+              + f"; the binned backward's rows, fixed order against atomics: one eager step "
+              f"{t['order_ms']['step']['fixed']:.3f} against {t['order_ms']['step']['atomic']:.3f}"
+              f" ms, its accumulation alone {t['order_ms']['accumulation']['fixed']:.3f} against "
+              f"{t['order_ms']['accumulation']['atomic']:.3f} ms (device)"
               + f"; {tiles_text(t['tiles'])}; held by {t['held']}; {t['seconds']:.1f} s in all",
               flush=True)
 

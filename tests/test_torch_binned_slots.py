@@ -5,8 +5,9 @@ The tier's tile table is the JAX twin's: ``n_bins + ⌈n/cap⌉`` slots per
 grid, a size taken from shapes alone, the slots past the last real tile
 masked out of the max. So the function reads nothing from the device on the
 host, and a soft step above ``soft_hpr_dense_max`` can be captured as a CUDA
-graph. Held here, each at cap 512 and 1024 and with the stratified coverers
-on and off:
+graph. Held here, each at cap 512 (cap 1024 in
+tests/test_torch_binned_slots_1024.py) and with the stratified coverers on
+and off:
 
 * the slot count per grid equals the twin's, the length of its scan over
   tiles read off its jaxpr;
@@ -55,7 +56,10 @@ from trajectory_optimization_tpu_torch.opt import runners as tr  # noqa: E402
 from trajectory_optimization_tpu_torch.utils.data import identity_quaternions  # noqa: E402
 from trajectory_optimization_tpu_torch.utils.intrinsics import default_intrinsics  # noqa: E402
 
-CASES = [(cap, strat) for cap in (512, 1024) for strat in (True, False)]
+# the cap-1024 cases run from tests/test_torch_binned_slots_1024.py, a file
+# of its own so that `--dist loadfile` can give them another worker
+CAPS = (512,)
+CASES = [(cap, strat) for cap in CAPS for strat in (True, False)]
 INTR = default_intrinsics()
 HOST_READS = ("item", "tolist", "__bool__", "__int__", "__float__", "__index__")
 

@@ -8,9 +8,9 @@ a port bridge and a JAX bridge talk through one broker; a client that dies
 is reaped and one that comes back is served again (as
 ``tests/test_remote_bus.py``'s churn test); a spawned
 ``NodeProcess("TrajOptNode", ..., device="cpu")`` publishes the optimized
-path ``array_equal`` to the in-process node's; a worker asked for a CUDA
-device it cannot reach dies before it attaches, and the launch raises (no
-CPU fallback).
+path ``array_equal`` to the in-process node's, with the thread count its
+``env`` sets; a worker asked for a CUDA device it cannot reach dies before
+it attaches, and the launch raises (no CPU fallback).
 """
 import time
 
@@ -196,6 +196,25 @@ def test_node_process_returns_the_in_process_path():
     assert not node.alive()
     np.testing.assert_array_equal(remote[0].positions, local[0].positions)
     np.testing.assert_array_equal(remote[0].orientations_xyzw, local[0].orientations_xyzw)
+
+
+def test_a_worker_runs_torch_on_the_threads_its_env_sets(tmp_path):
+    """The worker's module has loaded torch before the worker applies its
+    ``env`` (the spawned process imports it to find the worker function),
+    so the thread count is set on torch itself: without it the worker ran
+    one OpenMP thread per core, which stalled the spawned TrajOptNode past
+    its 120 s under a loaded test run."""
+    log = tmp_path / "worker.log"
+    broker = tremote.BusBroker().start()
+    node = tremote.NodeProcess(
+        "TrajOptNode", tlaunch.default_trajopt_config(), broker.address, device="cpu",
+        env={"OMP_NUM_THREADS": "3", "MKL_NUM_THREADS": "3", "TRAJOPT_NODE_DEBUG": str(log)})
+    try:
+        assert _wait(lambda: log.exists() and "node built" in log.read_text(), 120.0, 0.1)
+    finally:
+        node.terminate()
+        broker.close()
+    assert "torch on 3 threads" in log.read_text(), log.read_text()
 
 
 def test_a_worker_that_cannot_reach_its_device_fails_the_launch():

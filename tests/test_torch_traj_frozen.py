@@ -379,7 +379,8 @@ def test_frozen_runner_matches_jax_on_the_room(room):
 def test_async_refresh_applies_the_previous_boundary_plan(scene):
     """In async mode the plan swapped in at boundary b is the one built from
     the params at boundary b−1 (as in the twin): after 8 steps the plan in
-    use equals a synchronous build from the params after step 4."""
+    use equals a synchronous build from the params after step 4, under the
+    runner's tile floors and staged with its live-tile count."""
     pts, poses0, quats0, K, problem = scene
     opt = tf.FrozenTrajOptimizer(pts, K, poses0, quats0, problem, OPT,
                                  tf.FrozenPlanConfig(refresh_every=4, async_refresh=True),
@@ -392,11 +393,15 @@ def test_async_refresh_applies_the_previous_boundary_plan(scene):
             at4 = {k: v.numpy().copy() for k, v in params.items()}
         params, state, _, _ = opt.step(params, state)
         seen.append(opt._plan)
+    meta8 = opt._meta
     opt.close()
     assert seen[3] is seen[0] and seen[4] is not seen[3] and seen[8] is not seen[4]
     want, want_meta = tf.build_traj_plan(pts, None, at4["poses"], at4["quats"], K, problem,
+                                         min_tiles=meta8.tiles, min_t_big=meta8.t_big,
                                          embed=False)
-    got = tf.put_plan(want, want_meta, "cpu")
+    assert want_meta == meta8
+    got = tf.put_plan(tf.stage_plan(want, want_meta, n_live=seen[8]["live"].numel()),
+                      want_meta, "cpu")
     for k in got:
         assert torch.equal(got[k], seen[8][k]), k
 

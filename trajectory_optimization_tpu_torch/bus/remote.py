@@ -454,6 +454,13 @@ def _node_worker(node_cls_name: str, cfg, address: Address, name: str,
 
         import torch
 
+        # this module, which the spawned process imports to find this
+        # function, has loaded torch before ``env`` was applied: a thread
+        # count in ``env`` has to be set on torch itself, or the worker runs
+        # one OpenMP thread per core, which stalls at every barrier on a
+        # loaded host
+        if "OMP_NUM_THREADS" in env:
+            torch.set_num_threads(int(env["OMP_NUM_THREADS"]))
         from trajectory_optimization_tpu_torch.bus import nodes as node_mod
 
         bus = Bus()
@@ -463,7 +470,7 @@ def _node_worker(node_cls_name: str, cfg, address: Address, name: str,
             node_cls(bus, cfg, device=device)
         else:  # a host node (VoxelFilterNode) takes no device
             node_cls(bus, cfg)
-        _log(f"node built on {device}")
+        _log(f"node built on {device}, torch on {torch.get_num_threads()} threads")
         bridge = BusBridge(bus, address, name=name)
         _log("bridge attached")
         if log is not None:

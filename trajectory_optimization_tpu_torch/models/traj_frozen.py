@@ -28,17 +28,20 @@ the computation as the twin does:
 
 At a refresh the loss matches ``traj_forward(soft_hpr=True,
 soft_hpr_dense_max=0)`` to gate-threshold tolerance
-(tests/test_torch_traj_frozen.py). The twin's tile ladder exists to bound
-XLA recompiles and its prewarm to hide them; the port has no compile step,
-so its runner floors no tile count and warms nothing (``FrozenPlanConfig``
-keeps both fields, and the builder its ladder, so that plans stay equal).
+(tests/test_torch_traj_frozen.py). The runner keeps the twin's plan-shape
+policy: the tile counts rise monotonically along the builder's ladder, so
+its plans equal the twin runner's across refreshes and a run settles on one
+shape. On the card the step of a shape is one CUDA graph, the counterpart
+of the twin's jitted step per ``PlanMeta`` (:class:`FrozenTrajOptimizer`).
 The runner's plan builds run on one worker thread that ``close()`` joins.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
 import time
+import weakref
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -67,12 +70,22 @@ from trajectory_optimization_tpu_torch.ops.scores import (
     scores_from_planes,
 )
 from trajectory_optimization_tpu_torch.opt.engine import (
+    AdamStep,
     OptimizerConfig,
     apply_updates,
+    assign,
+    clone_tree,
     make_optimizer,
     value_and_grad,
 )
+from trajectory_optimization_tpu_torch.opt.graphs import (
+    StepGraph,
+    capture_stream,
+    device_route,
+    on_capture_stream,
+)
 
+LIVE_TILES_KEPT = 64  # refreshes whose live-tile counts stats["live_tiles"] keeps
 _PAD_COORD = 1.0e6  # padding rows: huge norm -> rho ~ -2e6, can never cover
 # The profiler range of the frozen dominance tiles' forward and backward, by
 # which a trace separates their time from the rest of a step.
@@ -157,11 +170,13 @@ class FrozenPlanConfig:
       by the binning ``safety`` factor).
     tile_round, tile_ladder_ratio: tile counts per grid round up onto a
       geometric ladder (base ``tile_round``, each rung ≥ ratio × the
-      previous). The twin sized them to bound XLA recompiles; the builder
-      keeps them so that its plans equal the twin's.
-    prewarm: the twin compiles the next ladder rung's step in the
-      background; kept for signature parity, the port ignores it (nothing
-      is compiled).
+      previous), and so does the runner's count of tiles holding a query
+      (:func:`live_rung`): few rungs, few step shapes to capture.
+    prewarm: the twin compiles the next ladder rungs' steps in the
+      background, to hide 15-25 s XLA compiles. Kept for signature parity;
+      the port captures nothing ahead of need: a new shape's first step
+      runs eagerly and its capture takes a fraction of a refresh interval
+      on the card (PERF.md), so ``stats["prewarms"]`` stays 0.
     async_refresh: build the next plan on a worker thread while steps run
       on the current one, swapping at the next refresh boundary
       (deterministic: the plan applied at boundary b was built from the
@@ -574,7 +589,22 @@ def build_traj_plan(
     return plan, meta
 
 
-def stage_plan(plan: Dict[str, np.ndarray], meta: PlanMeta, pin: bool = False):
+def live_tiles(plan: Dict[str, np.ndarray], meta: PlanMeta) -> np.ndarray:
+    """The tiles of the flattened (W·G·T) tile axis that hold a query row."""
+    W, G, T, cap = meta.n_sel, meta.n_grids, meta.tiles, meta.cap
+    return np.flatnonzero(plan["qmask"].reshape(W * G * T, cap).any(axis=1))
+
+
+def live_rung(n_live: int, meta: PlanMeta, cfg: FrozenPlanConfig, floor: int = 0) -> int:
+    """The padded live-tile count of a plan: ``n_live`` rounded up onto the
+    tile-count ladder (``cfg.tile_round``, ``cfg.tile_ladder_ratio``), at
+    least ``floor``, at most every tile (W·G·T)."""
+    rung = max(_ladder_ceil(n_live, cfg.tile_round, cfg.tile_ladder_ratio), int(floor))
+    return min(rung, meta.n_sel * meta.n_grids * meta.tiles)
+
+
+def stage_plan(plan: Dict[str, np.ndarray], meta: PlanMeta, pin: bool = False,
+               n_live: Optional[int] = None):
     """A built plan as the CPU tensors the device step reads (pinned when
     ``pin``, so that :func:`put_plan`'s copies are asynchronous).
 
@@ -588,9 +618,20 @@ def stage_plan(plan: Dict[str, np.ndarray], meta: PlanMeta, pin: bool = False):
     compact ext slot it reads, and its waypoint. The index keys go to
     int64; the sparse criterion's segment ids and, per shift of its suffix
     sum, which entries share a segment. The twin's backward keys are not
-    needed: each permutation's backward is a gather by its forward key."""
+    needed: each permutation's backward is a gather by its forward key.
+
+    ``n_live`` pads the live list to that length (:func:`live_rung`), so
+    that a step's shapes stay fixed while the count of tiles holding a
+    query moves: the padding takes distinct tiles that hold no query (the
+    gathers' backward still adds one term per slot), with query bins −1
+    that pair with no coverer, so that they add nothing to the loss or its
+    gradient, and they write only into tiles whose rows the loss masks."""
     W, G, T, TB, cap = meta.n_sel, meta.n_grids, meta.tiles, meta.t_big, meta.cap
-    live = np.flatnonzero(plan["qmask"].reshape(W * G * T, cap).any(axis=1))
+    live = live_tiles(plan, meta)
+    n_real = len(live)
+    if n_live is not None and n_live > n_real:
+        idle = np.setdiff1d(np.arange(W * G * T), live, assume_unique=True)
+        live = np.concatenate([live, idle[: n_live - n_real]])
     sel = plan["c_sel"].astype(np.int64)
     is_self = sel < 0
     selc = np.maximum(sel, 0)[..., None]
@@ -602,12 +643,14 @@ def stage_plan(plan: Dict[str, np.ndarray], meta: PlanMeta, pin: bool = False):
                      np.take_along_axis(plan["c_row_ext"].astype(np.int32), selc, axis=2))
     ext_idx = (np.arange(W)[:, None, None] * G + np.arange(G)[None, :, None]) * TB + selc[..., 0]
     per_tile = lambda a: a.reshape((W * G * T,) + a.shape[3:])[live]  # noqa: E731
+    q_bin_live = per_tile(q_bin)
+    q_bin_live[n_real:] = -1  # padding tiles: no query pairs with a coverer
     arrays = {
         "q_xyz": plan["q_xyz"],
         "c_xyz_ext": plan["c_xyz_ext"],
         "live": live,
         "live_w": live // (G * T),
-        "q_bin": per_tile(q_bin),
+        "q_bin": q_bin_live,
         "c_key": per_tile(np.where(c_bin >= 0, c_bin, -2)),
         "q_row": per_tile(q_row),
         "c_row": per_tile(c_row),
@@ -976,6 +1019,49 @@ def traj_forward_frozen_mean(
 # ---------------------------------------------------------------------------
 
 
+class _FrozenBucket:
+    """One step shape of a frozen optimizer on the ``"graph"`` or
+    ``"static"`` route: the plan's static device buffers (pinned host
+    buffers beside them on the card, from which a refresh copies
+    asynchronously), the Adam step's static parameters, moments, loss and
+    aux (``opt.engine.AdamStep``, made by the shape's first step from the
+    caller's values) and its captured step."""
+
+    def __init__(self, opt, key, staged):
+        self.key = key
+        dev = opt.device
+        self.plan = {k: torch.empty(v.shape, dtype=v.dtype, device=dev) for k, v in staged.items()}
+        self.host = None
+        if dev.type == "cuda":  # made here, on the caller's thread, never during a capture
+            self.host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                         for k, v in staged.items()}
+        self.copied = None  # the event after the last refresh's copies
+        # no reference back to the bucket, and only a weak one to the
+        # optimizer (which holds the bucket): with no reference cycle, a
+        # dropped bucket is freed at once, never later by the garbage
+        # collector, which may run inside a capture, where freeing its
+        # pinned buffers (an event record) or its graph fails the capture
+        plan, meta, owner = self.plan, key[0], weakref.ref(opt)
+        self.loss_fn = lambda p: owner()._step_loss(p, plan, meta)  # noqa: E731
+        self.step: Optional[AdamStep] = None
+        self.graph: Optional[StepGraph] = None
+
+    def load(self, staged) -> None:
+        """Copy a staged plan into the static buffers, on the current stream
+        (the capture stream on the card, ahead of the next replay)."""
+        if self.host is None:
+            for k, v in staged.items():
+                self.plan[k].copy_(v)
+            return
+        if self.copied is not None:
+            self.copied.synchronize()  # the last copies out of the pinned buffers are done
+        for k, v in staged.items():
+            self.host[k].copy_(v)
+            self.plan[k].copy_(self.host[k], non_blocking=True)
+        self.copied = torch.cuda.Event()
+        self.copied.record()
+
+
 class FrozenTrajOptimizer:
     """Occlusion-aware trajectory optimization with host-refreshed routing.
 
@@ -985,7 +1071,26 @@ class FrozenTrajOptimizer:
     frozen-plan step on ``device`` (the card unless the caller passes
     ``"cpu"``) with no host read. The step runs the sparse criterion tail
     (traj_forward_frozen_mean). Call :meth:`close` when done: it joins the
-    plan builder's worker thread.
+    plan builder's worker thread and frees the captured step.
+
+    Plan shapes, as the twin's runner keeps them: each build floors the
+    tile count T and the big-tile count TB at the largest seen so far
+    (``build_traj_plan(min_tiles=, min_t_big=)``), and on the graph and
+    static routes the list of tiles holding a query is padded to a rung of
+    the tile ladder, floored the same way (:func:`live_rung`), so that a
+    run settles on one shape. The eager route stages the live tiles alone:
+    the padding changes no bit of the step, only its work.
+
+    Routes (``opt/graphs.py``): on the card the step of each shape
+    (``PlanMeta``, live rung) is captured as one CUDA graph over static
+    buffers, the counterpart of the twin's jitted step per ``PlanMeta``:
+    the shape's first step runs eagerly, the later ones replay the graph,
+    and a refresh copies the new plan into the shape's buffers (a larger
+    shape takes a new bucket; the floors never let a smaller one come
+    back, so the old one is freed). On the CPU the steps run the eager
+    loop; ``"static"`` runs the card's static-buffer step uncaptured. The
+    plan builder's worker thread only computes numpy arrays: it makes no
+    CUDA call, so it cannot fail a capture on the caller's thread.
     """
 
     _need_embed = False  # sparse step: no embedding keys
@@ -1007,12 +1112,25 @@ class FrozenTrajOptimizer:
         self.plan_cfg = plan_cfg
         self.opt_cfg = opt_cfg or OptimizerConfig()
         self.tx = make_optimizer(self.opt_cfg)
+        self._route = device_route(self.device)
         self._steps_since_refresh = 0
         self._plan = None
         self._meta = None
         self._pending = None
         self._pool = None
-        self.stats = {"refreshes": 0, "swap_s": 0.0, "build_s": 0.0}
+        self._bucket: Optional[_FrozenBucket] = None
+        self._t_floor = 1  # the largest tile count built: keeps one PlanMeta
+        self._tb_floor = 1  # the largest big-tile count built (same reason)
+        self._live_floor = 0  # the largest live rung staged (same reason)
+        # live_tiles: (tiles holding a query, count staged) of the last
+        # LIVE_TILES_KEPT refreshes (the count staged is padded on the graph
+        # and static routes only); captures: the step shapes taken on those
+        # routes (one capture each on the card), capture_s their capture
+        # seconds; prewarms: shapes captured ahead of need (none: see
+        # FrozenPlanConfig)
+        self.stats = {"refreshes": 0, "swap_s": 0.0, "build_s": 0.0, "prewarms": 0,
+                      "captures": 0, "capture_s": 0.0,
+                      "live_tiles": collections.deque(maxlen=LIVE_TILES_KEPT)}
 
     def _selected(self, params_host):
         """(poses_sel, quats_sel) the plan is built for — numpy, host."""
@@ -1021,23 +1139,64 @@ class FrozenTrajOptimizer:
 
     def _build(self, params_host):
         poses_sel, quats_sel = self._selected(params_host)
-        return build_traj_plan(
+        plan, meta = build_traj_plan(
             self.points_np, self.valid_np, poses_sel, quats_sel,
-            self.K_np, self.problem, self.plan_cfg, embed=self._need_embed)
+            self.K_np, self.problem, self.plan_cfg,
+            min_tiles=self._t_floor, min_t_big=self._tb_floor, embed=self._need_embed)
+        self._t_floor = max(self._t_floor, meta.tiles)
+        self._tb_floor = max(self._tb_floor, meta.t_big)
+        return plan, meta
 
     def _build_staged(self, params_host):
-        """Build and stage a plan (numpy, then pinned tensors): all of a
-        refresh's host work, which the worker thread runs in async mode."""
+        """Build and stage a plan (numpy, then tensors): all of a refresh's
+        host work, which the worker thread runs in async mode. Returns
+        (staged, meta, (tiles holding a query, count staged)). The eager
+        route stages the live tiles alone and pins them here; the graph and
+        static routes pad the list to its rung (:func:`live_rung`), so that
+        their step keeps its shape, and their buckets own pinned buffers,
+        made on the caller's thread."""
         plan, meta = self._build(params_host)
-        return stage_plan(plan, meta, pin=self.device.type == "cuda"), meta
+        n_real = len(live_tiles(plan, meta))
+        if self._route == "eager":
+            pin = self.device.type == "cuda"
+            return stage_plan(plan, meta, pin=pin), meta, (n_real, n_real)
+        n_live = live_rung(n_real, meta, self.plan_cfg, self._live_floor)
+        self._live_floor = max(self._live_floor, n_live)
+        return stage_plan(plan, meta, n_live=n_live), meta, (n_real, n_live)
 
-    def _swap(self, staged, meta):
+    def _swap(self, staged, meta, live=None):
         t0 = time.perf_counter()
-        self._plan = put_plan(staged, meta, self.device)
+        if self._route == "eager":
+            self._plan = put_plan(staged, meta, self.device)
+        else:
+            key = (meta, int(staged["live"].shape[0]))
+            if self._bucket is None or self._bucket.key != key:
+                self._drop_bucket()
+                self._bucket = _FrozenBucket(self, key, staged)
+                self.stats["captures"] += 1
+            with on_capture_stream(self.device, self._route):
+                self._bucket.load(staged)
+            self._plan = self._bucket.plan
         self._meta = meta
         self._steps_since_refresh = 0
         self.stats["refreshes"] += 1
+        if live is not None:
+            self.stats["live_tiles"].append(live)
         self.stats["swap_s"] += time.perf_counter() - t0
+
+    def _drop_bucket(self):
+        """Free the current bucket once the steps that read it are done (the
+        next step then refreshes the plan). A freed graph's memory pool
+        stays in the allocator's cache, which hands it back when an
+        allocation outside a capture would otherwise fail;
+        ``torch.cuda.empty_cache()``, the caller's to call (it empties the
+        whole process's cache), returns it to the card at once: a caller
+        short of memory calls it between shapes."""
+        if self._bucket is None:
+            return
+        if self.device.type == "cuda":
+            capture_stream(self.device).synchronize()
+        self._bucket, self._plan = None, None
 
     def _kick_async(self, params):
         if self._pool is None:
@@ -1067,12 +1226,13 @@ class FrozenTrajOptimizer:
             self._kick_async(params)
 
     def close(self):
-        """Drop the plan, wait for a build in flight and join the worker
-        thread."""
+        """Drop the plan, wait for a build in flight, join the worker thread
+        and free the captured step."""
         self.reset()
         if self._pool is not None:
             self._pool.shutdown(wait=True)
             self._pool = None
+        self._drop_bucket()
 
     def __del__(self):  # best effort; close() is the real API
         try:
@@ -1080,13 +1240,19 @@ class FrozenTrajOptimizer:
         except Exception:
             pass
 
-    def _loss(self, p):
+    def _loss(self, p, plan, meta):
         return traj_forward_frozen_mean(
-            p, self._plan, self._meta, self.points, self.K, self.poses0, self.quats0,
+            p, plan, meta, self.points, self.K, self.poses0, self.quats0,
             self.problem, valid=self.valid)
 
     def _aux_out(self, aux):
         return {k: v for k, v in aux.items() if v.dim() == 0}
+
+    def _step_loss(self, p, plan, meta):
+        """The step's (loss, aux): the loss under ``plan``, aux cut to what
+        ``step`` returns."""
+        loss, aux = self._loss(p, plan, meta)
+        return loss, self._aux_out(aux)
 
     def init(self, params):
         return self.tx.init(params)
@@ -1095,8 +1261,8 @@ class FrozenTrajOptimizer:
         """Drop the current plan (and any in-flight async build). Call
         before optimizing from params discontinuous with the previous run —
         the routing gates are only valid within ``drift_slack`` of the poses
-        they were built for. ``run()`` resets automatically. A failed
-        build in flight raises here."""
+        they were built for. ``run()`` resets automatically. The shape
+        floors stay, as in the twin. A failed build in flight raises here."""
         if self._pending is not None:
             if not self._pending.cancel():
                 self._pending.result()  # a build already running: wait it out
@@ -1107,18 +1273,49 @@ class FrozenTrajOptimizer:
 
     def step(self, params, opt_state):
         """One Adam step (refreshing the plan when due). Returns (params,
-        opt_state, loss, aux) as device tensors. Assumes ``params``
-        continues the trajectory of the previous step call — call
-        :meth:`reset` first when jumping to unrelated params. Between
-        refreshes it reads nothing back from the device."""
+        opt_state, loss, aux) as device tensors that the caller owns: a
+        later step never writes into them. Assumes ``params`` continues the
+        trajectory of the previous step call — call :meth:`reset` first when
+        jumping to unrelated params. Between refreshes it reads nothing back
+        from the device; on the card it launches one graph there (and copies
+        ``params`` and ``opt_state`` into the shape's static buffers, the
+        results out of them)."""
         if (self._plan is None
                 or self._steps_since_refresh >= self.plan_cfg.refresh_every):
             self._refresh(params)
-        loss, aux, grads = value_and_grad(self._loss, params)
-        updates, opt_state = self.tx.update(grads, opt_state, params)
-        params = apply_updates(params, updates)
+        if self._route == "eager":
+            loss, aux, grads = value_and_grad(
+                lambda p: self._step_loss(p, self._plan, self._meta), params)
+            updates, opt_state = self.tx.update(grads, opt_state, params)
+            params = apply_updates(params, updates)
+            out = (params, opt_state, loss, aux)
+        else:
+            out = self._static_step(params, opt_state)
         self._steps_since_refresh += 1
-        return params, opt_state, loss, self._aux_out(aux)
+        return out
+
+    def _static_step(self, params, opt_state):
+        """``step`` on the static buffers of the current shape's bucket: its
+        first step eagerly, then one replay of its captured step (called
+        directly on the ``"static"`` route)."""
+        b = self._bucket
+        with on_capture_stream(self.device, self._route):
+            if b.step is None:
+                b.step = AdamStep(b.loss_fn, params, self.tx.cfg, self.tx.lrs, state=opt_state,
+                                  keep_output=True)
+                b.graph = StepGraph(b.step.step, self._route,
+                                    f"{type(self).__name__} step")
+                b.step.step()  # the shape's first step, eagerly
+            else:
+                assign(b.step.params, params)
+                assign(b.step.state, opt_state)
+                captured = b.graph.graph is not None
+                b.graph()
+                if not captured and b.graph.capture_s is not None:
+                    self.stats["capture_s"] += b.graph.capture_s
+        # copies the next step leaves alone, made on the caller's stream
+        return (clone_tree(b.step.params), clone_tree(b.step.state), b.step.loss.clone(),
+                clone_tree(b.step.aux))
 
     def run(self, params, n_steps: int):
         """Run n_steps from ``params``; returns (params, losses list).
@@ -1234,8 +1431,8 @@ class FrozenWpsOptimizer(FrozenTrajOptimizer):
         ], axis=1)
         return trans, quats
 
-    def _loss(self, p):
-        return wps_forward_frozen(p, self.frozen, self._plan, self._meta, self.points, self.K,
+    def _loss(self, p, plan, meta):
+        return wps_forward_frozen(p, self.frozen, plan, meta, self.points, self.K,
                                   self.problem, valid=self.valid, occlusion_mask=self.occ)
 
     def _aux_out(self, aux):
@@ -1264,8 +1461,8 @@ class FrozenPoseOptimizer(FrozenTrajOptimizer):
         return (params_host["trans"].reshape(1, 3),
                 params_host["quat"].reshape(1, 4))
 
-    def _loss(self, p):
-        return pose_forward_frozen(p, self._plan, self._meta, self.points, self.K,
+    def _loss(self, p, plan, meta):
+        return pose_forward_frozen(p, plan, meta, self.points, self.K,
                                    self.problem, valid=self.valid, occlusion_mask=self.occ)
 
     def _aux_out(self, aux):

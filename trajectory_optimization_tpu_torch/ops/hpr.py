@@ -517,6 +517,19 @@ def _binned_tiles(U, R, beta, bin_s, cov_pos, tiles, n: int, cap: int):
     return q, crow, ok, qu, cu, cr, cos, x
 
 
+def add_rows(dst: torch.Tensor, rows: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``dst[rows[i]] += src[i]`` in a fixed order: the same bits on every
+    call. On the CPU this is ``index_add_``, a serial loop in the order of
+    i. On the card ``index_add_`` adds with atomics, in an order that
+    changes from call to call where a row takes two or more terms;
+    ``index_put_(accumulate=True)`` sorts the row indices stably and sums
+    each row's run of terms in a fixed order, with no host read, so a
+    captured step can hold it."""
+    if dst.is_cuda:
+        return dst.index_put_((rows,), src, accumulate=True)
+    return dst.index_add_(0, rows, src)
+
+
 class _BinnedLSE(torch.autograd.Function):
     """lse[t, i] = logsumexpⱼ(β·dom) of every query row of every tile of one
     grid, in chunks of ``chunk`` tiles: nothing of size T·cap² is kept
@@ -554,13 +567,13 @@ class _BinnedLSE(torch.autograd.Function):
                 # ∂L/∂dom = g·β·softmax weight, 0 off the mask
                 t = torch.exp_(x.sub_(top[t0:t1, :, None])).mul_(
                     (beta * g[t0:t1] / total[t0:t1])[:, :, None]).masked_fill_(~ok, 0.0)
-                dR.index_add_(0, crow.reshape(-1),
-                              torch.sum(t * torch.clamp_min(cos, 0.0), dim=1).reshape(-1))
+                add_rows(dR, crow.reshape(-1),
+                         torch.sum(t * torch.clamp_min(cos, 0.0), dim=1).reshape(-1))
                 h = (cos > 0).to(cos.dtype).add_((cos >= 0).to(cos.dtype)).mul_(0.5)
                 a = t.mul_(cr[:, None, :]).mul_(h)  # ∂L/∂cos
-                dU.index_add_(0, q.reshape(-1), torch.bmm(a, cu).reshape(-1, 3))
-                dU.index_add_(0, crow.reshape(-1),
-                              torch.bmm(a.transpose(1, 2), qu).reshape(-1, 3))
+                add_rows(dU, torch.cat([q.reshape(-1), crow.reshape(-1)]),
+                         torch.cat([torch.bmm(a, cu).reshape(-1, 3),
+                                    torch.bmm(a.transpose(1, 2), qu).reshape(-1, 3)]))
         return dU, dR, None, None, None, None, None, None
 
 

@@ -20,9 +20,10 @@ The plan is host numpy, so the point axis is partitioned when it is built:
   'wps' that closes the log-odds fusion; the criterion's mean reward sums
   over 'pts'.
 
-Each rank stages only its own sub-plan. The port has no compile step, so
-there is no per-plan step cache and no prewarm; the plan builds run on the
-runner's one worker thread, which ``close()`` joins. Like the twin, the
+Each rank stages only its own sub-plan. The step runs eagerly (gloo's
+collectives go through the host, so it is not captured), with no per-plan
+step cache and no prewarm; the plan builds run on the runner's one worker
+thread, which ``close()`` joins. Like the twin, the
 sharded step embeds the gated scores into the slice and runs the dense
 criterion, not the single-card runner's sparse one
 (``traj_forward_frozen_mean``); the two agree to rounding.
@@ -229,6 +230,7 @@ class FrozenShardedTrajOptimizer(FrozenTrajOptimizer):
         super().__init__(points, K, poses0, quats0, problem, opt_cfg, plan_cfg, valid,
                          device=mesh.device)
         self.mesh = mesh
+        self._route = "eager"  # gloo's collectives go through the host: no capture
         self.wps_axis, self.pts_axis = wps_axis, pts_axis
         self._d_wps, self._d_pts = mesh.shape[wps_axis], mesh.shape[pts_axis]
         n = len(self.points_np)
@@ -250,7 +252,7 @@ class FrozenShardedTrajOptimizer(FrozenTrajOptimizer):
                             pts_axis=self.pts_axis, pin=self.device.type == "cuda")
         return staged, meta
 
-    def _loss(self, p):
+    def _loss(self, p, plan, meta):
         return traj_frozen_loss_sharded(
-            self.mesh, p, self._plan, self._meta, self.points, self.valid, self.K, self.poses0,
+            self.mesh, p, plan, meta, self.points, self.valid, self.K, self.poses0,
             self.problem, wps_axis=self.wps_axis, pts_axis=self.pts_axis)
