@@ -534,6 +534,32 @@ def test_a_failed_capture_raises_and_counts_nothing(stub_cuda):
     assert _StubGraph.made[0].calls == [("begin", "global"), "end"]  # the capture was ended
 
 
+def test_no_garbage_collection_while_capturing(stub_cuda):
+    """A graph collected during a capture would reset inside it (a call the
+    capture forbids): the collector is off while a step is recorded, on
+    again after, a failed capture included; a caller's setting is kept."""
+    import gc
+
+    seen = []
+    ok = tg.StepGraph(lambda: seen.append(gc.isenabled()), "graph")
+
+    def fail():
+        seen.append(gc.isenabled())
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    assert gc.isenabled()
+    ok()
+    with pytest.raises(tg.CaptureError):
+        tg.StepGraph(fail, "graph")()
+    assert seen == [False, False] and gc.isenabled()
+    gc.disable()
+    try:
+        tg.StepGraph(lambda: seen.append(gc.isenabled()), "graph")()
+        assert seen[-1] is False and not gc.isenabled()
+    finally:
+        gc.enable()
+
+
 def test_a_graph_keeps_the_scratch_it_was_captured_with(stub_cuda):
     """A later, larger problem replaces the stream's K3/K4 scratch; the graph
     still holds the pair it recorded."""

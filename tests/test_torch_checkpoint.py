@@ -1,16 +1,13 @@
-"""The port's ``utils/checkpoint.py`` and ``utils/profiling.py`` against the
-JAX package's.
+"""The port's ``utils/checkpoint.py`` against the JAX package's.
 
 Held: a port checkpoint of tensors (f32, f64, int64), numpy arrays,
 scalars, a namedtuple state and None reads back bit-equal, tensors as
 tensors; its treedef string is ``str(jax.tree_util.tree_structure(...))``
 of the same payload, so a port checkpoint loads in the JAX package and a
 JAX one in the port, equal; a structure mismatch, a leaf-count mismatch and
-a missing ``like`` raise as in the twin. ``StepTimer`` keeps the twin's
-summary keys and report; ``trace`` writes a ``torch.profiler`` trace.
+a missing ``like`` raise as in the twin.
 """
 import collections
-import os
 
 import numpy as np
 import pytest
@@ -22,7 +19,6 @@ import jax.numpy as jnp  # noqa: E402
 
 from trajectory_optimization_tpu.utils import checkpoint as jckpt  # noqa: E402
 from trajectory_optimization_tpu_torch.utils import checkpoint as tckpt  # noqa: E402
-from trajectory_optimization_tpu_torch.utils import profiling as tprof  # noqa: E402
 
 State = collections.namedtuple("State", ["count", "mu"])
 
@@ -94,20 +90,3 @@ def test_a_mismatched_checkpoint_raises(tmp_path):
     with pytest.raises(ValueError, match="leaves"):
         tckpt.load_checkpoint(str(tmp_path / "n.npz"),
                               {"params": params, "opt_state": None, "step": 0, "extra": {}})
-
-
-def test_step_timer_and_trace(tmp_path):
-    timer = tprof.StepTimer()
-    x = torch.ones(4)
-    for _ in range(3):
-        with timer.span("step", sync_on={"x": x}):
-            x = x * 2
-    timer.record("io", 0.002)
-    s = timer.summary()
-    assert set(s) == {"step", "io"} and s["step"]["count"] == 3
-    assert set(s["io"]) == {"count", "mean_ms", "p50_ms", "p99_ms", "total_s"}
-    assert abs(s["io"]["mean_ms"] - 2.0) < 1e-9 and "io" in timer.report()
-    tprof.device_sync([None, x])  # CPU work is done when it returns
-    with tprof.trace(str(tmp_path / "tr")) as d:
-        torch.ones(8).sum()
-    assert any(f.endswith(".json") or f.endswith(".json.gz") for f in os.listdir(d))

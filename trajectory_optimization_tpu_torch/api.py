@@ -7,7 +7,9 @@ runner per bucket), warm start from a previous solution and structured
 results. Both run on the card unless the caller passes ``device="cpu"``.
 The HPR options (``soft_hpr``, ``PoseOptimizer(use_hpr=True)``) run through
 ``ops/hpr.py``; soft HPR takes the dense tier up to ``soft_hpr_dense_max``
-points and the direction-binned tier above it.
+points and the direction-binned tier above it. Each ``optimize`` call is the
+span ``utils.profiling.FACADE_OPTIMIZE``, its host work before and after
+the runner ``FACADE_PREPARE`` and ``FACADE_FETCH``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,12 @@ from trajectory_optimization_tpu_torch.opt.runners import pose_runner, traj_runn
 from trajectory_optimization_tpu_torch.utils.convert import params_from_numpy
 from trajectory_optimization_tpu_torch.utils.data import identity_quaternions, pad_points
 from trajectory_optimization_tpu_torch.utils.intrinsics import CameraIntrinsics, default_intrinsics
+from trajectory_optimization_tpu_torch.utils.profiling import (
+    FACADE_FETCH,
+    FACADE_OPTIMIZE,
+    FACADE_PREPARE,
+    span,
+)
 
 
 @dataclasses.dataclass
@@ -91,42 +99,45 @@ class TrajectoryOptimizer:
     ) -> TrajResult:
         """Optimize a (W, 3) path against an (N, 3) cloud. ``warm_start`` is a
         {"poses", "quats"} dict of arrays (see ``utils.convert``)."""
-        points = np.asarray(points, np.float32)
-        path = np.asarray(path, np.float32)
-        if quats_wxyz is None:
-            quats_wxyz = identity_quaternions(len(path))
-        padded, valid = pad_points(points)
+        with span(FACADE_OPTIMIZE):
+            with span(FACADE_PREPARE):
+                points = np.asarray(points, np.float32)
+                path = np.asarray(path, np.float32)
+                if quats_wxyz is None:
+                    quats_wxyz = identity_quaternions(len(path))
+                padded, valid = pad_points(points)
 
-        dev = self.device
-        problem = self._traj_problem(path)
-        P = torch.as_tensor(padded, device=dev)
-        V = torch.as_tensor(valid, device=dev)
-        K = self.intr.matrix(device=dev)
-        p0 = torch.as_tensor(path, device=dev)
-        q0 = torch.as_tensor(np.asarray(quats_wxyz, np.float32), device=dev)
+                dev = self.device
+                problem = self._traj_problem(path)
+                P = torch.as_tensor(padded, device=dev)
+                V = torch.as_tensor(valid, device=dev)
+                K = self.intr.matrix(device=dev)
+                p0 = torch.as_tensor(path, device=dev)
+                q0 = torch.as_tensor(np.asarray(quats_wxyz, np.float32), device=dev)
 
-        run = traj_runner(problem, self.opt_cfg, early_stop or NEVER, int(n_steps))
-        if warm_start is not None:
-            params = params_from_numpy(warm_start, dev)
-        else:
-            params = init_traj_params(path, quats_wxyz, dev)
-        params, n_iters, loss, aux = run(params, P, V, K, p0, q0)
-        scalars = torch.stack([
-            loss, aux["mean_reward"], aux["reward0"], aux["loss_smooth"], aux["smooth0"]
-        ]).double().cpu().numpy()
-        loss_f, mean_reward, reward0, loss_smooth, smooth0 = (float(x) for x in scalars)
+                run = traj_runner(problem, self.opt_cfg, early_stop or NEVER, int(n_steps))
+                if warm_start is not None:
+                    params = params_from_numpy(warm_start, dev)
+                else:
+                    params = init_traj_params(path, quats_wxyz, dev)
+            params, n_iters, loss, aux = run(params, P, V, K, p0, q0)
+            with span(FACADE_FETCH):
+                scalars = torch.stack([
+                    loss, aux["mean_reward"], aux["reward0"], aux["loss_smooth"], aux["smooth0"]
+                ]).double().cpu().numpy()
+                loss_f, mean_reward, reward0, loss_smooth, smooth0 = (float(x) for x in scalars)
 
-        quats = params["quats"].double().cpu().numpy()
-        quats = quats / np.linalg.norm(quats, axis=1, keepdims=True)
-        return TrajResult(
-            poses=params["poses"].double().cpu().numpy(),
-            quats_wxyz=quats,
-            rewards=aux["rewards"].cpu().numpy()[: len(points)],
-            n_iters=int(n_iters),
-            loss=loss_f,
-            visibility_gain=mean_reward / max(reward0, 1e-9),
-            smoothness_gain=smooth0 / max(loss_smooth, 1e-9),
-        )
+                quats = params["quats"].double().cpu().numpy()
+                quats = quats / np.linalg.norm(quats, axis=1, keepdims=True)
+                return TrajResult(
+                    poses=params["poses"].double().cpu().numpy(),
+                    quats_wxyz=quats,
+                    rewards=aux["rewards"].cpu().numpy()[: len(points)],
+                    n_iters=int(n_iters),
+                    loss=loss_f,
+                    visibility_gain=mean_reward / max(reward0, 1e-9),
+                    smoothness_gain=smooth0 / max(loss_smooth, 1e-9),
+                )
 
     def _traj_problem(self, path, wps_step=None) -> TrajProblem:
         """The one place the facade builds its TrajProblem, so that optimize
@@ -205,33 +216,36 @@ class PoseOptimizer:
         """Optimize one camera pose against an (N, 3) cloud for ``n_steps``
         Adam steps. ``loss`` and ``observations`` are those of the last
         step's forward, before its update."""
-        points = np.asarray(points, np.float32)
-        padded, valid = pad_points(points)
-        problem = PoseProblem(
-            img_width=self.intr.width, img_height=self.intr.height, **self.problem_kw
-        )
-        dev = self.device
-        P = torch.as_tensor(padded, device=dev)
-        V = torch.as_tensor(valid, device=dev)
-        K = self.intr.matrix(device=dev)
-        # on the bucket-padded cloud, valid-masked, as the JAX twin runs it
-        occlusion = hpr_mask_approx(P, valid=V) if self.use_hpr else None
+        with span(FACADE_OPTIMIZE):
+            with span(FACADE_PREPARE):
+                points = np.asarray(points, np.float32)
+                padded, valid = pad_points(points)
+                problem = PoseProblem(
+                    img_width=self.intr.width, img_height=self.intr.height, **self.problem_kw
+                )
+                dev = self.device
+                P = torch.as_tensor(padded, device=dev)
+                V = torch.as_tensor(valid, device=dev)
+                K = self.intr.matrix(device=dev)
+                # on the bucket-padded cloud, valid-masked, as the JAX twin runs it
+                occlusion = hpr_mask_approx(P, valid=V) if self.use_hpr else None
 
-        init_opt, advance = pose_runner(problem, self.opt_cfg, int(n_steps))
-        params = init_pose_params(
-            np.asarray(position, np.float32)[None], np.asarray(quat_wxyz, np.float32)[None], dev
-        )
-        params, _, loss, aux = advance(params, init_opt(params), P, V, K, occlusion)
-        # one device-to-host copy for all results
-        f = torch.cat([
-            params["trans"].reshape(3), params["quat"].reshape(4), loss.reshape(1),
-            aux["observations"],
-        ]).cpu().numpy()
-        q = f[3:7].astype(np.float64)
-        return PoseResult(
-            position=f[:3].astype(np.float64),
-            quat_wxyz=q / np.linalg.norm(q),
-            observations=f[8:8 + len(points)],
-            n_iters=int(n_steps),
-            loss=float(f[7]),
-        )
+                init_opt, advance = pose_runner(problem, self.opt_cfg, int(n_steps))
+                params = init_pose_params(np.asarray(position, np.float32)[None],
+                                          np.asarray(quat_wxyz, np.float32)[None], dev)
+                opt_state = init_opt(params)
+            params, _, loss, aux = advance(params, opt_state, P, V, K, occlusion)
+            with span(FACADE_FETCH):
+                # one device-to-host copy for all results
+                f = torch.cat([
+                    params["trans"].reshape(3), params["quat"].reshape(4), loss.reshape(1),
+                    aux["observations"],
+                ]).cpu().numpy()
+                q = f[3:7].astype(np.float64)
+                return PoseResult(
+                    position=f[:3].astype(np.float64),
+                    quat_wxyz=q / np.linalg.norm(q),
+                    observations=f[8:8 + len(points)],
+                    n_iters=int(n_steps),
+                    loss=float(f[7]),
+                )

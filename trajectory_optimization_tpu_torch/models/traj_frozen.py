@@ -84,12 +84,13 @@ from trajectory_optimization_tpu_torch.opt.graphs import (
     device_route,
     on_capture_stream,
 )
+from trajectory_optimization_tpu_torch.utils.profiling import span
 
 LIVE_TILES_KEPT = 64  # refreshes whose live-tile counts stats["live_tiles"] keeps
 _PAD_COORD = 1.0e6  # padding rows: huge norm -> rho ~ -2e6, can never cover
-# The profiler range of the frozen dominance tiles' forward and backward, by
-# which a trace separates their time from the rest of a step.
-FROZEN_TILES_RANGE = "traj_frozen.tiles"
+# The span (``utils.profiling.span``) of the frozen dominance tiles' forward
+# and backward, by which a trace separates their time from the rest of a step.
+FROZEN_TILES_RANGE = "trajopt.traj_frozen.tiles"
 
 
 def _np(x) -> np.ndarray:
@@ -761,7 +762,7 @@ class _FrozenLSE(torch.autograd.Function):
     def forward(ctx, qu, cu, crho, beta_t, q_bin, c_key, q_row, c_row, chunk):
         B, rows = qu.shape[:2]
         top, total = crho.new_empty((B, rows)), crho.new_empty((B, rows))
-        with torch.profiler.record_function(FROZEN_TILES_RANGE):
+        with span(FROZEN_TILES_RANGE):
             for t0 in range(0, B, chunk):
                 t1 = min(t0 + chunk, B)
                 x = _frozen_tiles(qu, cu, crho, beta_t, q_bin, c_key, q_row, c_row, t0, t1)[-1]
@@ -777,7 +778,7 @@ class _FrozenLSE(torch.autograd.Function):
         B, chunk = crho.shape[0], ctx.chunk
         dqu, dcu, dcrho = torch.empty_like(qu), torch.empty_like(cu), torch.empty_like(crho)
         half = torch.full((), 0.5, dtype=crho.dtype, device=crho.device)
-        with torch.profiler.record_function(FROZEN_TILES_RANGE), _full_f32_matmul(qu):
+        with span(FROZEN_TILES_RANGE), _full_f32_matmul(qu):
             for t0 in range(0, B, chunk):
                 t1 = min(t0 + chunk, B)
                 cos, bad, x = _frozen_tiles(qu, cu, crho, beta_t, q_bin, c_key, q_row, c_row,

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from trajectory_optimization_tpu_torch.ops.numerics import safe_norm
+from trajectory_optimization_tpu_torch.utils.profiling import span
 
 _BIG_SOFT = 1.0e30  # self-exclusion sentinel and runner-up mask
 # Elements of one (C, rows, N) support tile of hpr_mask_approx or one
@@ -42,11 +43,11 @@ _BIG_SOFT = 1.0e30  # self-exclusion sentinel and runner-up mask
 # rows at 8,192 points). The reductions are per row, so the mask does not
 # depend on the row count.
 TILE_BUDGET = {"cuda": 1 << 26, "cpu": 1 << 21}
-# The profiler range of the soft dominance tile's forward and backward, by
-# which a trace separates its time from the rest of a step.
-SOFT_DOMINANCE_RANGE = "hpr.soft_dominance"
+# The span (``utils.profiling.span``) of the soft dominance tile's forward
+# and backward, by which a trace separates its time from the rest of a step.
+SOFT_DOMINANCE_RANGE = "trajopt.hpr.soft_dominance"
 # The same for the binned tier's tiles (hpr_mask_soft_binned).
-SOFT_BINNED_RANGE = "hpr.soft_binned"
+SOFT_BINNED_RANGE = "trajopt.hpr.soft_binned"
 
 
 def _tile_rows(block: int, row_elems: int, t: torch.Tensor) -> int:
@@ -272,7 +273,7 @@ class _SoftLSE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, u, rho, beta, rows):
         lse = torch.empty_like(rho)
-        with torch.profiler.record_function(SOFT_DOMINANCE_RANGE):
+        with span(SOFT_DOMINANCE_RANGE):
             for r0, r1, _, x in _dominance_tiles(u, rho, beta, rows):
                 lse[r0:r1] = torch.logsumexp(x, dim=1)
         ctx.save_for_backward(u, rho, beta, lse)
@@ -283,7 +284,7 @@ class _SoftLSE(torch.autograd.Function):
     def backward(ctx, g):
         u, rho, beta, lse = ctx.saved_tensors
         du, drho = torch.zeros_like(u), torch.zeros_like(rho)
-        with torch.profiler.record_function(SOFT_DOMINANCE_RANGE), _full_f32_matmul(u):
+        with span(SOFT_DOMINANCE_RANGE), _full_f32_matmul(u):
             for r0, r1, cos, x in _dominance_tiles(u, rho, beta, ctx.rows):
                 # ∂L/∂domᵢⱼ = gᵢ·β·wᵢⱼ (0 on the diagonal: its weight underflows)
                 t = torch.exp_(x.sub_(lse[r0:r1, None])).mul_((beta * g[r0:r1])[:, None])
@@ -544,7 +545,7 @@ class _BinnedLSE(torch.autograd.Function):
         n = bin_s.shape[0]
         top = U.new_empty((tiles.shape[0], cap))
         total = U.new_empty((tiles.shape[0], cap))
-        with torch.profiler.record_function(SOFT_BINNED_RANGE):
+        with span(SOFT_BINNED_RANGE):
             for t0 in range(0, tiles.shape[0], chunk):
                 t1 = t0 + chunk
                 x = _binned_tiles(U, R, beta, bin_s, cov_pos, tiles[t0:t1], n, cap)[-1]
@@ -559,7 +560,7 @@ class _BinnedLSE(torch.autograd.Function):
         U, R, beta, bin_s, cov_pos, tiles, top, total = ctx.saved_tensors
         n, cap, chunk = bin_s.shape[0], ctx.cap, ctx.chunk
         dU, dR = torch.zeros_like(U), torch.zeros_like(R)
-        with torch.profiler.record_function(SOFT_BINNED_RANGE), _full_f32_matmul(U):
+        with span(SOFT_BINNED_RANGE), _full_f32_matmul(U):
             for t0 in range(0, tiles.shape[0], chunk):
                 t1 = t0 + chunk
                 q, crow, ok, qu, cu, cr, cos, x = _binned_tiles(

@@ -32,6 +32,11 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from trajectory_optimization_tpu_torch.opt.graphs import StepGraph, device_route, on_capture_stream
+from trajectory_optimization_tpu_torch.utils.profiling import (
+    RUNNER_FIRST_STEP,
+    RUNNER_REPLAYS,
+    span,
+)
 
 LossFn = Callable[[Dict], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -309,13 +314,21 @@ def drive_until_done(run: UntilDoneStep, graph: StepGraph, n_steps: int, *,
     ``check_every`` steps, where the eager loop reads it."""
     stop = run.stop
     can_stop = math.isfinite(stop.rewards_th) or math.isfinite(stop.smoothness_th)
-    for step in range(n_steps):
-        if step == 0:
-            run.step(first=True)
-        else:
+
+    def stops_after(step: int) -> bool:
+        return can_stop and (step + 1) % check_every == 0 and bool(run.done)
+
+    if n_steps < 1:
+        return
+    with span(RUNNER_FIRST_STEP):
+        run.step(first=True)
+    if stops_after(0):
+        return
+    with span(RUNNER_REPLAYS):
+        for step in range(1, n_steps):
             graph()
-        if can_stop and (step + 1) % check_every == 0 and bool(run.done):
-            break
+            if stops_after(step):
+                break
 
 
 def _eager_until_done(loss_fn, params, cfg, n_steps, stop, *, pose_key, quat_key, check_every):

@@ -29,11 +29,14 @@ the scratch cannot free memory the graph still writes. The kernel launch
 counts (``ops._kernels.LAUNCHES``) made while capturing are taken back and
 added once per replay, so the counters keep counting launches on the card.
 A capture or replay that fails raises :class:`CaptureError`; nothing falls
-back to the eager loop.
+back to the eager loop. Python's cyclic garbage collector is off while a
+step is recorded: a collected graph's ``reset`` is a call a capture
+forbids, and would fail the capture under way.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 from typing import Callable, Dict, Optional
 
@@ -128,6 +131,8 @@ class StepGraph:
         # "global" (the default): a call that is unsafe during capture fails
         # the capture whichever thread of the process makes it, so a step
         # that reads the host is caught and never recorded half-way
+        collecting = gc.isenabled()
+        gc.disable()
         graph.capture_begin(capture_error_mode="global")
         try:
             self.fn()
@@ -138,6 +143,8 @@ class StepGraph:
                 graph.capture_end()
             except RuntimeError as e:
                 end_err = e
+            if collecting:
+                gc.enable()
             counted = dict(_kernels.LAUNCHES)
             _kernels.LAUNCHES.update(before)
         err = fn_err or end_err

@@ -18,6 +18,7 @@ dropped first. The parameters' device is the run's device: data given on
 another device (a node's host arrays) is copied there. Every configuration
 captures on the card, soft HPR above ``soft_hpr_dense_max`` included
 (``models.traj.capture_route``); CPU tensors run the eager loop.
+Each phase of a run is a span of ``utils.profiling``.
 """
 from __future__ import annotations
 
@@ -44,6 +45,13 @@ from trajectory_optimization_tpu_torch.opt.engine import (
     value_and_grad,
 )
 from trajectory_optimization_tpu_torch.opt.graphs import StepGraph, device_route, on_capture_stream
+from trajectory_optimization_tpu_torch.utils.profiling import (
+    RUNNER_FINAL_FORWARD,
+    RUNNER_FIRST_STEP,
+    RUNNER_LOAD,
+    RUNNER_REPLAYS,
+    span,
+)
 
 MAX_BUCKETS = 8  # captured shape buckets kept per runner
 
@@ -128,20 +136,23 @@ class TrajRunner:
             return self._run_eager(params, *(None if t is None else t.to(device)
                                              for t in (points, valid, K, poses0, quats0)))
         key = (route, device, _signature(*params.values(), points, valid, K, poses0, quats0))
-        b = self.buckets.get(key, lambda: _TrajBucket(
-            self.problem, self.cfg, self.stop, route, device, params, points, valid, K, poses0,
-            quats0))
+        with span(RUNNER_LOAD):
+            b = self.buckets.get(key, lambda: _TrajBucket(
+                self.problem, self.cfg, self.stop, route, device, params, points, valid, K,
+                poses0, quats0))
         with b.lock:
             with on_capture_stream(device, route):
-                b.load(points, valid, K, poses0, quats0)
-                b.run.reset(params)
+                with span(RUNNER_LOAD):
+                    b.load(points, valid, K, poses0, quats0)
+                    b.run.reset(params)
                 drive_until_done(b.run, b.graph, self.n_steps)
             # the final forward stays eager, on the caller's stream
-            with torch.no_grad():
-                final_loss, final_aux = b.loss_fn(b.run.params)
-            final_aux["reward0"] = b.run.reward0.clone()
-            final_aux["smooth0"] = b.run.smooth0.clone()
-            return clone_tree(b.run.params), b.run.i.clone(), final_loss, final_aux
+            with span(RUNNER_FINAL_FORWARD):
+                with torch.no_grad():
+                    final_loss, final_aux = b.loss_fn(b.run.params)
+                final_aux["reward0"] = b.run.reward0.clone()
+                final_aux["smooth0"] = b.run.smooth0.clone()
+                return clone_tree(b.run.params), b.run.i.clone(), final_loss, final_aux
 
     def _run_eager(self, params, points, valid, K, poses0, quats0):
         points_t = points.t().contiguous()  # SoA once per problem, not per step
@@ -153,8 +164,9 @@ class TrajRunner:
             )
 
         out = _run_until_done(loss_fn, params, self.cfg, self.n_steps, self.stop, route="eager")
-        with torch.no_grad():
-            final_loss, final_aux = loss_fn(out["params"])
+        with span(RUNNER_FINAL_FORWARD):
+            with torch.no_grad():
+                final_loss, final_aux = loss_fn(out["params"])
         final_aux["reward0"] = out["reward0"]
         final_aux["smooth0"] = out["smooth0"]
         return out["params"], out["i"], final_loss, final_aux
@@ -221,18 +233,23 @@ class PoseAdvance:
             return self._advance_eager(params, opt_state, *data)
         key = (route, device, _signature(*params.values(), *opt_state["mu"].values(),
                                          opt_state["count"], points, valid, K, occlusion))
-        b = self.buckets.get(key, lambda: _PoseBucket(
-            self.problem, self.cfg, route, device, params, opt_state, points, valid, K,
-            occlusion))
+        with span(RUNNER_LOAD):
+            b = self.buckets.get(key, lambda: _PoseBucket(
+                self.problem, self.cfg, route, device, params, opt_state, points, valid, K,
+                occlusion))
         with b.lock:
             with on_capture_stream(device, route):
-                b.load(params, opt_state, points, valid, K, occlusion)
-                for _ in range(self.seg_steps):
-                    if b.warm:
-                        b.graph()
-                    else:
+                with span(RUNNER_LOAD):
+                    b.load(params, opt_state, points, valid, K, occlusion)
+                steps = self.seg_steps
+                if not b.warm:
+                    with span(RUNNER_FIRST_STEP):
                         b.step.step()
-                        b.warm = True
+                    b.warm = True
+                    steps -= 1
+                with span(RUNNER_REPLAYS):
+                    for _ in range(steps):
+                        b.graph()
             return (clone_tree(b.step.params), clone_tree(b.step.state), b.step.loss.clone(),
                     clone_tree(b.step.aux))
 
