@@ -37,8 +37,10 @@ pytestmark = pytest.mark.cuda
 DATA = Path(__file__).resolve().parents[1] / "data"
 INTR = default_intrinsics()
 CFG = te.OptimizerConfig(lr_pose=0.1, lr_quat=0.02)
-CACHED = {"pass_a", "pass_b", "bwd_stats", "bwd_apply"}
-UNCACHED = {"pass_a_minmax", "pass_b_recompute", "bwd_fused_acc"}
+# each regime's visibility kernels and the trajectory loss's kernels around them
+LOSS = {"traj_head", "make_norm", "traj_loss", "lo_cotangent", "traj_tail"}
+CACHED = {"pass_a", "pass_b", "bwd_stats", "bwd_apply", "alpha_beta"} | LOSS
+UNCACHED = {"pass_a_minmax", "pass_b_recompute", "bwd_fused_acc"} | LOSS
 
 
 @pytest.fixture(scope="module")

@@ -610,8 +610,9 @@ def test_pose_optimizer_card_matches_cpu(dev):
 def test_traj_opt_node_launches_k1_to_k4_per_message(dev):
     """``TrajOptNode`` on the card: 30 steps of cloud 10 per message launch
     K1 and K2 31 times (30 steps and the final forward) and K3 and K4 30
-    times, and nothing of the uncached regime; depth 2 publishes depth 1's
-    paths."""
+    times, the trajectory loss's forward kernels 31 times and its backward
+    kernels 30, and nothing of the uncached regime; depth 2 publishes depth
+    1's paths."""
     from trajectory_optimization_tpu_torch.bus.core import Bus
     from trajectory_optimization_tpu_torch.bus.messages import CloudMsg, Header, PathMsg
     from trajectory_optimization_tpu_torch.bus.nodes import TrajOptNode
@@ -634,7 +635,9 @@ def test_traj_opt_node_launches_k1_to_k4_per_message(dev):
         node.flush()
         assert len(out) == 2
         assert {n: v for n, v in _kernels.LAUNCHES.items() if v} == {
-            "pass_a": 62, "pass_b": 62, "bwd_stats": 60, "bwd_apply": 60}
+            "pass_a": 62, "pass_b": 62, "bwd_stats": 60, "bwd_apply": 60,
+            "traj_head": 62, "make_norm": 62, "traj_loss": 62, "lo_cotangent": 60,
+            "alpha_beta": 60, "traj_tail": 60}
         paths[depth] = [m.positions for m in out]
     for a, b in zip(paths[1], paths[2]):
         np.testing.assert_array_equal(a, b)

@@ -16,9 +16,12 @@ holds every module at D = 1, 2, 4 and on the 2×2 mesh:
   2×2 sub-mesh at the same pins (``tests/test_sharded_pallas.py``);
 - ``make_sharded_train_step``, 5 steps with the kernel path ('pallas') and
   the plain path ('xla'), against the port's single-device step (value_and
-  grad of ``traj_forward`` + ``make_optimizer``): losses rtol 1e-4, params
+  grad of the loss the sharded path distributes, ``fused_lo_sum`` +
+  ``traj_criterion`` for 'pallas' and ``traj_forward`` for 'xla', +
+  ``make_optimizer``): losses rtol 1e-4, params
   rtol 5e-3 / atol 5e-4 (``tests/test_sharded_pallas.py:176-181``), equal
-  at D = 1; the plain path also against the JAX twin's 'xla' step on 4
+  at D = 1; the kernel path also against ``traj_forward``'s kernel backend
+  (``ops.fused_traj``) at those pins on every mesh; the plain path also against the JAX twin's 'xla' step on 4
   virtual devices at ``tests/test_sharding.py``'s pins (loss rtol 1e-5,
   poses atol 1e-5);
 - ``shardmap_visibility`` against the single-device rewards of both
@@ -165,6 +168,18 @@ def test_sharded_train_step_matches_single_device(results, mesh, backend):
     np.testing.assert_allclose(losses, single["losses"], rtol=1e-4)
     np.testing.assert_allclose(poses, single["poses"], rtol=5e-3, atol=5e-4)
     np.testing.assert_allclose(quats, single["quats"], rtol=5e-3, atol=5e-4)
+
+
+@pytest.mark.parametrize("mesh", list(SLICES))
+def test_sharded_kernel_train_step_matches_the_kernel_backend(results, mesh):
+    """The sharded kernel path against the loss one device runs,
+    ``traj_forward``'s kernel backend (``ops.fused_traj``), which rounds its
+    criterion otherwise: the D > 1 pins on every mesh."""
+    res, _ = results
+    single = {k: res[0][f"single/kernel/{k}"] for k in ("losses", "poses", "quats")}
+    for k, tol in (("losses", dict(rtol=1e-4)), ("poses", dict(rtol=5e-3, atol=5e-4)),
+                   ("quats", dict(rtol=5e-3, atol=5e-4))):
+        np.testing.assert_allclose(_whole(res, f"{mesh}/pallas/{k}", mesh), single[k], **tol)
 
 
 @pytest.mark.parametrize("mesh", list(SLICES))

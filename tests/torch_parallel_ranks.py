@@ -134,7 +134,8 @@ def _train(step_fn, init_fn, params, *args):
 
 
 def pallas_checks(rank):
-    from trajectory_optimization_tpu_torch.models.traj import TrajProblem, init_traj_params, traj_forward
+    from trajectory_optimization_tpu_torch.models.traj import (
+        TrajProblem, init_traj_params, traj_criterion, traj_forward)
     from trajectory_optimization_tpu_torch.ops import fused_vis as fv
     from trajectory_optimization_tpu_torch.opt.engine import (
         OptimizerConfig, apply_updates, make_optimizer, value_and_grad)
@@ -201,16 +202,40 @@ def pallas_checks(rank):
             Pt, Vt = torch.as_tensor(padded), torch.as_tensor(valid)
             kprob = TrajProblem(img_width=intr.width, img_height=intr.height, wps_step=2,
                                 backend="kernel" if backend == "pallas" else "torch")
+            if backend == "pallas":
+                # what the sharded kernel path distributes: the fused visibility
+                # passes and the plain criterion (the kernel backend of
+                # traj_forward fuses the criterion too, and rounds it otherwise)
+                def loss_fn(p):
+                    lo = fv.fused_lo_sum(Pt, p["quats"][::2], p["poses"][::2], K, intr.width,
+                                         intr.height, valid=Vt)
+                    return traj_criterion(lo, p, poses0, kprob, valid=Vt)
+            else:
+                def loss_fn(p):
+                    return traj_forward(p, Pt, K, poses0, quats0, kprob, valid=Vt)
             losses = []
             for _ in range(TRAIN_STEPS):
-                loss, _, grads = value_and_grad(
-                    lambda p: traj_forward(p, Pt, K, poses0, quats0, kprob, valid=Vt), params)
+                loss, _, grads = value_and_grad(loss_fn, params)
                 updates, opt = tx.update(grads, opt, params)
                 params = apply_updates(params, updates)
                 losses.append(float(loss))
             out.update({f"single/{backend}/losses": np.asarray(losses),
                         f"single/{backend}/poses": params["poses"],
                         f"single/{backend}/quats": params["quats"]})
+            if backend == "pallas":
+                # the loss a single device runs: traj_forward's kernel backend
+                params = init_traj_params(path, quats)
+                opt = tx.init(params)
+                losses = []
+                for _ in range(TRAIN_STEPS):
+                    loss, _, grads = value_and_grad(
+                        lambda p: traj_forward(p, Pt, K, poses0, quats0, kprob, valid=Vt), params)
+                    updates, opt = tx.update(grads, opt, params)
+                    params = apply_updates(params, updates)
+                    losses.append(float(loss))
+                out.update({"single/kernel/losses": np.asarray(losses),
+                            "single/kernel/poses": params["poses"],
+                            "single/kernel/quats": params["quats"]})
             if backend == "xla":
                 out["single/rewards"] = traj_forward(
                     init_traj_params(path, quats), Pt, K, poses0, quats0, kprob,
@@ -503,7 +528,8 @@ def multihost_checks(rank, port, world):
     pose loss and two steps; process 0 adds the single-device references
     from the whole cloud."""
     from trajectory_optimization_tpu_torch.models.pose import init_pose_params, pose_forward
-    from trajectory_optimization_tpu_torch.models.traj import TrajProblem, init_traj_params, traj_forward
+    from trajectory_optimization_tpu_torch.models.traj import (
+        TrajProblem, init_traj_params, traj_criterion, traj_forward)
     from trajectory_optimization_tpu_torch.opt.engine import (
         OptimizerConfig, apply_updates, make_optimizer)
     from trajectory_optimization_tpu_torch.parallel.multihost import (

@@ -13,13 +13,24 @@ log-odds fusion is a sum over it:
   4. loss = 1/(mean reward + eps) + ‖p₀ − p₀⁰‖ + w_s/(mean angle + eps)
      + w_l·|len − len⁰|.
 
-Backends of ``traj_forward``: ``"kernel"`` runs the fused K1–K4 family
-(``ops.fused_vis``: CUDA kernels for CUDA tensors, their plain versions for
-CPU tensors, hand-derived backward either way); ``"torch"`` is the plain
-autodiff path, the twin of the JAX package's XLA path (like it, it
-rematerialises its (W, N) intermediates in the backward pass instead of
-saving them); ``"auto"`` picks ``"kernel"`` for CUDA tensors and ``"torch"``
-for CPU tensors. The JAX package's names ``"pallas"`` and ``"xla"`` are
+Backends of ``traj_forward``: ``"kernel"`` runs the whole loss as one
+autograd function, ``ops.fused_traj.fused_traj``: six kernels of its own
+(``csrc/fused_traj.cu``: the quaternion prologue, the criterion over the
+points and over the waypoints, and their hand-derived backward) around the
+fused visibility kernels (``ops.fused_vis``): K1–K4 while the (W_s, N) score
+cache fits its budget, K1′, K2′ and K5 above it, decided from W_s × N alone
+(``fused_vis.uses_score_cache``); the scored stride, W < 3 (no interior
+angle) and padded points (``valid``) are read from the inputs. CUDA tensors
+launch the kernels, CPU tensors run their plain versions. A step of it is
+ten launches (nine above the budget, K5's sum included) where
+``fused_lo_sum`` and ``traj_criterion`` under autograd were some three
+hundred; only the loss is differentiable there, not the aux scalars or the
+rewards. ``"torch"`` is the plain autodiff path, the twin of the JAX
+package's XLA path (like it, it rematerialises its (W, N) intermediates in
+the backward pass instead of saving them); ``"auto"`` picks ``"kernel"`` for
+CUDA tensors and ``"torch"`` for CPU tensors. ``traj_criterion`` and
+``traj_criterion_from_mean`` stay the criterion of the plain, soft-HPR,
+frozen and sharded paths. The JAX package's names ``"pallas"`` and ``"xla"`` are
 accepted for ``"kernel"`` and ``"torch"``. ``soft_hpr=True`` takes the
 occlusion-aware path whatever the backend (the fused kernels have no
 occlusion input): each selected waypoint's scores are gated by the dense
@@ -36,7 +47,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from trajectory_optimization_tpu_torch.ops.fused_vis import fused_lo_sum
+from trajectory_optimization_tpu_torch.ops.fused_traj import fused_traj
 from trajectory_optimization_tpu_torch.ops.hpr import soft_hpr_gate
 from trajectory_optimization_tpu_torch.ops.numerics import safe_norm
 from trajectory_optimization_tpu_torch.ops.scores import (
@@ -231,11 +242,7 @@ def traj_forward(
             lo_sum = lo_sum + checkpoint(soft_hpr_wp_logodds, quat, pose, points, K, problem,
                                          valid, use_reentrant=False, preserve_rng_state=False)
     elif backend == "kernel":
-        lo_sum = fused_lo_sum(
-            points, quats[sel], poses[sel], K, problem.img_width, problem.img_height,
-            min_dist=problem.min_dist, max_dist=problem.max_dist, eps=problem.eps,
-            valid=valid, points_t=points_t,
-        )
+        return fused_traj(params, points, K, poses0, problem, valid=valid, points_t=points_t)
     else:
         # Checkpointed as the JAX twin's XLA path is: the dozens of (W, N)
         # intermediates are recomputed in the backward pass, not kept from the

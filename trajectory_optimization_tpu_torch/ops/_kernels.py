@@ -2,8 +2,10 @@
 
 ``csrc/fused_vis.cu`` holds the seven kernels that replace the Pallas TPU
 kernels of ``trajectory_optimization_tpu/ops/pallas_vis.py`` (plain versions
-and dispatch: ``ops/fused_vis.py``); ``csrc/splat_render.cu`` the two that
-replace those of ``ops/pallas_render.py`` (``ops/tile_render.py``). Every
+and dispatch: ``ops/fused_vis.py``); ``csrc/fused_traj.cu`` the six of the
+trajectory loss around them, which replace none (``ops/fused_traj.py``);
+``csrc/splat_render.cu`` the two that replace those of
+``ops/pallas_render.py`` (``ops/tile_render.py``). Every
 ``csrc/*.cu`` is compiled on first use, one ``nvcc -c`` per source, all
 started together, with
 
@@ -18,12 +20,13 @@ Nothing here runs at import time: the CPU tests import this module without
 
 Every wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` (pass A's min/max preset by one copy, see
-``_minmax_out``), launches on the current stream, raises if the
+``_minmax_out``, unless the caller hands in the preset that ``traj_head``
+writes), launches on the current stream, raises if the
 C entry point returns a CUDA error, and only then adds one to its entry in
-``LAUNCHES``. K3 and K4 finish their own partial sums in the last block to
-arrive; the partials and the arrival counters, which the kernels leave
-zeroed, live in a scratch that is made once per device and stream
-(``_launch_reduced``).
+``LAUNCHES``. K3, K4 and ``traj_loss`` finish their own partial sums in the
+last block to arrive; the partials and the arrival counters, which the
+kernels leave zeroed, live in a scratch that is made once per device and
+stream (``_launch_reduced``).
 
 Every wrapper can be recorded into a CUDA graph (``opt/graphs.py``): the
 stream is read at call time, and the device state made on first use (pass
@@ -39,6 +42,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -68,6 +72,8 @@ LAUNCHES = {
     "pass_a": 0, "pass_b": 0, "bwd_stats": 0, "bwd_apply": 0,
     "pass_a_minmax": 0, "pass_b_recompute": 0, "bwd_fused_acc": 0,
     "splat_runs": 0, "splat_dense": 0,
+    "traj_head": 0, "make_norm": 0, "traj_loss": 0, "lo_cotangent": 0, "alpha_beta": 0,
+    "traj_tail": 0,
 }
 
 BWD_SLOTS = 40  # K5's sums per waypoint (the JAX twin's layout)
@@ -192,12 +198,19 @@ def _load():
     lib.fv_pass_a_minmax.argtypes = [P, P, P, P, I, I] + [F] * 7 + [P, P, P]
     lib.fv_pass_b_recompute.argtypes = [P, P, P, P, I, I] + [F] * 8 + [P, P]
     lib.fv_bwd_fused_acc.argtypes = [P] * 6 + [I, I] + [F] * 8 + [P, P]
+    lib.ft_traj_head.argtypes = [P, P, P, I, I, F, P, P, P, P]
+    lib.ft_make_norm.argtypes = [P, I, P, P]
+    lib.ft_traj_loss.argtypes = [P, P, P, P, I, I, I] + [F] * 6 + [P, I, P, P, P, P, P]
+    lib.ft_lo_cotangent.argtypes = [P] * 5 + [I, P, P]
+    lib.ft_alpha_beta.argtypes = [P, P, I, P, P]
+    lib.ft_traj_tail.argtypes = [P, I] + [P] * 6 + [I, I] + [F] * 6 + [P, P, P]
     lib.sr_splat_runs.argtypes = [P, P, I, I, F, P, P]
     lib.sr_splat_dense.argtypes = [P, P, I, I, I, F, P, P]
     for fn in (lib.fv_pass_a, lib.fv_pass_b, lib.fv_bwd_stats, lib.fv_bwd_apply,
                lib.fv_pass_a_minmax, lib.fv_pass_b_recompute, lib.fv_bwd_fused_acc,
                lib.sr_splat_runs, lib.sr_splat_dense, lib.sr_tile_h, lib.sr_tile_w,
-               lib.sr_band_w, lib.sr_resident_blocks):
+               lib.sr_band_w, lib.sr_resident_blocks, lib.ft_traj_head, lib.ft_make_norm,
+               lib.ft_traj_loss, lib.ft_lo_cotangent, lib.ft_alpha_beta, lib.ft_traj_tail):
         fn.restype = I
     lib.sr_tile_h.argtypes = lib.sr_tile_w.argtypes = lib.sr_band_w.argtypes = []
     lib.sr_resident_blocks.argtypes = [I]
@@ -270,8 +283,18 @@ def _minmax_out(W: int, device) -> torch.Tensor:
     return col.repeat(1, W)  # always a copy (expand().contiguous() is col itself at W = 1)
 
 
-def pass_a(wp, kp, pts_t, valid, k):
-    """K1: returns (m (W,), M (W,), scores (W, N))."""
+def _preset(minmax, W: int, device) -> torch.Tensor:
+    """Pass A's (2, W) output: ``minmax`` as given (preset to the sentinels by
+    ``traj_head``) or a new preset one."""
+    if minmax is None:
+        return _minmax_out(W, device)
+    _check("minmax", minmax, (2, W))
+    return minmax
+
+
+def pass_a(wp, kp, pts_t, valid, k, minmax=None):
+    """K1: returns (m (W,), M (W,), scores (W, N)); m and M are the rows of
+    ``minmax`` where given."""
     N, W = _sizes(pts_t, wp)
     args = (
         _check("pts_t", pts_t, (3, N)), _check("valid", valid, (N,)),
@@ -279,7 +302,7 @@ def pass_a(wp, kp, pts_t, valid, k):
     )
     lib = _load()
     cache = torch.empty((W, N), dtype=torch.float32, device=pts_t.device)
-    m, mx = _minmax_out(W, pts_t.device).unbind(0)
+    m, mx = _preset(minmax, W, pts_t.device).unbind(0)
     with torch.cuda.device(pts_t.device):
         rc = lib.fv_pass_a(*args, N, W, *_consts_args(k), cache.data_ptr(),
                            m.data_ptr(), mx.data_ptr(), _stream(pts_t))
@@ -383,15 +406,16 @@ def bwd_apply(wp, kp, norm2, pts_t, valid, g, scores, need, k):
     return out
 
 
-def pass_a_minmax(wp, kp, pts_t, valid, k):
-    """K1′: returns (m (W,), M (W,)); no score cache."""
+def pass_a_minmax(wp, kp, pts_t, valid, k, minmax=None):
+    """K1′: returns (m (W,), M (W,)); no score cache. m and M are the rows of
+    ``minmax`` where given."""
     N, W = _sizes(pts_t, wp)
     args = (
         _check("pts_t", pts_t, (3, N)), _check("valid", valid, (N,)),
         _check("wp", wp, (W, 12)), _check("kp", kp, (4,)),
     )
     lib = _load()
-    m, mx = _minmax_out(W, pts_t.device).unbind(0)
+    m, mx = _preset(minmax, W, pts_t.device).unbind(0)
     with torch.cuda.device(pts_t.device):
         rc = lib.fv_pass_a_minmax(*args, N, W, *_consts_args(k), m.data_ptr(),
                                   mx.data_ptr(), _stream(pts_t))
@@ -446,6 +470,123 @@ def bwd_fused_acc(wp, kp, norm, pts_t, valid, g, k):
     _raise_on(rc, "bwd_fused_acc")
     LAUNCHES["bwd_fused_acc"] += 1
     return torch.sum(part, dim=0)
+
+
+# ---- the trajectory loss around the visibility kernels (csrc/fused_traj.cu)
+
+def _crit_args(c):
+    """The kernels' criterion scalars from a ``fused_traj.TrajConsts``: the
+    acos gradient's window and π, rounded to f32 by ctypes."""
+    return (c.eps, c.smoothness_weight, c.length_weight, -1.0 + c.angle_margin,
+            1.0 - c.angle_margin, math.pi)
+
+
+def traj_head(poses, quats, K, step: int):
+    """traj_head: returns (wp (W_s, 12), kp (4,), pass A's (2, W_s) output
+    preset to its sentinels), W_s = ceil(W / step)."""
+    W = poses.shape[0]
+    if W == 0 or step < 1:
+        raise ValueError(f"empty path or bad stride: W={W}, step={step}")
+    W_s = -(-W // step)
+    args = (_check("poses", poses, (W, 3)), _check("quats", quats, (W, 4)),
+            _check("K", K, (3, 3)))
+    lib = _load()
+    dev = poses.device
+    wp = torch.empty((W_s, 12), dtype=torch.float32, device=dev)
+    kp = torch.empty((4,), dtype=torch.float32, device=dev)
+    minmax = torch.empty((2, W_s), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.ft_traj_head(*args, W_s, step, BIG, wp.data_ptr(), kp.data_ptr(),
+                              minmax.data_ptr(), _stream(poses))
+    _raise_on(rc, "traj_head")
+    LAUNCHES["traj_head"] += 1
+    return wp, kp, minmax
+
+
+def make_norm(minmax):
+    """make_norm: (2, W) min/max → norm (W, 4)."""
+    W = minmax.shape[1]
+    arg = _check("minmax", minmax, (2, W))
+    lib = _load()
+    norm = torch.empty((W, 4), dtype=torch.float32, device=minmax.device)
+    with torch.cuda.device(minmax.device):
+        rc = lib.ft_make_norm(arg, W, norm.data_ptr(), _stream(minmax))
+    _raise_on(rc, "make_norm")
+    LAUNCHES["make_norm"] += 1
+    return norm
+
+
+def traj_loss(lo, valid, poses, poses0, c):
+    """traj_loss: returns (loss (), aux (8,), rewards (N,))."""
+    N, W = lo.shape[0], poses.shape[0]
+    if N == 0 or W == 0:
+        raise ValueError(f"empty problem: N={N}, W={W}")
+    args = (_check("lo", lo, (N,)), _check("valid", valid, (N,)),
+            _check("poses", poses, (W, 3)), _check("poses0", poses0, (W, 3)))
+    lib = _load()
+    dev = lo.device
+    with torch.cuda.device(dev):
+        stream = _stream(lo)
+        rewards = torch.empty((N,), dtype=torch.float32, device=dev)
+        loss = torch.empty((), dtype=torch.float32, device=dev)
+        aux = torch.empty((8,), dtype=torch.float32, device=dev)
+        rc = _launch_reduced(lib.ft_traj_loss, (*args, N, W, c.wps_step, *_crit_args(c)), 1,
+                             dev, stream, (rewards.data_ptr(), loss.data_ptr(), aux.data_ptr(),
+                                           stream))
+    _raise_on(rc, "traj_loss")
+    LAUNCHES["traj_loss"] += 1
+    return loss, aux, rewards
+
+
+def lo_cotangent(g_loss, lo, rewards, valid, aux):
+    """lo_cotangent: returns g (N,), the loss's cotangent on lo."""
+    N = lo.shape[0]
+    args = (_check("g_loss", g_loss, ()), _check("lo", lo, (N,)),
+            _check("rewards", rewards, (N,)), _check("valid", valid, (N,)),
+            _check("aux", aux, (8,)))
+    lib = _load()
+    g = torch.empty((N,), dtype=torch.float32, device=lo.device)
+    with torch.cuda.device(lo.device):
+        rc = lib.ft_lo_cotangent(*args, N, g.data_ptr(), _stream(lo))
+    _raise_on(rc, "lo_cotangent")
+    LAUNCHES["lo_cotangent"] += 1
+    return g
+
+
+def alpha_beta(stats, norm):
+    """alpha_beta: K3's (W, 4) table and norm (W, 4) → norm2 (W, 6)."""
+    W = norm.shape[0]
+    args = (_check("stats", stats, (W, 4)), _check("norm", norm, (W, 4)))
+    lib = _load()
+    norm2 = torch.empty((W, 6), dtype=torch.float32, device=norm.device)
+    with torch.cuda.device(norm.device):
+        rc = lib.ft_alpha_beta(*args, W, norm2.data_ptr(), _stream(norm))
+    _raise_on(rc, "alpha_beta")
+    LAUNCHES["alpha_beta"] += 1
+    return norm2
+
+
+def traj_tail(sums, wp, quats, poses, poses0, aux, g_loss, c):
+    """traj_tail: K4's (W_s, 3, 4) sums or K5's (W_s, 40) accumulator →
+    (∂poses (W, 3), ∂quats (W, 4))."""
+    W_s, W = wp.shape[0], poses.shape[0]
+    if W_s != -(-W // c.wps_step):
+        raise ValueError(f"wp: {W_s} rows for {W} waypoints at stride {c.wps_step}")
+    slots = BWD_SLOTS if sums.dim() == 2 else 12
+    args = (_check("sums", sums, (W_s, BWD_SLOTS) if slots == BWD_SLOTS else (W_s, 3, 4)), slots,
+            _check("wp", wp, (W_s, 12)), _check("quats", quats, (W, 4)),
+            _check("poses", poses, (W, 3)), _check("poses0", poses0, (W, 3)),
+            _check("aux", aux, (8,)), _check("g_loss", g_loss, ()))
+    lib = _load()
+    dev = wp.device
+    g_poses = torch.empty((W, 3), dtype=torch.float32, device=dev)
+    g_quats = torch.empty((W, 4), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.ft_traj_tail(*args, W, c.wps_step, *_crit_args(c), g_poses.data_ptr(),
+                              g_quats.data_ptr(), _stream(wp))
+    _raise_on(rc, "traj_tail")
+    LAUNCHES["traj_tail"] += 1
+    return g_poses, g_quats
 
 
 def _splat_args(offsets, entries, tiles_y, tiles_x):

@@ -37,6 +37,14 @@ pairs to an int32 word by ``pack_need``). Pass A (K1, K1′) finishes a
 pair after the score's distance term where that already decides that the
 pair changes neither min nor max; ``prune_masks`` gives those predicates.
 
+Two callers: ``fused_lo_sum`` (the ``FusedLoSum`` autograd function below,
+whose prologue and the criterion after it are plain PyTorch) and the kernel
+backend of ``models.traj.traj_forward``, ``ops.fused_traj.FusedTraj``, which
+runs the same stages between hand-written kernels of its own: its head
+writes ``wp``, ``kp`` and pass A's preset min/max (``_kernels.pass_a(...,
+minmax=...)``), and it finishes ``make_norm`` and K4's α/β in one launch
+each. The regime rule is the same for both.
+
 Layout: points as a contiguous SoA (3, N) f32, transposed once per problem;
 ``valid`` and the cotangent as (N,) f32; the waypoint table ``wp`` (W, 12) =
 [R row-major 9, t 3]; ``kp`` (4,) = [fx, fy, cx, cy]; ``norm`` (W, 4) =

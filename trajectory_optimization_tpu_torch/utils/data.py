@@ -107,6 +107,54 @@ def splat_cases(K, img_height: int, img_width: int, *, cap: int = 2048, seed: in
     }
 
 
+TRAJ_CASES = ("initial", "moved", "coincident", "collinear", "w1", "w2", "step1", "step3",
+              "padded", "blind")
+
+
+def traj_case(name: str, cloud: np.ndarray, path: np.ndarray, *, n_points: int = 8000,
+              target: int = 8192, every: int = 5):
+    """A trajectory problem on the reference cloud and path that presses on
+    one edge of the trajectory loss (``TRAJ_CASES``). Returns (points (M, 3),
+    valid (M,), poses (W, 3), quats (W, 4), poses0, quats0, wps_step): every
+    ``every``-th point, the first ``n_points`` of them padded to ``target``,
+    stride 2 unless the case says otherwise, the path moved (seeded) off its
+    initial positions and some orientations turned, except where named:
+
+    * ``initial``: the initial path, where the anchor and length terms are 0;
+    * ``coincident``: waypoints 4, 5 and 6 at one place (zero-length
+      segments and a zero cosine);
+    * ``collinear``: a straight triple (cosine −1) and a triple folded back
+      (+1) with 2 m sides, outside the angle gradient's clamp window;
+    * ``w1``, ``w2``: one and two waypoints (no interior angle);
+    * ``step1``, ``step3``: every waypoint and every third one scored;
+    * ``padded``: a quarter of the points padding, ``valid`` 0;
+    * ``blind``: scored waypoint 4 moved 1 km away: it sees nothing, so its
+      span is floored and its gate closed.
+    """
+    sub = cloud[::every][: (6 * n_points) // 8 if name == "padded" else n_points]
+    pts, valid = pad_points(sub, target=target)
+    path = np.asarray(path, np.float32).copy()
+    poses, quats, step = path.copy(), identity_quaternions(len(path)), 2
+    if name != "initial":
+        rng = np.random.default_rng(7)
+        poses = path + rng.normal(scale=0.2, size=path.shape).astype(np.float32)
+        quats[::3] = [0.9, 0.1, -0.3, 0.2]
+    if name == "coincident":
+        poses[5] = poses[6] = poses[4]
+    elif name == "collinear":
+        poses[10] = poses[9] + [2.0, 0.0, 0.0]
+        poses[11] = poses[9] + [4.0, 0.0, 0.0]
+        poses[13] = poses[15] = poses[14] + [0.0, 2.0, 0.0]
+    elif name in ("w1", "w2"):
+        n = 1 if name == "w1" else 2
+        path, poses, quats = path[:n], poses[:n], quats[:n]
+    elif name in ("step1", "step3"):
+        step = int(name[-1])
+    elif name == "blind":
+        poses[8] = poses[8] + [1000.0, 0.0, 0.0]
+    return pts, valid, poses, quats, path, identity_quaternions(len(path)), step
+
+
 def bucket_size(n: int, *, multiple: int = 1024, min_size: int = 1024) -> int:
     """Round a cloud size up to a power-of-two-ish bucket (1/4 steps between
     powers of two, so padding waste stays under ~25%)."""
