@@ -2,11 +2,15 @@
 
 Held: under a CPU ``torch.profiler`` the facades record their spans in
 order, nested in the root span and on the caller's thread; the captured
-runners' phases, run uncaptured (route ``"static"``), record theirs; with
-no profiler on a span never enters ``record_function``; a capture on a
+runners' phases, run uncaptured (route ``"static"``), record theirs; an
+occlusion-aware facade call records the soft gate's span once per scored
+waypoint in its first step and its final forward, the binned tiles' span
+inside it; with no profiler on a span never enters ``record_function``;
+a capture on a
 stub graph records its seconds and adds no span of its own; a runner past
 ``MAX_BUCKETS`` shapes drops the least recently used bucket.
 """
+import functools
 import types
 
 import numpy as np
@@ -29,6 +33,7 @@ from trajectory_optimization_tpu_torch.utils.intrinsics import default_intrinsic
 INTR = default_intrinsics()
 CFG = OptimizerConfig(lr_pose=0.1, lr_quat=0.02)
 EVERY = 40  # a 1,012-point cut of cloud 10 keeps each call to a fraction of a second
+SOFT_WAYPOINTS = 4
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -67,8 +72,9 @@ def _assert_nested(spans, root):
 
 def test_span_names_carry_the_prefix():
     names = [v for k, v in vars(tp).items() if k.startswith(("FACADE_", "RUNNER_"))]
-    names += [hpr.SOFT_DOMINANCE_RANGE, hpr.SOFT_BINNED_RANGE, traj_frozen.FROZEN_TILES_RANGE]
-    assert len(names) == 10 and len(set(names)) == 10
+    names += [tp.HPR_GATE, hpr.SOFT_DOMINANCE_RANGE, hpr.SOFT_BINNED_RANGE,
+              traj_frozen.FROZEN_TILES_RANGE]
+    assert len(names) == 11 and len(set(names)) == 11
     assert all(n.startswith(tp.PREFIX) for n in names)
 
 
@@ -123,15 +129,61 @@ def test_static_pose_route_records_the_first_step_once(pts):
     assert later == [tp.RUNNER_LOAD, tp.RUNNER_LOAD, tp.RUNNER_REPLAYS]
 
 
+def _soft_call(mp):
+    """A 3-step call of the occlusion-aware facade on the static-buffer
+    route (the captured route's step called uncaptured: a first step, the
+    replays and a final forward), the binned tier forced at 1,536 points."""
+    mp.setattr(api, "TrajProblem",
+               functools.partial(TrajProblem, soft_hpr_dense_max=0, hpr_cap=64))
+    mp.setattr(tr, "device_route", lambda device, route="graph": "static")
+    rng = np.random.default_rng(3)
+    points = rng.uniform(-6.0, 6.0, (1536, 3)).astype(np.float32)
+    path = np.stack([np.linspace(-2.0, 1.0, SOFT_WAYPOINTS), np.zeros(SOFT_WAYPOINTS),
+                     np.zeros(SOFT_WAYPOINTS)], axis=1).astype(np.float32)
+    opt = api.TrajectoryOptimizer(soft_hpr=True, lr_quat=0.05, device="cpu")
+    return lambda: opt.optimize(points, path, n_steps=3)
+
+
+@pytest.fixture(scope="module")
+def soft_spans():
+    tr.traj_runner.cache_clear()
+    with pytest.MonkeyPatch.context() as mp:
+        spans = _traced(_soft_call(mp))
+    tr.traj_runner.cache_clear()
+    return spans
+
+
+def _inside(spans, inner, outer):
+    return [s for s in spans if s[0] == inner
+            and any(o[0] == outer and o[1] <= s[1] and s[2] <= o[2] for o in spans)]
+
+
+@pytest.mark.parametrize("phase", [tp.RUNNER_FIRST_STEP, tp.RUNNER_FINAL_FORWARD])
+def test_soft_facade_records_the_gate_span_in_each_eager_phase(phase, soft_spans):
+    (root, t0, t1, thread), inner = soft_spans[0], soft_spans[1:]
+    assert root == tp.FACADE_OPTIMIZE
+    assert all(t0 <= a and b <= t1 and th == thread for _, a, b, th in inner)
+    gates = _inside(soft_spans, tp.HPR_GATE, phase)
+    # the first step's forward and the backward's recomputation of each
+    # checkpointed waypoint; the final forward once
+    assert len(gates) == SOFT_WAYPOINTS * (2 if phase == tp.RUNNER_FIRST_STEP else 1)
+    assert len(_inside(soft_spans, hpr.SOFT_BINNED_RANGE, tp.HPR_GATE)) >= len(gates)
+
+
 def test_no_profiler_never_enters_record_function(pts, path10, monkeypatch):
     def refuse(name):
         raise AssertionError(f"record_function({name!r}) entered with no profiler on")
 
+    soft = _soft_call(monkeypatch)
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
     assert tp.span(tp.FACADE_OPTIMIZE) is tp.span(tp.RUNNER_REPLAYS)  # one shared null context
+    assert tp.span(tp.HPR_GATE) is tp.span(tp.RUNNER_REPLAYS)
     api.TrajectoryOptimizer(device="cpu").optimize(pts, path10, n_steps=2)
     prob = TrajProblem(img_width=INTR.width, img_height=INTR.height, wps_step=2)
     tr.TrajRunner(prob, CFG, NEVER, 2)._run("static", *_traj_args(pts, path10))
+    tr.traj_runner.cache_clear()
+    soft()
+    tr.traj_runner.cache_clear()
 
 
 class _StubGraph:

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from trajectory_optimization_tpu_torch.ops.numerics import safe_norm
-from trajectory_optimization_tpu_torch.utils.profiling import span
+from trajectory_optimization_tpu_torch.utils.profiling import HPR_GATE, span
 
 _BIG_SOFT = 1.0e30  # self-exclusion sentinel and runner-up mask
 # Elements of one (C, rows, N) support tile of hpr_mask_approx or one
@@ -703,10 +703,11 @@ def soft_hpr_gate(cam: torch.Tensor, valid: Optional[torch.Tensor], problem) -> 
     (N, 3) points: the dense ``hpr_mask_soft`` up to the problem's
     ``soft_hpr_dense_max`` points, the binned tier above it with the
     problem's ``hpr_cap`` and ``hpr_safety`` (the twin's defaults where the
-    problem has none)."""
-    if cam.shape[0] > problem.soft_hpr_dense_max:
-        return hpr_mask_soft_binned(
-            cam, valid=valid,
-            cap=getattr(problem, "hpr_cap", SOFT_BINNED_DEFAULTS["cap"]),
-            safety=getattr(problem, "hpr_safety", SOFT_BINNED_DEFAULTS["safety"]))
-    return hpr_mask_soft(cam, valid=valid)
+    problem has none). The whole gate is the span ``HPR_GATE``."""
+    with span(HPR_GATE):
+        if cam.shape[0] > problem.soft_hpr_dense_max:
+            return hpr_mask_soft_binned(
+                cam, valid=valid,
+                cap=getattr(problem, "hpr_cap", SOFT_BINNED_DEFAULTS["cap"]),
+                safety=getattr(problem, "hpr_safety", SOFT_BINNED_DEFAULTS["safety"]))
+        return hpr_mask_soft(cam, valid=valid)

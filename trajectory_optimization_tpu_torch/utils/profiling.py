@@ -21,7 +21,10 @@
     bucket's first run captures its step inside it) and
     ``RUNNER_FINAL_FORWARD`` (the eager final forward and the result's
     clones, on the CPU route too);
-  - the soft-HPR and frozen-tile ranges (``ops.hpr.SOFT_DOMINANCE_RANGE``,
+  - ``HPR_GATE`` around the whole soft occlusion gate of a camera
+    (``ops.hpr.soft_hpr_gate``, either tier: norms, routing, sorts and
+    searches, tiles and the row maxima), and inside it the soft-HPR and
+    frozen-tile ranges (``ops.hpr.SOFT_DOMINANCE_RANGE``,
     ``SOFT_BINNED_RANGE``, ``models.traj_frozen.FROZEN_TILES_RANGE``).
 
   A replay runs no Python, so nothing inside a captured step's kernels is
@@ -45,6 +48,7 @@ RUNNER_LOAD = "trajopt.runner.load"
 RUNNER_FIRST_STEP = "trajopt.runner.first_step"
 RUNNER_REPLAYS = "trajopt.runner.replays"
 RUNNER_FINAL_FORWARD = "trajopt.runner.final_forward"
+HPR_GATE = "trajopt.hpr.gate"
 
 _NO_SPAN = contextlib.nullcontext()
 _profiling = torch.autograd._profiler_enabled
