@@ -532,6 +532,21 @@ SOFT_OPS = {"forward": 13, "backward": 38}
 # are the tiles' (4 grids × tiles × cap²), counted on this run's inputs by
 # binned_pairs.
 BINNED_OPS = {"forward": 13, "backward": 34}
+# The binned tiles' kernels (csrc/soft_binned.cu) against their plain version
+# on the same CUDA tensors (binned_kernel_checks): in float32 the two take cos
+# by different products, and β·ρ ≈ 8·10⁴ turns one ulp of cos near 1 (2⁻²⁴)
+# into ~5e-3 of x. So the kernel's top and lse (absolute, in x) and its
+# total, dU and dR (relative to the largest entry) are held no farther from
+# the float64 plain version than twice the float32 plain version plus
+# KERNEL_ULPS_X such ulps (tests/test_torch_soft_binned_cuda.py's rule).
+# Its bound counts the pairs it reduces, (query, coverer) of one bin in a
+# real tile, not the query itself, at BINNED_OPS each; bytes: each real
+# tile's query and coverer rows (16 bytes) read once, 12 bytes out a query
+# row (top, total, lse) forward, and backward 12 more in a query row (top,
+# total, g), 12 out a query row and 16 out a coverer row (the partials).
+KERNEL_ULPS_X = 8
+BINNED_KERNEL_POSE = 262_144  # the soft pose step's points, cap 1024
+BINNED_KERNEL_BYTES = {"forward": (16 + 12, 16), "backward": (16 + 12 + 12, 16 + 16)}
 # (points, timed steps) of the soft pose step on bench.py's cloud, and the
 # waypoints optimization's steps (the demo's default)
 BINNED_POSE = ((262_144, 5), (1_048_576, 2))
@@ -1579,6 +1594,163 @@ def tiles_text(tiles) -> str:
             f"grid (static/real {min(ratio):.2f}-{max(ratio):.2f})")
 
 
+def binned_kernel_checks(dev, cloud10, path10, sync, cuda_ms):
+    """[hpr], the binned gate's tile kernels (``soft_binned_fwd``,
+    ``soft_binned_bwd``; csrc/soft_binned.cu) against their plain version
+    (``ops.hpr.binned_lse_ref``, ``binned_lse_bwd_ref``) on the same CUDA
+    tensors, at the cell's shapes (cloud 10 from path 10's waypoint 9,
+    padded to 40,960, cap 512) and the soft pose step's
+    (``BINNED_KERNEL_POSE`` points of bench.py's cloud, camera at the
+    origin, cap 1024). Per grid of one gate
+    call: top, total and lse on the rows the gate reads, and dU and dR for a
+    seeded cotangent on those rows, each within the KERNEL_ULPS_X rule of
+    the float64 plain version; two launches of each kernel bit-equal. Then,
+    per gate call (4 grids), the kernels' ms and the plain version's (CUDA
+    events, median of 3 windows, the wrappers' host time included), the
+    pairs the kernels reduce and their bound. Returns {cap: numbers}."""
+    import numpy as np
+    import torch
+
+    from trajectory_optimization_tpu_torch.ops import _kernels
+    from trajectory_optimization_tpu_torch.ops import hpr
+    from trajectory_optimization_tpu_torch.utils.data import pad_points
+
+    cam = (cloud10 - path10[9]).astype(np.float32)
+    padded, valid = pad_points(cam)
+    pose = np.random.default_rng(0).normal(size=(BINNED_KERNEL_POSE, 3)).astype(np.float32)
+    cases = {512: (torch.as_tensor(padded, device=dev), torch.as_tensor(valid, device=dev)),
+             1024: (torch.as_tensor((pose * [6, 6, 2] + [5, 0, 1]).astype(np.float32),
+                                    device=dev), None)}
+    cos_ulp = 2.0 ** -24
+    res = {}
+    for cap, (P, V) in cases.items():
+        calls = []
+        real_lse = hpr._BinnedLSE
+
+        class Recording:
+            @staticmethod
+            def apply(*args):
+                calls.append(args)
+                return real_lse.apply(*args)
+
+        hpr._BinnedLSE = Recording
+        try:
+            with torch.no_grad():
+                hpr.hpr_mask_soft_binned(P, valid=V, cap=cap)
+        finally:
+            hpr._BinnedLSE = real_lse
+        rng = np.random.default_rng(5)
+        errs = {k: 0.0 for k in ("top", "total", "lse", "dU", "dR")}
+        plain_errs = dict(errs)
+        pairs = real_rows = 0
+        grads = []
+        for U, R, beta, bin_s, cov_pos, tiles, c, chunk in calls:
+            n = bin_s.shape[0]
+            n_bins = int(tiles[:, 0].max()) + 1
+            counts = torch.bincount(bin_s.long(), minlength=n_bins + 1)[:n_bins]
+            real = int(((counts + c - 1) // c).sum())
+            q = hpr._tile_row_index(tiles, n, c, cov_pos is not None).view(2, -1, c)[0]
+            read = bin_s[q] == tiles[:, :1]
+            read[real:] = False
+            c_idx = tiles[:, 2:3] + torch.arange(c, device=dev)
+            c_in = bin_s[c_idx] == tiles[:, :1]
+            c_self = c_idx if cov_pos is None else torch.where(tiles[:, 3:] > 0, cov_pos[c_idx],
+                                                                c_idx)
+            for t0 in range(0, real, 64):
+                t1 = min(t0 + 64, real)
+                pairs += int((read[t0:t1, :, None] & c_in[t0:t1, None, :]
+                              & (q[t0:t1, :, None] != c_self[t0:t1, None, :])).sum())
+            real_rows += real * c
+            g = torch.as_tensor(rng.normal(size=(tiles.shape[0], c)), dtype=torch.float32,
+                                device=dev) * read
+
+            def run(kernel, dt):
+                Ud, Rd = U.detach().to(dt), R.detach().to(dt)
+                bd, gd = beta.to(dt), g.to(dt)
+                if kernel:  # the tier's own path: _BinnedLSE on CUDA tensors
+                    top, total, lse = _kernels.soft_binned_fwd(Ud, Rd, bd, bin_s, cov_pos, tiles,
+                                                               c)
+                    Ud.requires_grad_(True)
+                    Rd.requires_grad_(True)
+                    dU, dR = torch.autograd.grad(hpr._BinnedLSE.apply(
+                        Ud, Rd, bd, bin_s, cov_pos, tiles, c, chunk), (Ud, Rd), gd)
+                    return top, total, lse, dU, dR
+                top, total = hpr.binned_lse_ref(Ud, Rd, bd, bin_s, cov_pos, tiles, c, chunk)
+                dU, dR = hpr.binned_lse_bwd_ref(Ud, Rd, bd, bin_s, cov_pos, tiles, top, total, gd,
+                                                c, chunk)
+                return top, total, top + torch.log(total), dU, dR
+
+            k32, again = run(True, torch.float32), run(True, torch.float32)
+            if not all(torch.equal(a, b) for a, b in zip(k32, again)):
+                fail(f"[hpr] soft_binned kernels at cap {c}: two launches differ")
+            p32, p64 = run(False, torch.float32), run(False, torch.float64)
+            paired = read & (p64[0] > -1.0)
+            x_ulp = float(beta) * float(R.max()) * cos_ulp
+            for i, key in enumerate(errs):
+                a, p, w = k32[i], p32[i], p64[i]
+                if i < 3:
+                    a, p, w = a[paired], p[paired], w[paired]
+                if not bool(torch.isfinite(k32[i]).all()):
+                    fail(f"[hpr] soft_binned kernels at cap {c}: non-finite {key}")
+                d_k = float((a.double() - w).abs().max())
+                d_p = float((p.double() - w).abs().max())
+                if key not in ("top", "lse"):  # relative to the largest entry
+                    d_k, d_p = (d / max(float(w.abs().max()), 1e-300) for d in (d_k, d_p))
+                errs[key] = max(errs[key], d_k)
+                plain_errs[key] = max(plain_errs[key], d_p)
+                if not d_k <= 2 * d_p + KERNEL_ULPS_X * x_ulp:
+                    fail(f"[hpr] soft_binned kernels at cap {c}: {key} {d_k:.3e} from float64, "
+                         f"the plain version {d_p:.3e} (pin twice it + {KERNEL_ULPS_X} x "
+                         f"{x_ulp:.3e})")
+            grads.append((U, R, beta, bin_s, cov_pos, tiles, c, chunk, g, k32[0], k32[1]))
+            del k32, again, p32, p64
+
+        def fwd_kernels():
+            for U, R, beta, bin_s, cov_pos, tiles, c, _, _, _, _ in grads:
+                _kernels.soft_binned_fwd(U, R, beta, bin_s, cov_pos, tiles, c)
+
+        def bwd_kernels():
+            for U, R, beta, bin_s, cov_pos, tiles, c, _, g, top, total in grads:
+                _kernels.soft_binned_bwd(U, R, beta, bin_s, cov_pos, tiles, top, total, g, c)
+
+        def fwd_plain():
+            for U, R, beta, bin_s, cov_pos, tiles, c, chunk, _, _, _ in grads:
+                hpr.binned_lse_ref(U, R, beta, bin_s, cov_pos, tiles, c, chunk)
+
+        def bwd_plain():
+            for U, R, beta, bin_s, cov_pos, tiles, c, chunk, g, top, total in grads:
+                hpr.binned_lse_bwd_ref(U, R, beta, bin_s, cov_pos, tiles, top, total, g, c,
+                                       chunk)
+
+        fwd_rows, fwd_cov = BINNED_KERNEL_BYTES["forward"]
+        bwd_rows, bwd_cov = BINNED_KERNEL_BYTES["backward"]
+        res[cap] = {
+            "points": int(P.shape[0]), "slots": [int(a[5].shape[0]) for a in calls],
+            "pairs": pairs, "errs": errs, "plain_errs": plain_errs,
+            "ms": {"forward": cuda_ms(fwd_kernels, 5), "backward": cuda_ms(bwd_kernels, 5)},
+            "plain_ms": {"forward": cuda_ms(fwd_plain, 2), "backward": cuda_ms(bwd_plain, 2)},
+            "bound": {"forward": bound(real_rows * (fwd_rows + fwd_cov),
+                                       pairs * BINNED_OPS["forward"]),
+                      "backward": bound(real_rows * (bwd_rows + bwd_cov),
+                                        pairs * BINNED_OPS["backward"])}}
+        r = res[cap]
+        print(f"[hpr] soft_binned_fwd/_bwd (csrc/soft_binned.cu) against the plain version on "
+              f"the same tensors, cap {cap}, {r['points']} points ({len(calls)} grids, "
+              f"{min(r['slots'])}-{max(r['slots'])} slots, {pairs:.4e} pairs): from the float64 "
+              "plain version, kernel / plain f32: " + ", ".join(
+                  f"{k} {errs[k]:.2e} / {plain_errs[k]:.2e}" for k in errs)
+              + f" (pin twice the plain + {KERNEL_ULPS_X} ulps of cos in x); two launches "
+              f"bit-equal; per gate call forward {r['ms']['forward']:.4f} ms (plain "
+              f"{r['plain_ms']['forward']:.3f}, bound {r['bound']['forward'][0]:.4f} by "
+              f"{r['bound']['forward'][1]}), backward {r['ms']['backward']:.4f} ms (plain "
+              f"{r['plain_ms']['backward']:.3f}, bound {r['bound']['backward'][0]:.4f} by "
+              f"{r['bound']['backward'][1]})", flush=True)
+        del grads, calls, P, V
+        sync()
+        torch.cuda.empty_cache()
+    return res
+
+
 def binned_checks(dev, intr, cloud10, path10, sync, cuda_ms):
     """[hpr], the direction-binned soft tier: the mask on the full cloud 10
     from path 10's waypoint 9 against Qhull (tests/test_hpr.py's operating
@@ -1603,6 +1775,7 @@ def binned_checks(dev, intr, cloud10, path10, sync, cuda_ms):
         TrajProblem, init_traj_params, traj_forward, waypoint_stride,
     )
     from trajectory_optimization_tpu_torch.models.wps_opt import WpsOptProblem, optimize_waypoints
+    from trajectory_optimization_tpu_torch.ops import _kernels
     from trajectory_optimization_tpu_torch.ops import hpr
     from trajectory_optimization_tpu_torch.opt import runners
     from trajectory_optimization_tpu_torch.utils.data import identity_quaternions, pad_points
@@ -1648,6 +1821,7 @@ def binned_checks(dev, intr, cloud10, path10, sync, cuda_ms):
           f"max |diff| {d.max():.2e}; {res['mask']['ms']:.3f} ms, "
           f"{res['mask']['pairs']:.4e} pairs", flush=True)
     del P, V
+    res["kernels"] = binned_kernel_checks(dev, cloud10, path10, sync, cuda_ms)
 
     # ---- soft pose steps at 262,144 and 1,048,576 points -------------------
     def pose_step(Pd):
@@ -1698,10 +1872,15 @@ def binned_checks(dev, intr, cloud10, path10, sync, cuda_ms):
     loss1 = topt.optimize(cloud10, path10, n_steps=1).loss  # and a warm-up
     sync()
     torch.cuda.reset_peak_memory_stats()
+    before = dict(_kernels.LAUNCHES)
     t0 = time.perf_counter()
     tr = topt.optimize(cloud10, path10, n_steps=10)
     sync()
     traj_ms = (time.perf_counter() - t0) * 1e3 / 10
+    traj_launches = {k: v - before[k] for k, v in _kernels.LAUNCHES.items() if v != before[k]}
+    if set(traj_launches) != {"soft_binned_fwd", "soft_binned_bwd"}:
+        fail(f"TrajectoryOptimizer(soft_hpr=True) on cloud 10, 10 steps: launches "
+             f"{traj_launches} (the binned tiles' two kernels, and no other)")
     traj_peak = torch.cuda.max_memory_allocated() / 2**20
     if not (np.all(np.isfinite(tr.poses)) and np.isfinite(tr.loss) and tr.n_iters == 10
             and tr.loss < loss1 and np.all(np.isfinite(tr.rewards))):
@@ -1743,6 +1922,7 @@ def binned_checks(dev, intr, cloud10, path10, sync, cuda_ms):
     Pd = torch.as_tensor(padded, device=dev)
     wps = path10[::stride]
     res["traj"] = {"waypoints": len(wps), "ms_per_step": traj_ms, "peak_mib": traj_peak,
+                   "launches": traj_launches,
                    "loss": (loss1, tr.loss), "visibility_gain": tr.visibility_gain,
                    "vs_cpu": errs,
                    "pairs": binned_pairs(camera_clouds(Pd, wps, identity_quaternions(len(wps))),
@@ -1909,6 +2089,19 @@ def print_hpr_times(card: str, hp) -> None:
           f"{bb['binned_wps_step'][0]:.4f} ms by {bb['binned_wps_step'][1]}) timed under "
           f"graphs soft wps",
           flush=True)
+
+    def kernel_text(r, side):
+        ms, (bms, by) = r["ms"][side], r["bound"][side]
+        return (f"{ms:.4f} ms, bound {bms:.4f} ms by {by} ({100 * bms / ms:.1f}% of it), plain "
+                f"{r['plain_ms'][side]:.3f} ms")
+
+    print(f"[times] {card} | binned tile kernels (csrc/soft_binned.cu), per gate call (4 grids, "
+          "CUDA events, the wrappers' host time included): " + "; ".join(
+              f"cap {cap} ({r['points']} points, {r['pairs']:.4e} pairs) soft_binned_fwd "
+              f"{kernel_text(r, 'forward')}, soft_binned_bwd {kernel_text(r, 'backward')}"
+              for cap, r in b["kernels"].items())
+          + f"; 10 steps of TrajectoryOptimizer(soft_hpr=True) on cloud 10 launched "
+          f"{b['traj']['launches']}", flush=True)
     print(f"[times] {card} | soft HPR dense ({hp['soft_n'][0]} points padded to "
           f"{hp['soft_n'][1]}): PoseOptimizer(soft_hpr=True) {hp['soft_pose_ms_per_step']:.3f} "
           f"ms/step, peak {hp['soft_pose_peak_mib']:.1f} MiB, one step "

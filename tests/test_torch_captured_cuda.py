@@ -185,7 +185,10 @@ def test_captured_soft_binned_trajectory(dev, ref):
     trajectory runner: the step captures (no CaptureError) and replays, two
     eager runs agree bit for bit (the backward adds its rows in a fixed
     order, ``ops.hpr.add_rows``), and the captured run is torch.equal to
-    them."""
+    them. Both routes launch the binned tiles' two kernels and no other
+    kernel of the port's: per step and scored waypoint, soft_binned_fwd
+    once a grid for the forward and once for its checkpointed recompute,
+    soft_binned_bwd once a grid; the final forward once a grid."""
     prob, path, q, data = ref
     case = (dataclasses.replace(prob, soft_hpr=True), path, q, data)
     runner = tr.TrajRunner(case[0], CFG, te.NEVER, 4)
@@ -193,7 +196,8 @@ def test_captured_soft_binned_trajectory(dev, ref):
                                          for r in ("graph", "eager", "eager"))
     graph = next(iter(runner.buckets._items.values())).graph
     assert graph.graph is not None and graph.replays == 3 and graph.capture_s > 0
-    assert lg == le == {}  # the soft path launches no kernel of the port's
+    grids = 14 * 4  # scored waypoints x grids
+    assert lg == le == {"soft_binned_fwd": (2 * 4 + 1) * grids, "soft_binned_bwd": 4 * grids}
     assert int(got[1]) == int(want[1]) == 4
     _assert_runs_equal(again, want)
     _assert_runs_equal(got, want)

@@ -5,7 +5,9 @@ kernels of ``trajectory_optimization_tpu/ops/pallas_vis.py`` (plain versions
 and dispatch: ``ops/fused_vis.py``); ``csrc/fused_traj.cu`` the six of the
 trajectory loss around them, which replace none (``ops/fused_traj.py``);
 ``csrc/splat_render.cu`` the two that replace those of
-``ops/pallas_render.py`` (``ops/tile_render.py``). Every
+``ops/pallas_render.py`` (``ops/tile_render.py``); ``csrc/soft_binned.cu``
+the binned soft-HPR gate's tile reduction and its backward, which replace
+none (``ops/hpr.py``). Every
 ``csrc/*.cu`` is compiled on first use, one ``nvcc -c`` per source, all
 started together, with
 
@@ -73,7 +75,7 @@ LAUNCHES = {
     "pass_a_minmax": 0, "pass_b_recompute": 0, "bwd_fused_acc": 0,
     "splat_runs": 0, "splat_dense": 0,
     "traj_head": 0, "make_norm": 0, "traj_loss": 0, "lo_cotangent": 0, "alpha_beta": 0,
-    "traj_tail": 0,
+    "traj_tail": 0, "soft_binned_fwd": 0, "soft_binned_bwd": 0,
 }
 
 BWD_SLOTS = 40  # K5's sums per waypoint (the JAX twin's layout)
@@ -204,13 +206,16 @@ def _load():
     lib.ft_lo_cotangent.argtypes = [P] * 5 + [I, P, P]
     lib.ft_alpha_beta.argtypes = [P, P, I, P, P]
     lib.ft_traj_tail.argtypes = [P, I] + [P] * 6 + [I, I] + [F] * 6 + [P, P, P]
+    lib.sb_fwd.argtypes = [I] + [P] * 6 + [I, I, I] + [P] * 4
+    lib.sb_bwd.argtypes = [I] + [P] * 9 + [I, I, I] + [P] * 3
     lib.sr_splat_runs.argtypes = [P, P, I, I, F, P, P]
     lib.sr_splat_dense.argtypes = [P, P, I, I, I, F, P, P]
     for fn in (lib.fv_pass_a, lib.fv_pass_b, lib.fv_bwd_stats, lib.fv_bwd_apply,
                lib.fv_pass_a_minmax, lib.fv_pass_b_recompute, lib.fv_bwd_fused_acc,
                lib.sr_splat_runs, lib.sr_splat_dense, lib.sr_tile_h, lib.sr_tile_w,
                lib.sr_band_w, lib.sr_resident_blocks, lib.ft_traj_head, lib.ft_make_norm,
-               lib.ft_traj_loss, lib.ft_lo_cotangent, lib.ft_alpha_beta, lib.ft_traj_tail):
+               lib.ft_traj_loss, lib.ft_lo_cotangent, lib.ft_alpha_beta, lib.ft_traj_tail,
+               lib.sb_fwd, lib.sb_bwd):
         fn.restype = I
     lib.sr_tile_h.argtypes = lib.sr_tile_w.argtypes = lib.sr_band_w.argtypes = []
     lib.sr_resident_blocks.argtypes = [I]
@@ -587,6 +592,64 @@ def traj_tail(sums, wp, quats, poses, poses0, aux, g_loss, c):
     _raise_on(rc, "traj_tail")
     LAUNCHES["traj_tail"] += 1
     return g_poses, g_quats
+
+
+# ---- the binned soft-HPR gate's tiles (csrc/soft_binned.cu)
+
+def _binned_args(U, R, beta, bin_s, cov_pos, tiles, cap: int):
+    """The checked pointers and sizes of ``soft_binned_fwd``/``_bwd``: U
+    (n or 2n, 3), R and beta of one float dtype, 2n rows exactly where the
+    stratified layout's ``cov_pos`` (n,) int64 is given; ``bin_s`` (n,)
+    int32; ``tiles`` (T, 4) int64; 1 <= cap <= n. float64 as well as
+    float32: the card's float64 steps that hold the gate's float32 ones
+    (``chip_smoke.py``) run the gate too."""
+    n, T = bin_s.shape[0], tiles.shape[0]
+    if U.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"U: expected float32 or float64, got {U.dtype}")
+    if T == 0 or not 1 <= cap <= n:
+        raise ValueError(f"empty tile table or bad cap: T={T}, cap={cap}, n={n}")
+    rows = n if cov_pos is None else 2 * n
+    args = (
+        _check("U", U, (rows, 3), U.dtype), _check("R", R, (rows,), U.dtype),
+        _check("beta", beta, (), U.dtype), _check("bin_s", bin_s, (n,), torch.int32),
+        None if cov_pos is None else _check("cov_pos", cov_pos, (n,), torch.int64),
+        _check("tiles", tiles, (T, 4), torch.int64),
+    )
+    return int(U.dtype == torch.float64), args, n, T
+
+
+def soft_binned_fwd(U, R, beta, bin_s, cov_pos, tiles, cap: int):
+    """soft_binned_fwd: returns (top, total, lse), each (T, cap), of one
+    grid's tiles (``ops.hpr.binned_lse_ref``'s top and total on the rows
+    the gate reads)."""
+    dp, args, n, T = _binned_args(U, R, beta, bin_s, cov_pos, tiles, cap)
+    lib = _load()
+    top, total, lse = (torch.empty((T, cap), dtype=U.dtype, device=U.device) for _ in range(3))
+    with torch.cuda.device(U.device):
+        rc = lib.sb_fwd(dp, *args, n, T, cap, top.data_ptr(), total.data_ptr(), lse.data_ptr(),
+                        _stream(U))
+    _raise_on(rc, "soft_binned_fwd")
+    LAUNCHES["soft_binned_fwd"] += 1
+    return top, total, lse
+
+
+def soft_binned_bwd(U, R, beta, bin_s, cov_pos, tiles, top, total, g, cap: int):
+    """soft_binned_bwd: returns the partial sums (part_u (2 T cap, 3),
+    part_r (T cap,)) that ``ops.hpr.add_rows`` adds into dU (every tile's
+    query rows, then its coverer rows) and dR (the coverer rows), for the
+    cotangent ``g`` of lse."""
+    dp, args, n, T = _binned_args(U, R, beta, bin_s, cov_pos, tiles, cap)
+    saved = (_check("top", top, (T, cap), U.dtype), _check("total", total, (T, cap), U.dtype),
+             _check("g", g, (T, cap), U.dtype))
+    lib = _load()
+    part_u = torch.empty((2 * T * cap, 3), dtype=U.dtype, device=U.device)
+    part_r = torch.empty((T * cap,), dtype=U.dtype, device=U.device)
+    with torch.cuda.device(U.device):
+        rc = lib.sb_bwd(dp, *args, *saved, n, T, cap, part_u.data_ptr(), part_r.data_ptr(),
+                        _stream(U))
+    _raise_on(rc, "soft_binned_bwd")
+    LAUNCHES["soft_binned_bwd"] += 1
+    return part_u, part_r
 
 
 def _splat_args(offsets, entries, tiles_y, tiles_x):

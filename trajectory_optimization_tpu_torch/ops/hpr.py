@@ -16,8 +16,9 @@ the convex hull; the hull's vertices are the visible points.
    hand-derived backward, so memory stays O(block·N) with gradients too.
 4. :func:`hpr_mask_soft_binned` — the same relaxation at scale: each point
    competes only against members of its own direction bin, in four
-   staggered grids, O(N·cap) pairs; the tiles are reduced in chunks with a
-   hand-derived backward that recomputes them.
+   staggered grids, O(N·cap) pairs; the tiles are reduced with a
+   hand-derived backward that recomputes them, on the card by two
+   hand-written kernels (``csrc/soft_binned.cu``), on the CPU in chunks.
 
 :func:`soft_hpr_gate` picks the soft tier of the pose and trajectory losses
 by the cloud's size, as the JAX twin does.
@@ -32,6 +33,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from trajectory_optimization_tpu_torch.ops import _kernels
 from trajectory_optimization_tpu_torch.ops.numerics import safe_norm
 from trajectory_optimization_tpu_torch.utils.profiling import HPR_GATE, span
 
@@ -531,50 +533,101 @@ def add_rows(dst: torch.Tensor, rows: torch.Tensor, src: torch.Tensor) -> torch.
     return dst.index_add_(0, rows, src)
 
 
+def binned_lse_ref(U, R, beta, bin_s, cov_pos, tiles, cap: int, chunk: int):
+    """Plain forward of :class:`_BinnedLSE`: (top, total), each (T, cap),
+    the row's max of β·dom and Σ exp(β·dom − max) over its tile, in chunks
+    of ``chunk`` tiles. The kernel ``soft_binned_fwd`` (``csrc/soft_binned.cu``)
+    computes the same on the card."""
+    n = bin_s.shape[0]
+    top = U.new_empty((tiles.shape[0], cap))
+    total = U.new_empty((tiles.shape[0], cap))
+    for t0 in range(0, tiles.shape[0], chunk):
+        t1 = t0 + chunk
+        x = _binned_tiles(U, R, beta, bin_s, cov_pos, tiles[t0:t1], n, cap)[-1]
+        top[t0:t1] = torch.amax(x, dim=2)
+        total[t0:t1] = torch.sum(torch.exp_(x.sub_(top[t0:t1, :, None])), dim=2)
+    return top, total
+
+
+def binned_lse_bwd_ref(U, R, beta, bin_s, cov_pos, tiles, top, total, g, cap: int, chunk: int):
+    """Plain backward of :class:`_BinnedLSE`: (dU, dR) for the cotangent
+    ``g`` (T, cap) of lse, each chunk's tiles recomputed, their rows added
+    by :func:`add_rows`."""
+    n = bin_s.shape[0]
+    dU, dR = torch.zeros_like(U), torch.zeros_like(R)
+    with _full_f32_matmul(U):
+        for t0 in range(0, tiles.shape[0], chunk):
+            t1 = t0 + chunk
+            q, crow, ok, qu, cu, cr, cos, x = _binned_tiles(
+                U, R, beta, bin_s, cov_pos, tiles[t0:t1], n, cap)
+            # ∂L/∂dom = g·β·softmax weight, 0 off the mask
+            t = torch.exp_(x.sub_(top[t0:t1, :, None])).mul_(
+                (beta * g[t0:t1] / total[t0:t1])[:, :, None]).masked_fill_(~ok, 0.0)
+            add_rows(dR, crow.reshape(-1),
+                     torch.sum(t * torch.clamp_min(cos, 0.0), dim=1).reshape(-1))
+            h = (cos > 0).to(cos.dtype).add_((cos >= 0).to(cos.dtype)).mul_(0.5)
+            a = t.mul_(cr[:, None, :]).mul_(h)  # ∂L/∂cos
+            add_rows(dU, torch.cat([q.reshape(-1), crow.reshape(-1)]),
+                     torch.cat([torch.bmm(a, cu).reshape(-1, 3),
+                                torch.bmm(a.transpose(1, 2), qu).reshape(-1, 3)]))
+    return dU, dR
+
+
+def _tile_row_index(tiles, n: int, cap: int, strat: bool) -> torch.Tensor:
+    """The rows of ``U``/``R`` that the partial sums of ``soft_binned_bwd``
+    belong to, in its order: every tile's query rows, then every tile's
+    coverer rows (those of the stratified layout at n..2n where deep)."""
+    _, qoff, coff, deep = tiles.unbind(1)
+    ar = torch.arange(cap, device=tiles.device)
+    q = qoff[:, None] + ar
+    crow = coff[:, None] + ar
+    if strat:
+        crow = crow + deep[:, None] * n
+    return torch.cat([q.reshape(-1), crow.reshape(-1)])
+
+
 class _BinnedLSE(torch.autograd.Function):
     """lse[t, i] = logsumexpⱼ(β·dom) of every query row of every tile of one
-    grid, in chunks of ``chunk`` tiles: nothing of size T·cap² is kept
-    between forward and backward. The backward recomputes each chunk; the
+    grid: nothing of size T·cap² is kept between forward and backward. The
     derivative of max(cos, 0) is ½ at cos = 0, as ``jnp.maximum`` splits
     it. The softmax weights are exp(x − max)/Σ, from the row's max and sum
     kept by the forward, not exp(x − lse): β·dom reaches ~10⁵·10^(r−2),
-    where one rounding of lse would scale a row's weights by e^ulp."""
+    where one rounding of lse would scale a row's weights by e^ulp.
+
+    CPU tensors take the plain version (:func:`binned_lse_ref`,
+    :func:`binned_lse_bwd_ref`), in chunks of ``chunk`` tiles whose backward
+    recomputes them. CUDA tensors launch ``soft_binned_fwd`` and
+    ``soft_binned_bwd`` (``ops._kernels``; ``csrc/soft_binned.cu``), one
+    each per grid over all its tiles, which give the same top and total on
+    the rows the gate reads and the same gradient; the backward's partial
+    sums are added by :func:`add_rows`, as the plain version's."""
 
     @staticmethod
     def forward(ctx, U, R, beta, bin_s, cov_pos, tiles, cap, chunk):
-        n = bin_s.shape[0]
-        top = U.new_empty((tiles.shape[0], cap))
-        total = U.new_empty((tiles.shape[0], cap))
         with span(SOFT_BINNED_RANGE):
-            for t0 in range(0, tiles.shape[0], chunk):
-                t1 = t0 + chunk
-                x = _binned_tiles(U, R, beta, bin_s, cov_pos, tiles[t0:t1], n, cap)[-1]
-                top[t0:t1] = torch.amax(x, dim=2)
-                total[t0:t1] = torch.sum(torch.exp_(x.sub_(top[t0:t1, :, None])), dim=2)
+            if _kernels.on_cpu(U):
+                top, total = binned_lse_ref(U, R, beta, bin_s, cov_pos, tiles, cap, chunk)
+                lse = top + torch.log(total)
+            else:
+                top, total, lse = _kernels.soft_binned_fwd(U, R, beta, bin_s, cov_pos, tiles,
+                                                           cap)
         ctx.save_for_backward(U, R, beta, bin_s, cov_pos, tiles, top, total)
         ctx.cap, ctx.chunk = cap, chunk
-        return top + torch.log(total)
+        return lse
 
     @staticmethod
     def backward(ctx, g):
         U, R, beta, bin_s, cov_pos, tiles, top, total = ctx.saved_tensors
-        n, cap, chunk = bin_s.shape[0], ctx.cap, ctx.chunk
-        dU, dR = torch.zeros_like(U), torch.zeros_like(R)
-        with span(SOFT_BINNED_RANGE), _full_f32_matmul(U):
-            for t0 in range(0, tiles.shape[0], chunk):
-                t1 = t0 + chunk
-                q, crow, ok, qu, cu, cr, cos, x = _binned_tiles(
-                    U, R, beta, bin_s, cov_pos, tiles[t0:t1], n, cap)
-                # ∂L/∂dom = g·β·softmax weight, 0 off the mask
-                t = torch.exp_(x.sub_(top[t0:t1, :, None])).mul_(
-                    (beta * g[t0:t1] / total[t0:t1])[:, :, None]).masked_fill_(~ok, 0.0)
-                add_rows(dR, crow.reshape(-1),
-                         torch.sum(t * torch.clamp_min(cos, 0.0), dim=1).reshape(-1))
-                h = (cos > 0).to(cos.dtype).add_((cos >= 0).to(cos.dtype)).mul_(0.5)
-                a = t.mul_(cr[:, None, :]).mul_(h)  # ∂L/∂cos
-                add_rows(dU, torch.cat([q.reshape(-1), crow.reshape(-1)]),
-                         torch.cat([torch.bmm(a, cu).reshape(-1, 3),
-                                    torch.bmm(a.transpose(1, 2), qu).reshape(-1, 3)]))
+        with span(SOFT_BINNED_RANGE):
+            if _kernels.on_cpu(U):
+                dU, dR = binned_lse_bwd_ref(U, R, beta, bin_s, cov_pos, tiles, top, total, g,
+                                            ctx.cap, ctx.chunk)
+            else:
+                part_u, part_r = _kernels.soft_binned_bwd(
+                    U, R, beta, bin_s, cov_pos, tiles, top, total, g.contiguous(), ctx.cap)
+                rows = _tile_row_index(tiles, bin_s.shape[0], ctx.cap, cov_pos is not None)
+                dR = add_rows(torch.zeros_like(R), rows[rows.shape[0] // 2:], part_r)
+                dU = add_rows(torch.zeros_like(U), rows, part_u)
         return dU, dR, None, None, None, None, None, None
 
 
@@ -601,8 +654,8 @@ def hpr_mask_soft_binned(
     ``stratified_coverers``, against a tiered distance-rank sample that
     reaches ~16·cap deep (:func:`_stratified_priority`, a second sort by
     (bin, priority)); the sample is skipped where its key would overflow
-    (2n ≥ 2^frac_bits). The tiles are reduced in chunks sized by
-    ``TILE_BUDGET`` (:class:`_BinnedLSE`) and each row takes the max of the
+    (2n ≥ 2^frac_bits). The tiles are reduced by :class:`_BinnedLSE` (on
+    the CPU in chunks sized by ``TILE_BUDGET``) and each row takes the max of the
     tiles that cover it (``scatter_reduce``): max is order-independent, so
     this equals the twin's scan over tiles. The tile table is the twin's:
     ``n_bins + ⌈n/cap⌉`` static slots per grid, a size taken from shapes
