@@ -212,9 +212,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
    ``FrozenTrajOptimizer`` for 8 steps with one refresh). Any failed rank
    fails the script.
 12. graphs — the captured optimization loop (``opt/graphs.py``): the
-   runners' captured route held ``torch.equal`` to their eager route on the
-   card (n_iters, parameters, final loss and aux) at ref (400 steps, with
-   the visibility and smoothness gates), 1m50 and 8m50 (20 steps), launches
+   runners' captured loop held ``torch.equal`` to the plain loop of
+   tests/torch_loop_ref.py ("eager") on the card (n_iters, parameters,
+   final loss and aux) at ref (400 steps, with the visibility and
+   smoothness gates), 1m50 and 8m50 (20 steps), launches
    per step from the counters equal in both; ``optimize_with_history`` (50
    steps) and ``OptimizerLoop.run(0, 1, 7, 20)`` at ref; ``PoseOptimizer``'s
    runner at cloud 10 and 1M (100 steps); ``optimize_waypoints`` at the
@@ -844,9 +845,38 @@ def render_checks(dev, intr, clouds, cuda_ms, kernel_ms, sync):
     return res
 
 
+def plain_loops():
+    """tests/torch_loop_ref.py: the plain loops (fresh tensors every step, no
+    capture) that the captured ones are held to bit for bit. The module
+    imports torch and the port only."""
+    tests = str(ROOT / "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    import torch_loop_ref
+
+    return torch_loop_ref
+
+
+def traj_run_on(route, runner, *args):
+    """``runner``'s call (a ``TrajRunner``): captured (``"graph"``) or the same
+    call on the plain loop (``"eager"``, the reference)."""
+    if route == "graph":
+        return runner(*args)
+    return plain_loops().traj_run(runner.problem, runner.cfg, runner.stop, runner.n_steps, *args)
+
+
+def pose_advance_on(route, advance, *args):
+    """``advance``'s call (a ``PoseAdvance``): captured (``"graph"``) or the
+    same segment on the plain loop (``"eager"``, the reference)."""
+    if route == "graph":
+        return advance(*args)
+    return plain_loops().pose_advance(advance.problem, advance.cfg, advance.seg_steps, *args)
+
+
 def plain_f64_run(dev, cloud, path, n_steps, kw):
     """``n_steps`` of the plain path (backend "torch") in float64 on the
-    facade's padded data, from the identity orientations, eagerly: (positions
+    facade's padded data, from the identity orientations, on the plain loop
+    of tests/torch_loop_ref.py: (positions
     (W, 3), normalized wxyz quaternions (W, 4)) as float64 arrays."""
     import numpy as np
     import torch
@@ -863,9 +893,9 @@ def plain_f64_run(dev, cloud, path, n_steps, kw):
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64, device=dev)  # noqa: E731
     prob = TrajProblem(intr.width, intr.height, wps_step=waypoint_stride(path), backend="torch")
     run = TrajRunner(prob, OptimizerConfig(**kw), NEVER, n_steps)
-    p, _, _, _ = run._run("eager", {"poses": t(path).clone(), "quats": t(q0).clone()},
-                          t(padded), t(valid), intr.matrix(dtype=torch.float64, device=dev),
-                          t(path), t(q0))
+    p, _, _, _ = traj_run_on("eager", run, {"poses": t(path).clone(), "quats": t(q0).clone()},
+                           t(padded), t(valid), intr.matrix(dtype=torch.float64, device=dev),
+                           t(path), t(q0))
     q = p["quats"] / torch.linalg.norm(p["quats"], dim=1, keepdim=True)
     return p["poses"].cpu().numpy(), q.cpu().numpy()
 
@@ -3717,12 +3747,13 @@ GRAPH_TRACE = 20  # steps per traced run
 
 def graph_checks(dev, intr, clouds, paths, sync):
     """Phase 12: the captured optimization loop (``opt/graphs.py``). The
-    runners' captured route against their eager route on the card, bit for
-    bit, at ref, 1m50 and 8m50 (``clouds``/``paths`` by name; the pose runs
-    also take ``clouds["1m"]``); ``optimize_with_history`` and
+    runners' captured loop against the plain loop of tests/torch_loop_ref.py
+    ("eager" below) on the card, bit for bit, at ref, 1m50 and 8m50
+    (``clouds``/``paths`` by name; the pose runs also take
+    ``clouds["1m"]``); ``optimize_with_history`` and
     ``OptimizerLoop`` at ref; ``PoseOptimizer``'s runner at cloud 10 and 1M;
     ``optimize_waypoints`` at the demo's defaults; the K3/K4 scratch round
-    trip; then times: ms/step of both routes (median of 3 windows after a
+    trip; then times: ms/step of both loops (median of 3 windows after a
     warm-up, taken in turns) and of the replays alone, device-busy ms and
     host launch calls per step from a traced run, capture seconds, peak MiB
     allocated and reserved. Returns the numbers for [times] and the record."""
@@ -3803,7 +3834,7 @@ def graph_checks(dev, intr, clouds, paths, sync):
         out, mem = {}, {}
         for route in ("graph", "eager"):
             (out[route], launches), mem[route] = peaks(lambda route=route: counted(
-                lambda: run._run(route, init_traj_params(path, q, dev), *data)))
+                lambda: traj_run_on(route, run, init_traj_params(path, q, dev), *data)))
             out[route] = (out[route], launches)
         (pg, ig, lg, ag), lau_g = out["graph"]
         (pe, ie, le, ae), lau_e = out["eager"]
@@ -3824,8 +3855,8 @@ def graph_checks(dev, intr, clouds, paths, sync):
         # timed: a runner of the window's length, its own bucket (capture in the warm-up)
         nw = GRAPH_WINDOW[name]
         wrun = runners.traj_runner(problem, cfg, te.NEVER, nw)
-        ms = ms_per_step({r: (lambda r=r: wrun._run(r, init_traj_params(path, q, dev), *data))
-                          for r in ("graph", "eager")}, nw)
+        ms = ms_per_step({r: (lambda r=r: traj_run_on(r, wrun, init_traj_params(path, q, dev),
+                                                      *data)) for r in ("graph", "eager")}, nw)
         wb = last_bucket(wrun)
         with torch.cuda.stream(capture_stream(dev)):
             wb.graph.replay()  # warm-up
@@ -3841,16 +3872,16 @@ def graph_checks(dev, intr, clouds, paths, sync):
         sync()
         torch.cuda.empty_cache()
         a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
-        runners.traj_runner(problem, cfg, te.NEVER, 2)._run(
-            "graph", init_traj_params(path, q, dev), *data)
+        runners.traj_runner(problem, cfg, te.NEVER, 2)(init_traj_params(path, q, dev), *data)
         sync()
         torch.cuda.empty_cache()
         held = ((torch.cuda.memory_allocated() - a0) / 2**20,
                 (torch.cuda.memory_reserved() - r0) / 2**20)
         trun = runners.traj_runner(problem, cfg, te.NEVER, GRAPH_TRACE)
-        trun._run("graph", init_traj_params(path, q, dev), *data)  # capture before the trace
-        tr = {r: trace_steps(lambda r=r: trun._run(r, init_traj_params(path, q, dev), *data),
-                             GRAPH_TRACE, sync) for r in ("graph", "eager")}
+        trun(init_traj_params(path, q, dev), *data)  # capture before the trace
+        tr = {r: trace_steps(lambda r=r: traj_run_on(r, trun, init_traj_params(path, q, dev),
+                                                     *data), GRAPH_TRACE, sync)
+              for r in ("graph", "eager")}
         res["traj"][name] = {
             "steps": n, "launches": lau_g, "launches_per_step": per_step,
             "ms_per_step": ms, "replay_ms_per_step": replay_ms,
@@ -3877,37 +3908,38 @@ def graph_checks(dev, intr, clouds, paths, sync):
     def loss_ref(p):
         return traj_forward(p, P, K, p0, q0, problem, valid=V, points_t=Pt)
 
-    hist = {route: te._optimize_with_history(loss_ref, init_traj_params(path, q, dev), cfg, 50,
-                                             route=route) for route in ("graph", "eager")}
+    plain = plain_loops()
+    hist = {"graph": te.optimize_with_history(loss_ref, init_traj_params(path, q, dev), cfg, 50),
+            "eager": plain.with_history(loss_ref, init_traj_params(path, q, dev), cfg, 50)}
     same("optimize_with_history parameters", hist["graph"][0], hist["eager"][0])
     hg, he = hist["graph"][1], hist["eager"][1]
     if hg.keys() != he.keys() or not all(np.array_equal(hg[k], he[k]) for k in he):
         fail("[graphs] optimize_with_history: the captured history differs from the eager one")
-    # the public entry points take the captured route on the card
+    # a second call of the public entry point, on its own captured step
     pub = te.optimize_with_history(loss_ref, init_traj_params(path, q, dev), cfg, 50)
     same("optimize_with_history (public) parameters", pub[0], hist["eager"][0])
     if not all(np.array_equal(pub[1][k], he[k]) for k in he):
         fail("[graphs] optimize_with_history (public): the history differs from the eager one")
     got = te.optimize(loss_ref, init_traj_params(path, q, dev), cfg, 50)
-    want = te._optimize(loss_ref, init_traj_params(path, q, dev), cfg, 50, route="eager")
+    want = plain.optimize(loss_ref, init_traj_params(path, q, dev), cfg, 50)
     same("optimize (public) parameters", got[0], want[0])
     if got[1:] != want[1:]:
         fail(f"[graphs] optimize (public): n_iters, loss {got[1:]} != eager {want[1:]}")
-    loops = {}
-    for route in ("graph", "eager"):
-        loops[route] = te.OptimizerLoop(loss_ref, init_traj_params(path, q, dev), cfg)
-        if loops[route]._route != "graph":
-            fail(f"[graphs] OptimizerLoop on the card routes {loops[route]._route!r}")
-        loops[route]._route = route
+    loop = te.OptimizerLoop(loss_ref, init_traj_params(path, q, dev), cfg)
+    lp = init_traj_params(path, q, dev)
+    ls = plain.adam_state(lp)
     for m in (0, 1, 7, 20):
-        got, want = loops["graph"].run(m), loops["eager"].run(m)
+        got = loop.run(m)
+        lp, ls, *want = plain.steps(loss_ref, lp, ls, cfg, m)
         same(f"OptimizerLoop.run({m}) loss", got[0], want[0])
         same(f"OptimizerLoop.run({m}) aux", got[1], want[1])
-        same(f"OptimizerLoop.run({m}) parameters", loops["graph"].params, loops["eager"].params)
-    print(f"[graphs] ref: optimize_with_history 50 steps (history of {sorted(hg)}; private "
-          f"route and public entry point), optimize 50 steps (public) and "
-          f"OptimizerLoop.run(0, 1, 7, 20): captured == eager (torch.equal); the loop replayed "
-          f"{loops['graph']._graph.replays} steps", flush=True)
+        same(f"OptimizerLoop.run({m}) parameters", loop.params, lp)
+    if not loop._graph.captures or loop._graph.graph is None:
+        fail("[graphs] OptimizerLoop on the card did not capture its step")
+    print(f"[graphs] ref: optimize_with_history 50 steps (history of {sorted(hg)}; two calls "
+          f"of the public entry point), optimize 50 steps (public) and "
+          f"OptimizerLoop.run(0, 1, 7, 20): captured == the plain loop (torch.equal); the loop "
+          f"replayed {loop._graph.replays} steps", flush=True)
 
     # ---- the pose runner (PoseOptimizer's) at cloud 10 and 1M ---------------
     pose_problem = PoseProblem(img_width=intr.width, img_height=intr.height)
@@ -3917,15 +3949,15 @@ def graph_checks(dev, intr, clouds, paths, sync):
         init, adv = runners.pose_runner(pose_problem, te.OptimizerConfig(lr_pose=0.1,
                                                                          lr_quat=0.0), n)
 
-        def pose_run(route, adv=adv, init=init, Pp=Pp, Vp=Vp):
+        def pose_segment(route, adv=adv, init=init, Pp=Pp, Vp=Vp):
             p = init_pose_params(np.array([[6.0, 2.0, 0.0]], np.float32),
                                  np.array([[1.0, 0.0, 0.0, 0.0]], np.float32), dev)
-            return adv._advance(route, p, init(p), Pp, Vp, K)
+            return pose_advance_on(route, adv, p, init(p), Pp, Vp, K)
 
-        got, want = pose_run("graph"), pose_run("eager")
+        got, want = pose_segment("graph"), pose_segment("eager")
         for what, a, b in zip(("parameters", "Adam state", "loss", "aux"), got, want):
             same(f"pose {name} {what}", a, b)
-        ms = ms_per_step({r: (lambda r=r: pose_run(r)) for r in ("graph", "eager")}, n)
+        ms = ms_per_step({r: (lambda r=r: pose_segment(r)) for r in ("graph", "eager")}, n)
         b = last_bucket(adv)
         res["pose"][name] = {"steps": n, "ms_per_step": ms, "capture_s": b.graph.capture_s}
         print(f"[graphs] PoseOptimizer's runner {name} {n} steps: captured == eager (torch.equal "
@@ -3936,10 +3968,10 @@ def graph_checks(dev, intr, clouds, paths, sync):
     q_id = identity_quaternions(len(paths["ref"]))
     wprob = wps_opt.WpsOptProblem(img_width=intr.width, img_height=intr.height)
     wps = {}
-    route_of = wps_opt.capture_route
+    optimize = wps_opt.optimize
     for route in ("graph", "eager"):
-        # the eager reference: the module's route predicate answers "eager"
-        wps_opt.capture_route = (lambda *a, route=route: route)
+        # the reference: the module's optimize on the plain loop
+        wps_opt.optimize = optimize if route == "graph" else plain.optimize
         try:
             sync()
             t0 = time.perf_counter()
@@ -3949,7 +3981,7 @@ def graph_checks(dev, intr, clouds, paths, sync):
             sync()
             wps[route + "_s"] = time.perf_counter() - t0
         finally:
-            wps_opt.capture_route = route_of
+            wps_opt.optimize = optimize
     for i, what in enumerate(("positions", "quaternions", "aux")):
         same(f"optimize_waypoints {what}", wps["graph"][i], wps["eager"][i])
     res["wps"] = {"steps": WPS_STEPS, "s": {r: wps[r + "_s"] for r in ("graph", "eager")}}
@@ -3962,17 +3994,16 @@ def graph_checks(dev, intr, clouds, paths, sync):
     _kernels._reduction_scratch.pop((dev, side.cuda_stream), None)  # a fresh, small scratch
     problem, path, q, data = traj_data("ref")
     small = runners.traj_runner(problem, cfg, te.NEVER, 10)
-    first = small._run("graph", init_traj_params(path, q, dev), *data)
+    first = small(init_traj_params(path, q, dev), *data)
     held = last_bucket(small).graph.scratch
     bproblem, bpath, bq, bdata = traj_data("1m50")
-    runners.traj_runner(bproblem, cfg, te.NEVER, 5)._run("graph",
-                                                         init_traj_params(bpath, bq, dev), *bdata)
+    runners.traj_runner(bproblem, cfg, te.NEVER, 5)(init_traj_params(bpath, bq, dev), *bdata)
     grown = _kernels._reduction_scratch[(dev, side.cuda_stream)]
     if held is None or grown[1] is held[1] or grown[1].numel() <= held[1].numel():
         fail("[graphs] the 1m50 run did not replace the scratch the W = 14 graph holds: the "
              "round trip shows nothing")
-    again = small._run("graph", init_traj_params(path, q, dev), *data)
-    eager = small._run("eager", init_traj_params(path, q, dev), *data)
+    again = small(init_traj_params(path, q, dev), *data)
+    eager = traj_run_on("eager", small, init_traj_params(path, q, dev), *data)
     for what, a in (("first run", first), ("replay after the scratch grew", again)):
         same(f"scratch round trip, {what}, parameters", a[0], eager[0])
         same(f"scratch round trip, {what}, final loss", a[2], eager[2])
@@ -4005,10 +4036,11 @@ def soft_graph_checks(dev, intr, cloud10, path10, sync):
     on cloud 10 and path 10 (cap 512), ``PoseOptimizer(soft_hpr=True)``'s on
     bench.py's cloud at 262,144 and 1,048,576 points (cap 1024) and
     ``optimize_waypoints(soft_hpr=True)`` on cloud 10 (27 waypoints, cap
-    1024), each called captured and eager in turns (captured, eager, eager,
-    captured; the waypoints once captured, since each of its calls captures
-    anew). The two eager calls must agree bit for bit (the binned backward
-    adds its rows in a fixed order, ``ops.hpr.add_rows``), and the captured
+    1024), each called captured and eager (the plain loop of
+    tests/torch_loop_ref.py) in turns (captured, eager, eager, captured; the
+    waypoints once captured, since each of its calls captures anew). The
+    two eager calls must agree bit for bit (the binned backward adds its
+    rows in a fixed order, ``ops.hpr.add_rows``), and the captured
     calls are held ``torch.equal`` to them. One step (loss and gradient at
     the initial parameters) with the fixed order against the same step with
     the rows added by ``index_add_`` (atomics on the card: the order
@@ -4072,9 +4104,9 @@ def soft_graph_checks(dev, intr, cloud10, path10, sync):
                 for dst, src in zip(box, out):
                     dst.copy_(src)
 
-        with graphs.on_capture_stream(dev, "graph"):
+        with graphs.on_capture_stream(dev):
             fn()
-            graphs.StepGraph(fn, "graph", "soft loss and gradient")()
+            graphs.StepGraph(fn, dev, "soft loss and gradient")()
         sync()
         return box
 
@@ -4290,7 +4322,8 @@ def soft_graph_checks(dev, intr, cloud10, path10, sync):
     wps = path10[::problem.wps_step]
     cams_valid["traj"] = data[torch.float32][1]
     held("traj", n,
-         lambda r: run._run(r, init_traj_params(path10, q, dev), *data[torch.float32]),
+         lambda r: traj_run_on(r, run, init_traj_params(path10, q, dev),
+                               *data[torch.float32]),
          lambda: list(run.buckets._items.values())[-1].graph, traj_loss, traj_params,
          ("poses", "quats"),
          camera_clouds(data[torch.float32][0], wps, identity_quaternions(len(wps))),
@@ -4320,7 +4353,7 @@ def soft_graph_checks(dev, intr, cloud10, path10, sync):
 
         def pose_call(route, adv=adv, init=init, Pp=Pp):
             p = pose_params(torch.float32)
-            return adv._advance(route, p, init(p), Pp[torch.float32], None, K)
+            return pose_advance_on(route, adv, p, init(p), Pp[torch.float32], None, K)
 
         held(name, n, pose_call, lambda adv=adv: list(adv.buckets._items.values())[-1].graph,
              pose_loss, pose_params, ("trans", "quat"), [Pp[torch.float32]],
@@ -4343,18 +4376,18 @@ def soft_graph_checks(dev, intr, cloud10, path10, sync):
             super().__init__(*a, **kw)
             made.append(self)
 
-    route_of, step_graph = wps_opt.capture_route, te.StepGraph
+    optimize, step_graph = wps_opt.optimize, te.StepGraph
     n = GRAPH_SOFT["wps"]
 
     def wps_call(route):
-        # the eager reference: the module's route predicate answers "eager"
-        wps_opt.capture_route = (lambda *a: route)
+        # the reference: the module's optimize on the plain loop
+        wps_opt.optimize = optimize if route == "graph" else plain_loops().optimize
         te.StepGraph = Recording
         try:
             return wps_opt.optimize_waypoints(cloud10, path10, q_id, intr.matrix_np(), wprob,
                                               n_steps=n, device=dev)
         finally:
-            wps_opt.capture_route, te.StepGraph = route_of, step_graph
+            wps_opt.optimize, te.StepGraph = optimize, step_graph
 
     Pw = {dt: torch.as_tensor(cloud10, device=dev, dtype=dt)
           for dt in (torch.float32, torch.float64)}
@@ -4692,16 +4725,16 @@ def loss_checks(dev, intr, cloud10, path10, sync, cuda_ms, kernel_device_ms):
             fn()
         host_ms = (time.perf_counter() - t0) * 1e3 / 20
         sync()
-        with tg.on_capture_stream(dev, "graph"):
+        with tg.on_capture_stream(dev):
             fn()
-            graph = tg.StepGraph(fn, "graph", f"{route} loss")
+            graph = tg.StepGraph(fn, dev, f"{route} loss")
             graph.capture()
             graph.replay()
         sync()
         grads[route] = fn()
 
         def replays(n=200, graph=graph):
-            with tg.on_capture_stream(dev, "graph"):
+            with tg.on_capture_stream(dev):
                 for _ in range(n):
                     graph.replay()
 
@@ -4765,7 +4798,7 @@ def main() -> int:
     from trajectory_optimization_tpu_torch.ops import _kernels
     from trajectory_optimization_tpu_torch.ops import fused_vis as fv
     from trajectory_optimization_tpu_torch.ops import quat as quat_ops
-    from trajectory_optimization_tpu_torch.opt.engine import NEVER, OptimizerConfig, _run_until_done
+    from trajectory_optimization_tpu_torch.opt.engine import NEVER, OptimizerConfig
     from trajectory_optimization_tpu_torch.utils.data import (
         identity_quaternions, in_view_case, load_path, load_point_cloud, pad_points,
     )
@@ -4864,9 +4897,9 @@ def main() -> int:
         return f"{b[0]:.1f} device ops/step, busy {b[1]:.4f} ms/step, {100 * b[2]:.1f}% of the traced step"
 
     def eager_steps(loss_fn, p0, n):
-        # the eager loop: [times] keeps the series of earlier runs; [graphs]
-        # times the captured loop beside it
-        return _run_until_done(loss_fn, p0, cfg, n, NEVER, route="eager")
+        # the plain loop (tests/torch_loop_ref.py), uncaptured: [times] keeps
+        # the series of earlier runs; [graphs] times the captured loop beside it
+        return plain_loops().until_done(loss_fn, p0, cfg, n, NEVER)
 
     def step_times(loss_fn, p0, n):
         """Median ms/step of 3 windows of n eager steps after a warm-up

@@ -250,9 +250,9 @@ def test_soft_steps_read_nothing_on_the_host(cap, strat, monkeypatch, no_host_re
     stop = te.EarlyStop(float("inf"), float("inf"), "mean_reward", "mean_reward")
     data = (P, None, K, torch.as_tensor(path), torch.as_tensor(q))
     no_host_reads()
-    _, _, loss, _ = traj._run("static", tparams, *data)
-    pose._advance("static", pparams, pstate, P, None, K)
-    te._run_until_done(lambda p: twps.wps_forward(p, frozen, P, K, wprob), wparams,
-                       te.OptimizerConfig(lr_pose=0.02, lr_quat=0.02), 2, stop, route="static",
-                       pose_key="xy", quat_key="yaw")
+    _, _, loss, _ = traj(tparams, *data)
+    pose(pparams, pstate, P, None, K)
+    te.run_until_done(lambda p: twps.wps_forward(p, frozen, P, K, wprob), wparams,
+                      te.OptimizerConfig(lr_pose=0.02, lr_quat=0.02), 2, stop, pose_key="xy",
+                      quat_key="yaw")
     assert loss.shape == ()

@@ -1,6 +1,6 @@
 """The captured optimization step on the card (opt/graphs.py): each step
 after a run's first replays one CUDA graph over static buffers, and must
-give the eager loop's bits.
+give the bits of the plain loop of tests/torch_loop_ref.py run on the card.
 
 Every test here needs a CUDA card and is marked ``cuda``; without one each
 skips (a CUDA graph has no CPU mode; tests/test_torch_captured_step.py
@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_loop_ref as plain  # noqa: E402
 from trajectory_optimization_tpu_torch.models import pose as tpose  # noqa: E402
 from trajectory_optimization_tpu_torch.models import traj as tt  # noqa: E402
 from trajectory_optimization_tpu_torch.ops import _kernels  # noqa: E402
@@ -81,11 +82,15 @@ def _equal(a, b) -> bool:
     return torch.equal(a, b)
 
 
-def _run(runner, route, case, dev):
+def _run(runner, case, dev, loop="captured"):
+    """``runner``'s call on ``case`` (``loop="plain"``: the same call on the
+    plain loop) and the kernel launches it made."""
     _, path, q, data = case
+    call = runner if loop == "captured" else (lambda *a: plain.traj_run(
+        runner.problem, runner.cfg, runner.stop, runner.n_steps, *a))
     torch.cuda.synchronize()
     before = dict(_kernels.LAUNCHES)
-    out = runner._run(route, tt.init_traj_params(path, q, dev), *data)
+    out = call(tt.init_traj_params(path, q, dev), *data)
     torch.cuda.synchronize()
     return out, {k: v - before[k] for k, v in _kernels.LAUNCHES.items() if v != before[k]}
 
@@ -98,23 +103,23 @@ def _assert_runs_equal(got, want):
 @pytest.mark.parametrize("regime", ["cached", "uncached"])
 @pytest.mark.parametrize("stop", ["never", "early"])
 def test_captured_run_equals_eager(dev, ref, regime, stop, monkeypatch):
-    """Cloud 10 x path 10 through the trajectory runner: the captured route's
-    parameters, n_iters, final loss and aux torch.equal to the eager
-    route's, in the score-cache regime (K1-K4) and with the cache forced
+    """Cloud 10 x path 10 through the trajectory runner: the captured run's
+    parameters, n_iters, final loss and aux torch.equal to the plain
+    loop's, in the score-cache regime (K1-K4) and with the cache forced
     off (K1', K2', K5), the same launches in both; a second captured run
     replays the bucket's graph and is equal again."""
     if regime == "uncached":
         monkeypatch.setattr(fv, "SCORE_CACHE_MAX_BYTES", 0)
     early = te.EarlyStop(rewards_th=1.05, smoothness_th=0.5)
     runner = tr.TrajRunner(ref[0], CFG, te.NEVER if stop == "never" else early, 40)
-    (got, lg), (want, le) = (_run(runner, r, ref, dev) for r in ("graph", "eager"))
+    (got, lg), (want, le) = _run(runner, ref, dev), _run(runner, ref, dev, "plain")
     _assert_runs_equal(got, want)
     assert lg == le and set(lg) == (CACHED if regime == "cached" else UNCACHED)
     assert (int(got[1]) == 40) == (stop == "never")
     graph = next(iter(runner.buckets._items.values())).graph
     replays = graph.replays
     assert graph.graph is not None and replays > 0
-    again, la = _run(runner, "graph", ref, dev)
+    again, la = _run(runner, ref, dev)
     _assert_runs_equal(again, want)
     assert la == le and graph.replays == 2 * replays
 
@@ -122,19 +127,19 @@ def test_captured_run_equals_eager(dev, ref, regime, stop, monkeypatch):
 def test_a_graph_keeps_its_scratch_when_a_larger_problem_grows_it(dev, ref):
     """Capture at W = 14 with a fresh K3/K4 scratch, run W = 50 on 65,536
     points (which replaces the stream's scratch with a larger one), then
-    replay the first graph: still equal to the eager run."""
+    replay the first graph: still equal to the plain run."""
     side = tg.capture_stream(dev)
     _kernels._reduction_scratch.pop((dev, side.cuda_stream), None)
     small = tr.TrajRunner(ref[0], CFG, te.NEVER, 12)
-    first, _ = _run(small, "graph", ref, dev)
+    first, _ = _run(small, ref, dev)
     held = next(iter(small.buckets._items.values())).graph.scratch
     wide = _wide(dev)
-    _run(tr.TrajRunner(wide[0], CFG, te.NEVER, 3), "graph", wide, dev)
+    _run(tr.TrajRunner(wide[0], CFG, te.NEVER, 3), wide, dev)
     grown = _kernels._reduction_scratch[(dev, side.cuda_stream)]
     assert held is not None and grown[1] is not held[1]
     assert grown[1].numel() > held[1].numel()
-    again, _ = _run(small, "graph", ref, dev)
-    want, _ = _run(small, "eager", ref, dev)
+    again, _ = _run(small, ref, dev)
+    want, _ = _run(small, ref, dev, "plain")
     _assert_runs_equal(first, want)
     _assert_runs_equal(again, want)
 
@@ -158,42 +163,43 @@ def test_a_loss_that_reads_the_host_fails_to_capture(dev, ref):
 
 def test_captured_pose_runner_equals_eager(dev):
     """Two segments of 5 steps and a 3-step remainder (a second bucket) on
-    cloud 10 with a decaying LR: every segment torch.equal to the eager one."""
+    cloud 10 with a decaying LR: every segment torch.equal to the plain one."""
     padded, valid = pad_points(load_point_cloud(str(DATA / "points/point_cloud_10.npz")))
     P, V = torch.as_tensor(padded, device=dev), torch.as_tensor(valid, device=dev)
     K = INTR.matrix(device=dev)
     cfg = te.OptimizerConfig(lr_pose=0.1, lr_quat=0.05, decay_gamma=0.5, decay_every=2)
     prob = tpose.PoseProblem(INTR.width, INTR.height)
-    segs = (tr.PoseAdvance(prob, cfg, 5), tr.PoseAdvance(prob, cfg, 3))
+    segs = {"captured": (tr.PoseAdvance(prob, cfg, 5), tr.PoseAdvance(prob, cfg, 3)),
+            "plain": tuple((lambda *a, n=n: plain.pose_advance(prob, cfg, n, *a)) for n in (5, 3))}
     outs = {}
-    for route in ("graph", "eager"):
+    for loop, (seg, rem) in segs.items():
         params = tpose.init_pose_params(np.array([[6.0, 2.0, 0.0]], np.float32),
                                         np.array([[0.9, 0.1, -0.2, 0.3]], np.float32), dev)
-        state, outs[route] = te.adam_init(params), []
-        for adv in (segs[0], segs[0], segs[1]):
-            params, state, loss, aux = adv._advance(route, params, state, P, V, K)
-            outs[route].append((params, state, loss, aux))
-    for g, e in zip(outs["graph"], outs["eager"]):
+        state, outs[loop] = te.adam_init(params), []
+        for adv in (seg, seg, rem):
+            params, state, loss, aux = adv(params, state, P, V, K)
+            outs[loop].append((params, state, loss, aux))
+    for g, e in zip(outs["captured"], outs["plain"]):
         assert _equal(g[0], e[0]) and _equal(g[1], e[1]) and torch.equal(g[2], e[2])
         assert _equal(g[3], e[3])
-    assert int(outs["graph"][-1][1]["count"]) == 13
+    assert int(outs["captured"][-1][1]["count"]) == 13
 
 
 def test_captured_soft_binned_trajectory(dev, ref):
     """Soft HPR on cloud 10 (40,960 points, above ``soft_hpr_dense_max``:
     the binned tier on its static tile slots, cap 512) through the
     trajectory runner: the step captures (no CaptureError) and replays, two
-    eager runs agree bit for bit (the backward adds its rows in a fixed
+    plain runs agree bit for bit (the backward adds its rows in a fixed
     order, ``ops.hpr.add_rows``), and the captured run is torch.equal to
-    them. Both routes launch the binned tiles' two kernels and no other
+    them. Both loops launch the binned tiles' two kernels and no other
     kernel of the port's: per step and scored waypoint, soft_binned_fwd
     once a grid for the forward and once for its checkpointed recompute,
     soft_binned_bwd once a grid; the final forward once a grid."""
     prob, path, q, data = ref
     case = (dataclasses.replace(prob, soft_hpr=True), path, q, data)
     runner = tr.TrajRunner(case[0], CFG, te.NEVER, 4)
-    (got, lg), (want, le), (again, _) = (_run(runner, r, case, dev)
-                                         for r in ("graph", "eager", "eager"))
+    (got, lg), (want, le), (again, _) = (_run(runner, case, dev, loop)
+                                         for loop in ("captured", "plain", "plain"))
     graph = next(iter(runner.buckets._items.values())).graph
     assert graph.graph is not None and graph.replays == 3 and graph.capture_s > 0
     grids = 14 * 4  # scored waypoints x grids
@@ -230,9 +236,9 @@ def test_binned_backward_repeats_its_bits(dev):
             for d, x in zip(box, out):
                 d.copy_(x)
 
-    with tg.on_capture_stream(dev, "graph"):
+    with tg.on_capture_stream(dev):
         fn()
-        tg.StepGraph(fn, "graph", "soft pose loss and gradient")()
+        tg.StepGraph(fn, dev, "soft pose loss and gradient")()
     torch.cuda.synchronize()
     for a, b, c in zip(first, second, box):
         assert torch.equal(a, b) and torch.equal(a, c)
@@ -273,11 +279,11 @@ def test_captured_frozen_steps_equal_eager(dev):
 def test_captured_two_waypoint_path(dev, ref):
     """A path of two waypoints (no interior angle: the smoothness term's π
     comes from a device fill, not a host copy) captures and equals the
-    eager run."""
+    plain run."""
     prob, path, q, data = ref
     P, V, K, _, _ = data
     case = (prob, path[:2], q[:2], (P, V, K, data[3][:2], data[4][:2]))
     runner = tr.TrajRunner(prob, CFG, te.NEVER, 6)
-    (got, _), (want, _) = (_run(runner, r, case, dev) for r in ("graph", "eager"))
+    (got, _), (want, _) = _run(runner, case, dev), _run(runner, case, dev, "plain")
     assert next(iter(runner.buckets._items.values())).graph.graph is not None
     _assert_runs_equal(got, want)

@@ -2,15 +2,17 @@
 opt/runners.py) on the CPU.
 
 On the card each step loop replays one step captured as a CUDA graph over
-static buffers. Here the same static-buffer step functions run uncaptured
-(route ``"static"``) and are held ``torch.equal`` to the eager loops they
-replace: same parameters, step counts, losses and histories. They are also
-held to the JAX twins (``_optimize_while``, ``_optimize_scan``,
-``OptimizerLoop``, the jitted runners) at tests/test_torch_engine.py's and
-tests/test_torch_pose.py's tolerances. The route predicate is held as a
-table, the shape buckets over a round trip, and the per-replay launch
-accounting on a stub graph. Torch runs on one thread: multithreaded CPU
-reductions can give identical calls different last bits.
+static buffers. On the CPU the public entry points call the same
+static-buffer step directly; here they are held ``torch.equal`` to the plain
+loops of tests/torch_loop_ref.py: same parameters, step counts, losses and
+histories. They are also held to the JAX twins (``_optimize_while``,
+``_optimize_scan``, ``OptimizerLoop``, the jitted runners) at
+tests/test_torch_engine.py's and tests/test_torch_pose.py's tolerances, and
+the plain loop itself to ``_optimize_while``. Each model configuration's
+step runs with every host read refused, the shape buckets are held over a
+round trip, and the per-replay launch accounting on a stub graph. Torch
+runs on one thread: multithreaded CPU reductions can give identical calls
+different last bits.
 """
 import types
 
@@ -20,6 +22,8 @@ import pytest
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
+import torch_loop_ref as ref  # noqa: E402
+from test_torch_binned_slots import no_host_reads  # noqa: E402,F401 (fixture)
 
 from trajectory_optimization_tpu.models import pose as jpose  # noqa: E402
 from trajectory_optimization_tpu.models import traj as jt  # noqa: E402
@@ -40,6 +44,7 @@ CFG = te.OptimizerConfig(lr_pose=0.1, lr_quat=0.02)
 DECAY = dict(lr_pose=0.1, lr_quat=0.05, decay_gamma=0.5, decay_every=2)
 EARLY = te.EarlyStop(rewards_th=1.02, smoothness_th=0.5)  # clears within the first 16 steps
 FWD = dict(rtol=1e-4, atol=2e-4)  # the JAX suite's forward bound
+CUDA = torch.device("cuda", 0)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -82,34 +87,34 @@ def _seeded_cloud(n=4096, seed=5):
 
 
 # ---------------------------------------------------------------------------
-# the static-buffer steps against the eager loops, bit for bit
+# the public entry points against the plain loops, bit for bit
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("stop", ["never", "early"])
-def test_run_until_done_static_equals_eager(cloud10, path10, stop):
+def test_run_until_done_equals_the_plain_loop(cloud10, path10, stop):
     """Cloud 10 x path 10: 20 steps, or early stop (n_iters < 48, read at a
-    multiple of 16): the static step's parameters, Adam state, step count,
-    last loss and gains' baselines torch.equal to the eager loop's."""
+    multiple of 16): parameters, Adam state, step count, last loss and
+    gains' baselines torch.equal to the plain loop's."""
     prob, q, data = _traj_data(cloud10, path10)
     lf = _loss_fn(prob, data)
     stop_at, n = (te.NEVER, 20) if stop == "never" else (EARLY, 48)
-    runs = {route: te._run_until_done(lf, tt.init_traj_params(path10, q), CFG, n, stop_at,
-                                      route=route) for route in ("eager", "static")}
+    got = te.run_until_done(lf, tt.init_traj_params(path10, q), CFG, n, stop_at)
+    want = ref.until_done(lf, tt.init_traj_params(path10, q), CFG, n, stop_at)
     if stop == "early":
-        assert 0 < int(runs["eager"]["i"]) < 16
+        assert 0 < int(want["i"]) < 16
     else:
-        assert int(runs["eager"]["i"]) == n
-    assert _equal(runs["static"], runs["eager"])
+        assert int(want["i"]) == n
+    assert _equal(got, want)
 
 
-def test_optimize_with_history_static_equals_eager(cloud10, path10):
+def test_optimize_with_history_equals_the_plain_loop(cloud10, path10):
     prob, q, data = _traj_data(cloud10[::2], path10)
     lf = _loss_fn(prob, data)
-    out = {route: te._optimize_with_history(lf, tt.init_traj_params(path10, q), CFG, 12,
-                                            route=route) for route in ("eager", "static")}
-    assert _equal(out["static"][0], out["eager"][0])
-    hs, he = out["static"][1], out["eager"][1]
+    got = te.optimize_with_history(lf, tt.init_traj_params(path10, q), CFG, 12)
+    want = ref.with_history(lf, tt.init_traj_params(path10, q), CFG, 12)
+    assert _equal(got[0], want[0])
+    hs, he = got[1], want[1]
     assert hs.keys() == he.keys() and "loss" in hs and "mean_reward" in hs
     for k in he:
         assert hs[k].dtype == he[k].dtype and hs[k].shape == (12,)
@@ -122,34 +127,34 @@ def test_optimize_with_history_zero_steps():
     def lf(p):
         return torch.sum(p["poses"] ** 2), {"mean_reward": torch.ones(())}
 
-    for route in ("eager", "static"):
-        out, hist = te._optimize_with_history(lf, params, CFG, 0, route=route)
+    for run in (te.optimize_with_history, ref.with_history):
+        out, hist = run(lf, params, CFG, 0)
         assert hist == {} and torch.equal(out["poses"], params["poses"])
 
 
 @pytest.mark.parametrize("n", [0, 1, 7])
-def test_optimizer_loop_static_equals_eager(cloud10, path10, n):
+def test_optimizer_loop_equals_the_plain_loop(cloud10, path10, n):
     """``run(n)`` twice, then one step: each call's (loss, aux) and the
-    parameters after it torch.equal to the eager loop's."""
+    parameters after it torch.equal to the plain loop's, whose Adam state
+    carries across the calls."""
     prob, q, data = _traj_data(cloud10[::4], path10)
     lf = _loss_fn(prob, data)
-    loops = {}
-    for route in ("eager", "static"):
-        loops[route] = te.OptimizerLoop(lf, tt.init_traj_params(path10, q), CFG)
-        loops[route]._route = route
+    loop = te.OptimizerLoop(lf, tt.init_traj_params(path10, q), CFG)
+    params = tt.init_traj_params(path10, q)
+    state = ref.adam_state(params)
     for m in (n, n, 1):
-        got, want = loops["static"].run(m), loops["eager"].run(m)
-        assert torch.equal(got[0], want[0]) and _equal(got[1], want[1])
-        assert _equal(loops["static"].params, loops["eager"].params)
-        assert _equal(loops["static"].last_aux, loops["eager"].last_aux)
+        got = loop.run(m)
+        params, state, loss, aux = ref.steps(lf, params, state, CFG, m)
+        assert torch.equal(got[0], loss) and _equal(got[1], aux)
+        assert _equal(loop.params, params)
+        assert _equal(loop.last_aux, aux)
 
 
 def test_optimizer_loop_results_are_not_overwritten(cloud10, path10):
     """A returned loss and the parameters read after a run keep their
-    values when the loop runs on, as the eager loop's fresh tensors do."""
+    values when the loop runs on, as the plain loop's fresh tensors do."""
     prob, q, data = _traj_data(cloud10[::4], path10)
     loop = te.OptimizerLoop(_loss_fn(prob, data), tt.init_traj_params(path10, q), CFG)
-    loop._route = "static"
     loss, aux = loop.run(2)
     params = loop.params
     kept = (loss.clone(), {k: v.clone() for k, v in aux.items()},
@@ -159,36 +164,47 @@ def test_optimizer_loop_results_are_not_overwritten(cloud10, path10):
     assert not torch.equal(loop.params["poses"], kept[2]["poses"])
 
 
-def _pose_segments(adv, rem, seg, route):
+def _pose_segments(advances):
+    """Two segments of the first advance and one of the second, each from
+    where the last left off."""
     pts, valid = pad_points(_seeded_cloud())
     T = (torch.as_tensor(pts), torch.as_tensor(valid), INTR.matrix())
     params = tpose.init_pose_params(np.array([[6.0, 2.0, 0.0]], np.float32),
                                     np.array([[0.9, 0.1, -0.2, 0.3]], np.float32))
     state = te.adam_init(params)
     outs = []
-    for a in (adv, adv, rem):
-        params, state, loss, aux = a._advance(route, params, state, *T)
+    for a in (advances[0], advances[0], advances[1]):
+        params, state, loss, aux = a(params, state, *T)
         outs.append((params, state, loss, aux))
     return outs
 
 
-def test_pose_runner_static_equals_eager():
+def _plain_advance(problem, cfg, seg_steps):
+    return lambda *args: ref.pose_advance(problem, cfg, seg_steps, *args)
+
+
+def test_pose_runner_equals_the_plain_loop():
     """Two segments of 3 steps and a 2-step remainder (a second runner, a
     second bucket) with a decaying LR: each segment's parameters, Adam
     state (its count carried across segments), loss and observations
-    torch.equal to the eager segments'."""
+    torch.equal to the plain segments'."""
     tp = tpose.PoseProblem(INTR.width, INTR.height)
-    _, adv = tr.pose_runner(tp, te.OptimizerConfig(**DECAY), 3)
-    _, rem = tr.pose_runner(tp, te.OptimizerConfig(**DECAY), 2)
-    got, want = (_pose_segments(adv, rem, 3, route) for route in ("static", "eager"))
+    cfg = te.OptimizerConfig(**DECAY)
+    got = _pose_segments((tr.pose_runner(tp, cfg, 3)[1], tr.pose_runner(tp, cfg, 2)[1]))
+    want = _pose_segments((_plain_advance(tp, cfg, 3), _plain_advance(tp, cfg, 2)))
     for (gp, gs, gl, ga), (wp, ws, wl, wa), count in zip(got, want, (3, 6, 8)):
         assert int(gs["count"]) == count
         assert _equal(gp, wp) and _equal(gs, ws) and torch.equal(gl, wl) and _equal(ga, wa)
 
 
+def _plain_run(runner, params, *data):
+    """``runner``'s call on the plain loop."""
+    return ref.traj_run(runner.problem, runner.cfg, runner.stop, runner.n_steps, params, *data)
+
+
 def test_traj_runner_bucket_round_trip(cloud10, path10):
     """Shape A (cloud 10 x path 10), then B (half the points, 10 waypoints),
-    then A again through one runner: each run torch.equal to the eager run
+    then A again through one runner: each run torch.equal to the plain run
     (parameters, n_iters, final loss and aux), two buckets kept, and A's
     second run reuses A's bucket and step."""
     runner = tr.traj_runner(tt.TrajProblem(INTR.width, INTR.height, wps_step=2,
@@ -198,8 +214,8 @@ def test_traj_runner_bucket_round_trip(cloud10, path10):
     for name in ("A", "B", "A"):
         pts, path = cases[name]
         _, q, data = _traj_data(pts, path)
-        got = runner._run("static", tt.init_traj_params(path, q), *data)
-        want = runner._run("eager", tt.init_traj_params(path, q), *data)
+        got = runner(tt.init_traj_params(path, q), *data)
+        want = _plain_run(runner, tt.init_traj_params(path, q), *data)
         assert int(got[1]) == int(want[1]) and torch.equal(got[2], want[2])
         assert _equal(got[0], want[0]) and _equal(got[3], want[3])
         graphs.setdefault(name, set()).update(id(b.graph) for b in runner.buckets._items.values())
@@ -211,13 +227,13 @@ def test_traj_runner_zero_steps(cloud10, path10):
     runner = tr.traj_runner(tt.TrajProblem(INTR.width, INTR.height, backend="kernel"), CFG,
                             te.NEVER, 0)
     _, q, data = _traj_data(cloud10[::8], path10)
-    got = runner._run("static", tt.init_traj_params(path10, q), *data)
-    want = runner._run("eager", tt.init_traj_params(path10, q), *data)
+    got = runner(tt.init_traj_params(path10, q), *data)
+    want = _plain_run(runner, tt.init_traj_params(path10, q), *data)
     assert int(got[1]) == 0 and _equal(got[0], want[0]) and _equal(got[3], want[3])
 
 
 # ---------------------------------------------------------------------------
-# soft HPR above soft_hpr_dense_max: the binned tier's static steps
+# soft HPR above soft_hpr_dense_max: the binned tier's steps
 # ---------------------------------------------------------------------------
 
 SOFT = dict(soft_hpr=True, soft_hpr_dense_max=2048, hpr_cap=64)  # the room is binned
@@ -233,61 +249,62 @@ def _room():
     return room_scene(), path
 
 
-def test_soft_traj_runner_static_equals_eager():
+def test_soft_traj_runner_equals_the_plain_loop():
     """The trajectory runner with soft HPR on the binned tier (3 of 7
-    waypoints, 3 steps): parameters, n_iters, final loss and aux of the
-    static route torch.equal to the eager route's."""
+    waypoints, 3 steps): parameters, n_iters, final loss and aux torch.equal
+    to the plain loop's."""
     pts, path = _room()
     q = identity_quaternions(len(path))
     runner = tr.traj_runner(tt.TrajProblem(INTR.width, INTR.height, wps_step=3, **SOFT), CFG,
                             te.NEVER, 3)
     data = (torch.as_tensor(pts), None, INTR.matrix(), torch.as_tensor(path),
             torch.as_tensor(q))
-    got = runner._run("static", tt.init_traj_params(path, q), *data)
-    want = runner._run("eager", tt.init_traj_params(path, q), *data)
+    got = runner(tt.init_traj_params(path, q), *data)
+    want = _plain_run(runner, tt.init_traj_params(path, q), *data)
     assert int(got[1]) == int(want[1]) == 3
     assert _equal(got[0], want[0]) and torch.equal(got[2], want[2]) and _equal(got[3], want[3])
     assert not torch.equal(got[0]["poses"], torch.as_tensor(path))
 
 
-def test_soft_pose_runner_static_equals_eager():
+def test_soft_pose_runner_equals_the_plain_loop():
     """The pose runner with soft HPR on the binned tier: two segments of 3
-    steps, each torch.equal to the eager segments."""
+    steps, each torch.equal to the plain segments."""
     pts, _ = _room()
     prob = tpose.PoseProblem(INTR.width, INTR.height, **SOFT)
-    _, adv = tr.pose_runner(prob, te.OptimizerConfig(lr_pose=0.1, lr_quat=0.05), 3)
+    cfg = te.OptimizerConfig(lr_pose=0.1, lr_quat=0.05)
     outs = {}
-    for route in ("static", "eager"):
+    for name, adv in (("runner", tr.pose_runner(prob, cfg, 3)[1]),
+                      ("plain", _plain_advance(prob, cfg, 3))):
         params = tpose.init_pose_params(np.array([[0.5, 0.3, 0.0]], np.float32),
                                         np.array([[0.9, 0.1, -0.2, 0.3]], np.float32))
-        state, outs[route] = te.adam_init(params), []
+        state, outs[name] = te.adam_init(params), []
         for _ in range(2):
-            params, state, loss, aux = adv._advance(route, params, state, torch.as_tensor(pts),
-                                                    None, INTR.matrix())
-            outs[route].append((params, state, loss, aux))
-    for g, e in zip(outs["static"], outs["eager"]):
+            params, state, loss, aux = adv(params, state, torch.as_tensor(pts), None,
+                                           INTR.matrix())
+            outs[name].append((params, state, loss, aux))
+    for g, e in zip(outs["runner"], outs["plain"]):
         assert _equal(g[0], e[0]) and _equal(g[1], e[1]) and torch.equal(g[2], e[2])
         assert _equal(g[3], e[3])
 
 
-def test_soft_optimize_waypoints_static_equals_eager(monkeypatch):
+def test_soft_optimize_waypoints_equals_the_plain_loop(monkeypatch):
     """``optimize_waypoints`` with soft HPR on the binned tier (4 waypoints,
-    3 steps): its static route (the step the card captures) torch.equal to
-    its eager route, positions, quaternions and aux."""
+    3 steps): positions, quaternions and aux torch.equal to the same call
+    with the engine's ``optimize`` replaced by the plain loop."""
     pts, path = _room()
     q = identity_quaternions(4)
     prob = twps.WpsOptProblem(INTR.width, INTR.height, **SOFT)
-    want = twps.optimize_waypoints(pts, path[:4], q, INTR.matrix_np(), prob, n_steps=3,
-                                   device="cpu")
-    monkeypatch.setattr(twps, "device_route", lambda device, route: "static")
     got = twps.optimize_waypoints(pts, path[:4], q, INTR.matrix_np(), prob, n_steps=3,
                                   device="cpu")
+    monkeypatch.setattr(twps, "optimize", ref.optimize)
+    want = twps.optimize_waypoints(pts, path[:4], q, INTR.matrix_np(), prob, n_steps=3,
+                                   device="cpu")
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert _equal(got[2], want[2])
 
 
 # ---------------------------------------------------------------------------
-# the static steps against the JAX twins
+# the public entry points against the JAX twins
 # ---------------------------------------------------------------------------
 
 
@@ -309,13 +326,13 @@ def _twin_loss_fns(pts, path, stride):
 
 def test_static_until_done_matches_jax_while(cloud10, path10):
     """``_optimize_while`` with early stop: the same n_iters (as
-    tests/test_torch_engine.py holds the eager loop)."""
+    tests/test_torch_engine.py holds ``run_until_done``)."""
     jl, tl, q = _twin_loss_fns(cloud10[::8], path10, jt.waypoint_stride(path10))
     stop_kw = dict(rewards_th=1.02, smoothness_th=0.5)
     _, n_j, _ = je.optimize(jl, jt.init_traj_params(path10, q), je.OptimizerConfig(lr_pose=0.1,
                             lr_quat=0.02), 200, early_stop=je.EarlyStop(**stop_kw))
-    _, n_t, _ = te._optimize(tl, tt.init_traj_params(path10, q), CFG, 200, route="static",
-                             early_stop=te.EarlyStop(**stop_kw))
+    _, n_t, _ = te.optimize(tl, tt.init_traj_params(path10, q), CFG, 200,
+                            early_stop=te.EarlyStop(**stop_kw))
     assert 0 < n_j < 200 and n_t == n_j
 
 
@@ -325,7 +342,7 @@ def test_static_history_matches_jax_scan(cloud10, path10):
     jl, tl, q = _twin_loss_fns(cloud10[::8], path10, jt.waypoint_stride(path10))
     _, hj = je.optimize_with_history(jl, jt.init_traj_params(path10, q),
                                      je.OptimizerConfig(lr_pose=0.1, lr_quat=0.02), 12)
-    _, ht = te._optimize_with_history(tl, tt.init_traj_params(path10, q), CFG, 12, route="static")
+    _, ht = te.optimize_with_history(tl, tt.init_traj_params(path10, q), CFG, 12)
     assert set(ht) == set(hj)
     np.testing.assert_allclose(ht["mean_reward"], np.asarray(hj["mean_reward"]), rtol=1e-5)
     np.testing.assert_allclose(ht["loss"], np.asarray(hj["loss"]), rtol=2e-4)
@@ -339,7 +356,6 @@ def test_static_optimizer_loop_matches_jax(cloud10, path10):
     jloop = je.OptimizerLoop(jl, jt.init_traj_params(path10, q),
                              je.OptimizerConfig(lr_pose=0.1, lr_quat=0.02))
     tloop = te.OptimizerLoop(tl, tt.init_traj_params(path10, q), CFG)
-    tloop._route = "static"
     for n in (3, 4):
         jloss, jaux = jloop.run(n)
         tloss, taux = tloop.run(n)
@@ -366,9 +382,9 @@ def test_static_traj_runner_matches_jax(cloud10, path10):
     jp, jn, jloss, jaux = jrun(jt.init_traj_params(path10, q), jnp.asarray(pts),
                                jnp.asarray(valid), jnp.asarray(INTR.matrix_np()),
                                jnp.asarray(path10), jnp.asarray(q))
-    tp, tn, tloss, taux = trun._run("static", tt.init_traj_params(path10, q),
-                                    torch.as_tensor(pts), torch.as_tensor(valid), INTR.matrix(),
-                                    torch.as_tensor(path10), torch.as_tensor(q))
+    tp, tn, tloss, taux = trun(tt.init_traj_params(path10, q), torch.as_tensor(pts),
+                               torch.as_tensor(valid), INTR.matrix(), torch.as_tensor(path10),
+                               torch.as_tensor(q))
     assert int(tn) == int(jn) == 20
     np.testing.assert_allclose(float(taux["mean_reward"]), float(jaux["mean_reward"]), rtol=1e-5)
     np.testing.assert_allclose(float(taux["mean_reward"]) / float(taux["reward0"]),
@@ -389,8 +405,8 @@ def test_static_pose_runner_matches_jax():
     tp = tpose.PoseProblem(INTR.width, INTR.height)
     j_init, j_adv = jr.pose_runner(jp, je.OptimizerConfig(**DECAY), 3)
     _, j_rem = jr.pose_runner(jp, je.OptimizerConfig(**DECAY), 2)
-    got = _pose_segments(tr.pose_runner(tp, te.OptimizerConfig(**DECAY), 3)[1],
-                         tr.pose_runner(tp, te.OptimizerConfig(**DECAY), 2)[1], 3, "static")
+    got = _pose_segments((tr.pose_runner(tp, te.OptimizerConfig(**DECAY), 3)[1],
+                          tr.pose_runner(tp, te.OptimizerConfig(**DECAY), 2)[1]))
     jparams = jpose.init_pose_params(np.array([[6.0, 2.0, 0.0]], np.float32),
                                      np.array([[0.9, 0.1, -0.2, 0.3]], np.float32))
     jstate = j_init(jparams)
@@ -405,54 +421,118 @@ def test_static_pose_runner_matches_jax():
                                    **FWD)
 
 
+def test_plain_until_done_matches_jax_while(cloud10, path10):
+    """The plain loop the program is held to, itself against the JAX twin's
+    ``_optimize_while`` on cloud 10 / 8 and path 10: with early stop the
+    same n_iters (tests/test_torch_engine.py's pin); 20 fixed steps to loss
+    rtol 1e-3 and positions atol 5e-3 (its facade bounds)."""
+    jl, tl, q = _twin_loss_fns(cloud10[::8], path10, jt.waypoint_stride(path10))
+    jcfg = je.OptimizerConfig(lr_pose=0.1, lr_quat=0.02)
+    stop_kw = dict(rewards_th=1.02, smoothness_th=0.5)
+    _, n_j, _ = je.optimize(jl, jt.init_traj_params(path10, q), jcfg, 200,
+                            early_stop=je.EarlyStop(**stop_kw))
+    out = ref.until_done(tl, tt.init_traj_params(path10, q), CFG, 200, te.EarlyStop(**stop_kw))
+    assert 0 < n_j < 200 and int(out["i"]) == n_j
+    jp, n_j, jloss = je.optimize(jl, jt.init_traj_params(path10, q), jcfg, 20)
+    out = ref.until_done(tl, tt.init_traj_params(path10, q), CFG, 20, ref.NEVER)
+    assert int(out["i"]) == n_j == 20
+    np.testing.assert_allclose(float(out["loss"]), jloss, rtol=1e-3)
+    np.testing.assert_allclose(out["params"]["poses"].numpy(), np.asarray(jp["poses"]),
+                               atol=5e-3)
+
+
 # ---------------------------------------------------------------------------
-# the route predicate, as a table
+# every configuration's step, with every host read refused
 # ---------------------------------------------------------------------------
 
-ROUTE_TABLE = [
-    # (model, problem fields, points, route on the card): every configuration
-    # captures, soft HPR above soft_hpr_dense_max (the binned tier) included
-    ("traj", {}, 40_960, "graph"),
-    ("traj", {"backend": "torch"}, 40_960, "graph"),
-    ("traj", {"backend": "kernel"}, 8_388_608, "graph"),
-    ("traj", {"soft_hpr": True}, 24_576, "graph"),
-    ("traj", {"soft_hpr": True}, 32_768, "graph"),
-    ("traj", {"soft_hpr": True}, 32_769, "graph"),
-    ("traj", {"soft_hpr": True}, 40_960, "graph"),
-    ("traj", {"soft_hpr": True, "soft_hpr_dense_max": 2048}, 4096, "graph"),
-    ("traj", {"soft_hpr": False, "soft_hpr_dense_max": 2048}, 4096, "graph"),
-    ("pose", {}, 1_048_576, "graph"),
-    ("pose", {"soft_hpr": True}, 24_576, "graph"),
-    ("pose", {"soft_hpr": True}, 262_144, "graph"),
-    ("pose", {"soft_hpr": True, "soft_hpr_dense_max": 0}, 1, "graph"),
-    ("wps", {}, 40_960, "graph"),
-    ("wps", {"soft_hpr": True}, 24_576, "graph"),
-    ("wps", {"soft_hpr": True}, 40_960, "graph"),
+BINNED = dict(hpr_cap=64, hpr_safety=48.0)  # a few small bins: cheap on the CPU
+HOST_READ_TABLE = [
+    # (model, problem fields, points, HPR tier): the configurations the card
+    # captures, cut to 4,096 points or fewer; each soft row's
+    # soft_hpr_dense_max keeps the tier its full size took (dense up to the
+    # limit, binned above it), and its binned tier takes BINNED's knobs (the
+    # host reads do not depend on them); the full size beside each row
+    ("traj", {}, 4096, None),  # 40,960
+    ("traj", {"backend": "torch"}, 4096, None),  # 40,960
+    ("traj", {"backend": "kernel"}, 4096, None),  # 8,388,608
+    ("traj", {"soft_hpr": True}, 768, "dense"),  # 24,576
+    ("traj", {"soft_hpr": True, "soft_hpr_dense_max": 1024}, 1024, "dense"),  # 32,768
+    ("traj", {"soft_hpr": True, "soft_hpr_dense_max": 1024, **BINNED}, 1025, "binned"),  # 32,769
+    ("traj", {"soft_hpr": True, "soft_hpr_dense_max": 1024, **BINNED}, 1280, "binned"),  # 40,960
+    ("traj", {"soft_hpr": True, "soft_hpr_dense_max": 2048, **BINNED}, 4096, "binned"),  # 4,096
+    ("traj", {"soft_hpr": False, "soft_hpr_dense_max": 2048}, 4096, None),  # 4,096
+    ("pose", {}, 4096, None),  # 1,048,576
+    ("pose", {"soft_hpr": True}, 768, "dense"),  # 24,576
+    ("pose", {"soft_hpr": True, "soft_hpr_dense_max": 512, **BINNED}, 4096, "binned"),  # 262,144
+    ("pose", {"soft_hpr": True, "soft_hpr_dense_max": 0}, 1, "binned"),  # 1
+    ("wps", {}, 4096, None),  # 40,960
+    ("wps", {"soft_hpr": True}, 768, "dense"),  # 24,576
+    ("wps", {"soft_hpr": True, "soft_hpr_dense_max": 1024, **BINNED}, 1280, "binned"),  # 40,960
 ]
 MODELS = {"traj": tt.TrajProblem, "pose": tpose.PoseProblem, "wps": twps.WpsOptProblem}
 
 
-@pytest.mark.parametrize("model,fields,n,route", ROUTE_TABLE)
-def test_capture_route_table(model, fields, n, route):
-    """``models.traj.capture_route`` on each model's problem: the trajectory,
-    pose and waypoint losses share the soft gate it describes, and both of
-    its tiers capture (the binned tier sizes its tiles from shapes alone)."""
-    problem = MODELS[model](INTR.width, INTR.height, **fields)
-    assert tt.capture_route(problem, n) == route
-    assert tg.device_route(torch.device("cuda", 0), tt.capture_route(problem, n)) == route
-    assert tg.device_route(torch.device("cpu"), tt.capture_route(problem, n)) == "eager"
+def _two_steps(model, problem, n):
+    """Two steps of ``model``'s public runner on n seeded points: the run's
+    first step and the static-buffer step the card captures."""
+    P, K = torch.as_tensor(_seeded_cloud(n)), INTR.matrix()
+    path = np.array([[6.0, 2.0, 0.0], [6.5, 2.0, 0.0], [7.0, 2.2, 0.0]], np.float32)
+    q = identity_quaternions(len(path))
+    if model == "traj":
+        run = tr.traj_runner(problem, CFG, te.NEVER, 2)
+        params = tt.init_traj_params(path, q)
+        return lambda: run(params, P, None, K, torch.as_tensor(path), torch.as_tensor(q))
+    if model == "pose":
+        _, advance = tr.pose_runner(problem, CFG, 2)
+        params = tpose.init_pose_params(path[:1], q[:1])
+        state = te.adam_init(params)
+        return lambda: advance(params, state, P, None, K)
+    # optimize_waypoints' loop (the call itself reads its results on the host)
+    params, frozen = twps.init_wps_params(path, q)
+    stop = te.EarlyStop(float("inf"), float("inf"), "mean_reward", "mean_reward")
+    return lambda: te.run_until_done(lambda p: twps.wps_forward(p, frozen, P, K, problem),
+                                     params, CFG, 2, stop, pose_key="xy", quat_key="yaw")
 
 
-def test_public_entry_points_route_cpu_tensors_to_the_eager_loop(cloud10, path10):
-    """On CPU tensors no public entry point builds static buffers: the
-    runner keeps no bucket and the loop no captured step."""
+@pytest.mark.parametrize("model,fields,n,tier", HOST_READ_TABLE)
+def test_every_configuration_steps_without_a_host_read(model, fields, n, tier, monkeypatch,
+                                                       no_host_reads):
+    """Each configuration the card captures (the trajectory, pose and
+    waypoint losses, both tiers of the soft gate they share) takes two
+    steps on the CPU with every host read refused: the CPU stand-in for a
+    capture's check that the step never reads the host. The soft rows run
+    the tier they name."""
+    from trajectory_optimization_tpu_torch.ops import hpr as thpr
+
+    seen = set()
+    for name in ("hpr_mask_soft", "hpr_mask_soft_binned"):
+        def gate(*a, _f=getattr(thpr, name), _tier=name, **kw):
+            seen.add("binned" if _tier.endswith("binned") else "dense")
+            return _f(*a, **kw)
+        monkeypatch.setattr(thpr, name, gate)
+    step = _two_steps(model, MODELS[model](INTR.width, INTR.height, **fields), n)
+    no_host_reads()
+    out = step()
+    monkeypatch.undo()
+    assert seen == ({tier} if tier else set())
+    loss = out[2] if model != "wps" else out["loss"]
+    assert loss.shape == () and torch.isfinite(loss)
+
+
+def test_public_entry_points_keep_one_bucket_and_capture_nothing_on_cpu(cloud10, path10):
+    """On CPU tensors the runner keeps one bucket for two calls of one
+    shape and the loop its static buffers, and ``StepGraph`` calls their
+    step directly: no graph is captured, nothing replays."""
     prob, q, data = _traj_data(cloud10[::8], path10)
     runner = tr.traj_runner(prob, CFG, te.NEVER, 3)
-    runner(tt.init_traj_params(path10, q), *data)
-    assert len(runner.buckets) == 0
+    for _ in range(2):
+        runner(tt.init_traj_params(path10, q), *data)
+    (bucket,) = runner.buckets._items.values()
+    assert not bucket.graph.captures and bucket.graph.graph is None
+    assert bucket.graph.replays == 0
     loop = te.OptimizerLoop(_loss_fn(prob, data), tt.init_traj_params(path10, q), CFG)
     loop.run(2)
-    assert loop._route == "eager" and loop._step is None
+    assert loop._step is not None and loop._graph.graph is None and loop._graph.replays == 0
 
 
 # ---------------------------------------------------------------------------
@@ -501,7 +581,7 @@ def test_replays_add_the_captured_launches(stub_cuda):
         _kernels.LAUNCHES["pass_a"] += 1
         _kernels.LAUNCHES["bwd_stats"] += 2
 
-    g = tg.StepGraph(fn, "graph")
+    g = tg.StepGraph(fn, CUDA)
     g()
     assert _kernels.LAUNCHES["pass_a"] == 1 and _kernels.LAUNCHES["bwd_stats"] == 2
     g()
@@ -515,8 +595,9 @@ def test_replays_add_the_captured_launches(stub_cuda):
 
 
 def test_static_route_calls_the_step_and_counts_nothing(stub_cuda):
+    """On the CPU a step is called directly, never captured."""
     g = tg.StepGraph(lambda: _kernels.LAUNCHES.__setitem__("pass_b", _kernels.LAUNCHES["pass_b"]
-                                                          + 1), "static")
+                                                          + 1), torch.device("cpu"))
     g()
     g()
     assert _kernels.LAUNCHES["pass_b"] == 2 and g.graph is None and not _StubGraph.made
@@ -527,7 +608,7 @@ def test_a_failed_capture_raises_and_counts_nothing(stub_cuda):
         _kernels.LAUNCHES["pass_a"] += 1
         raise RuntimeError("operation not permitted when stream is capturing")
 
-    g = tg.StepGraph(fn, "graph", "test step")
+    g = tg.StepGraph(fn, CUDA, "test step")
     with pytest.raises(tg.CaptureError, match="capturing the test step"):
         g()
     assert g.graph is None and _kernels.LAUNCHES["pass_a"] == 0
@@ -541,7 +622,7 @@ def test_no_garbage_collection_while_capturing(stub_cuda):
     import gc
 
     seen = []
-    ok = tg.StepGraph(lambda: seen.append(gc.isenabled()), "graph")
+    ok = tg.StepGraph(lambda: seen.append(gc.isenabled()), CUDA)
 
     def fail():
         seen.append(gc.isenabled())
@@ -550,11 +631,11 @@ def test_no_garbage_collection_while_capturing(stub_cuda):
     assert gc.isenabled()
     ok()
     with pytest.raises(tg.CaptureError):
-        tg.StepGraph(fail, "graph")()
+        tg.StepGraph(fail, CUDA)()
     assert seen == [False, False] and gc.isenabled()
     gc.disable()
     try:
-        tg.StepGraph(lambda: seen.append(gc.isenabled()), "graph")()
+        tg.StepGraph(lambda: seen.append(gc.isenabled()), CUDA)()
         assert seen[-1] is False and not gc.isenabled()
     finally:
         gc.enable()
@@ -568,7 +649,7 @@ def test_a_graph_keeps_the_scratch_it_was_captured_with(stub_cuda):
     saved = _kernels._reduction_scratch.get(key)
     _kernels._reduction_scratch[key] = old
     try:
-        g = tg.StepGraph(lambda: None, "graph")
+        g = tg.StepGraph(lambda: None, CUDA)
         g()
         _kernels._reduction_scratch[key] = (torch.zeros(8192, dtype=torch.int32), old[1])
         assert g.scratch is old
@@ -577,8 +658,3 @@ def test_a_graph_keeps_the_scratch_it_was_captured_with(stub_cuda):
             _kernels._reduction_scratch.pop(key, None)
         else:
             _kernels._reduction_scratch[key] = saved
-
-
-def test_step_graph_refuses_the_eager_route():
-    with pytest.raises(ValueError):
-        tg.StepGraph(lambda: None, "eager")

@@ -244,14 +244,14 @@ def test_a_replay_of_the_loss_runs_at_most_12_device_operations(dev, regime):
         loss, aux = tt.traj_forward(leaves, P, K, p0, q0, prob, valid=V, points_t=Pt)
         return torch.autograd.grad(loss, list(leaves.values()))
 
-    with tg.on_capture_stream(dev, "graph"):
+    with tg.on_capture_stream(dev):
         loss_and_grads()  # the launcher's scratch and sentinels, before the capture
-        graph = tg.StepGraph(loss_and_grads, "graph", "trajectory loss")
+        graph = tg.StepGraph(loss_and_grads, dev, "trajectory loss")
         graph.capture()
         graph.replay()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        with tg.on_capture_stream(dev, "graph"):
+        with tg.on_capture_stream(dev):
             graph.replay()
         torch.cuda.synchronize()
     ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]

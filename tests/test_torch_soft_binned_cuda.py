@@ -255,9 +255,9 @@ def test_two_calls_bit_equal_and_a_replay_equal_to_them(dev, cloud10_cams):
             for d, x in zip(box, out):
                 d.copy_(x)
 
-    with tg.on_capture_stream(dev, "graph"):
+    with tg.on_capture_stream(dev):
         fn()
-        g = tg.StepGraph(fn, "graph", "soft gate and gradient")
+        g = tg.StepGraph(fn, dev, "soft gate and gradient")
         g()
     torch.cuda.synchronize()
     assert g.graph is not None and g.launches == {"soft_binned_fwd": 4, "soft_binned_bwd": 4}

@@ -2,7 +2,7 @@
 
 Held: under a CPU ``torch.profiler`` the facades record their spans in
 order, nested in the root span and on the caller's thread; the captured
-runners' phases, run uncaptured (route ``"static"``), record theirs; an
+runners' phases, their steps called uncaptured on the CPU, record theirs; an
 occlusion-aware facade call records the soft gate's span once per scored
 waypoint in its first step and its final forward, the binned tiles' span
 inside it; with no profiler on a span never enters ``record_function``;
@@ -81,8 +81,9 @@ def test_span_names_carry_the_prefix():
 def test_trajectory_facade_records_its_spans_in_order(pts, path10):
     opt = api.TrajectoryOptimizer(device="cpu", lr_pose=0.1, lr_quat=0.02)
     spans = _traced(lambda: opt.optimize(pts, path10, n_steps=2))
-    # on the CPU the runner takes the eager loop, which has no phases but its final forward
-    assert [s[0] for s in spans] == [tp.FACADE_OPTIMIZE, tp.FACADE_PREPARE,
+    # the runner's phases, as on the card: its step is called uncaptured here
+    assert [s[0] for s in spans] == [tp.FACADE_OPTIMIZE, tp.FACADE_PREPARE, tp.RUNNER_LOAD,
+                                     tp.RUNNER_LOAD, tp.RUNNER_FIRST_STEP, tp.RUNNER_REPLAYS,
                                      tp.RUNNER_FINAL_FORWARD, tp.FACADE_FETCH]
     _assert_nested(spans, tp.FACADE_OPTIMIZE)
 
@@ -90,7 +91,10 @@ def test_trajectory_facade_records_its_spans_in_order(pts, path10):
 def test_pose_facade_records_its_spans_in_order(pts):
     opt = api.PoseOptimizer(device="cpu", lr_pose=0.1, lr_quat=0.02, use_hpr=True)
     spans = _traced(lambda: opt.optimize(pts, np.array([0.0, 0.0, 1.0]), n_steps=2))
-    assert [s[0] for s in spans] == [tp.FACADE_OPTIMIZE, tp.FACADE_PREPARE, tp.FACADE_FETCH]
+    # the pose runner's phases (it has no final forward), as on the card
+    assert [s[0] for s in spans] == [tp.FACADE_OPTIMIZE, tp.FACADE_PREPARE, tp.RUNNER_LOAD,
+                                     tp.RUNNER_LOAD, tp.RUNNER_FIRST_STEP, tp.RUNNER_REPLAYS,
+                                     tp.FACADE_FETCH]
     _assert_nested(spans, tp.FACADE_OPTIMIZE)
 
 
@@ -106,11 +110,11 @@ def test_static_trajectory_route_records_the_runner_phases(pts, path10):
     prob = TrajProblem(img_width=INTR.width, img_height=INTR.height, wps_step=2)
     runner = tr.TrajRunner(prob, CFG, NEVER, 3)
     args = _traj_args(pts, path10)
-    spans = _traced(lambda: runner._run("static", *args))
+    spans = _traced(lambda: runner(*args))
     assert [s[0] for s in spans] == [tp.RUNNER_LOAD, tp.RUNNER_LOAD, tp.RUNNER_FIRST_STEP,
                                      tp.RUNNER_REPLAYS, tp.RUNNER_FINAL_FORWARD]
     # the second run reuses the bucket: the same phases, no bucket made
-    assert [s[0] for s in _traced(lambda: runner._run("static", *args))] == [s[0] for s in spans]
+    assert [s[0] for s in _traced(lambda: runner(*args))] == [s[0] for s in spans]
     assert len(runner.buckets) == 1
 
 
@@ -122,20 +126,19 @@ def test_static_pose_route_records_the_first_step_once(pts):
                               np.array([[1.0, 0.0, 0.0, 0.0]], np.float32), "cpu")
     args = (params, adam_init(params), torch.as_tensor(padded), torch.as_tensor(valid),
             INTR.matrix(device="cpu"))
-    first = [s[0] for s in _traced(lambda: advance._advance("static", *args))]
+    first = [s[0] for s in _traced(lambda: advance(*args))]
     assert first == [tp.RUNNER_LOAD, tp.RUNNER_LOAD, tp.RUNNER_FIRST_STEP, tp.RUNNER_REPLAYS]
     # the bucket is warm: every step of the next call replays
-    later = [s[0] for s in _traced(lambda: advance._advance("static", *args))]
+    later = [s[0] for s in _traced(lambda: advance(*args))]
     assert later == [tp.RUNNER_LOAD, tp.RUNNER_LOAD, tp.RUNNER_REPLAYS]
 
 
 def _soft_call(mp):
-    """A 3-step call of the occlusion-aware facade on the static-buffer
-    route (the captured route's step called uncaptured: a first step, the
-    replays and a final forward), the binned tier forced at 1,536 points."""
+    """A 3-step call of the occlusion-aware facade (on the CPU the step the
+    card captures, called uncaptured: a first step, the replays and a final
+    forward), the binned tier forced at 1,536 points."""
     mp.setattr(api, "TrajProblem",
                functools.partial(TrajProblem, soft_hpr_dense_max=0, hpr_cap=64))
-    mp.setattr(tr, "device_route", lambda device, route="graph": "static")
     rng = np.random.default_rng(3)
     points = rng.uniform(-6.0, 6.0, (1536, 3)).astype(np.float32)
     path = np.stack([np.linspace(-2.0, 1.0, SOFT_WAYPOINTS), np.zeros(SOFT_WAYPOINTS),
@@ -180,7 +183,7 @@ def test_no_profiler_never_enters_record_function(pts, path10, monkeypatch):
     assert tp.span(tp.HPR_GATE) is tp.span(tp.RUNNER_REPLAYS)
     api.TrajectoryOptimizer(device="cpu").optimize(pts, path10, n_steps=2)
     prob = TrajProblem(img_width=INTR.width, img_height=INTR.height, wps_step=2)
-    tr.TrajRunner(prob, CFG, NEVER, 2)._run("static", *_traj_args(pts, path10))
+    tr.TrajRunner(prob, CFG, NEVER, 2)(*_traj_args(pts, path10))
     tr.traj_runner.cache_clear()
     soft()
     tr.traj_runner.cache_clear()
@@ -210,7 +213,7 @@ def stub_cuda(monkeypatch):
 def test_a_capture_counts_once_with_its_seconds(stub_cuda, monkeypatch):
     begun = []
     monkeypatch.setattr(_StubGraph, "capture_begin", lambda self, **kw: begun.append(kw))
-    g = tg.StepGraph(lambda: None, "graph")
+    g = tg.StepGraph(lambda: None, torch.device("cuda", 0))
     spans = _traced(lambda: [g() for _ in range(3)])
     assert len(begun) == 1 and g.replays == 3 and g.capture_s > 0
     # the capture runs inside the caller's replays span and adds none of its own

@@ -157,19 +157,6 @@ def _resolve_backend(problem: TrajProblem, points: torch.Tensor) -> str:
     return backend
 
 
-def capture_route(problem, n_points: int) -> str:
-    """How a step of this configuration runs on the card: ``"graph"``, captured
-    once per shape bucket and replayed (``opt/graphs.py``). Every
-    configuration captures: the kernel and plain backends, both soft-HPR
-    tiers (the binned tier above ``soft_hpr_dense_max`` points sizes its
-    tiles from shapes alone, as the JAX twin's jitted scan does) and a
-    precomputed occlusion mask. The one hook through which the trajectory,
-    pose and waypoint runners pick their route; ``problem`` is duck-typed
-    and ``n_points`` the cloud's size, so a configuration that had to read
-    the host would answer ``"eager"`` here."""
-    return "graph"
-
-
 def plain_lo_sum(points, quats_sel, poses_sel, K, problem: TrajProblem, valid=None):
     """The plain path's score → log-odds → sum over waypoints, (N,)."""
     p = waypoint_scores(

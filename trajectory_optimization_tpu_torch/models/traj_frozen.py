@@ -81,7 +81,6 @@ from trajectory_optimization_tpu_torch.opt.engine import (
 from trajectory_optimization_tpu_torch.opt.graphs import (
     StepGraph,
     capture_stream,
-    device_route,
     on_capture_stream,
 )
 from trajectory_optimization_tpu_torch.utils.profiling import span
@@ -1089,7 +1088,7 @@ class FrozenTrajOptimizer:
     and a refresh copies the new plan into the shape's buffers (a larger
     shape takes a new bucket; the floors never let a smaller one come
     back, so the old one is freed). On the CPU the steps run the eager
-    loop; ``"static"`` runs the card's static-buffer step uncaptured. The
+    loop; ``"static"`` there runs the card's static-buffer step uncaptured. The
     plan builder's worker thread only computes numpy arrays: it makes no
     CUDA call, so it cannot fail a capture on the caller's thread.
     """
@@ -1113,7 +1112,9 @@ class FrozenTrajOptimizer:
         self.plan_cfg = plan_cfg
         self.opt_cfg = opt_cfg or OptimizerConfig()
         self.tx = make_optimizer(self.opt_cfg)
-        self._route = device_route(self.device)
+        # the route of its steps: the static-buffer step ("graph": captured on
+        # the card, called directly elsewhere) or its own eager step ("eager")
+        self._route = "graph" if self.device.type == "cuda" else "eager"
         self._steps_since_refresh = 0
         self._plan = None
         self._meta = None
@@ -1175,7 +1176,7 @@ class FrozenTrajOptimizer:
                 self._drop_bucket()
                 self._bucket = _FrozenBucket(self, key, staged)
                 self.stats["captures"] += 1
-            with on_capture_stream(self.device, self._route):
+            with on_capture_stream(self.device):
                 self._bucket.load(staged)
             self._plan = self._bucket.plan
         self._meta = meta
@@ -1298,14 +1299,13 @@ class FrozenTrajOptimizer:
     def _static_step(self, params, opt_state):
         """``step`` on the static buffers of the current shape's bucket: its
         first step eagerly, then one replay of its captured step (called
-        directly on the ``"static"`` route)."""
+        directly off the card)."""
         b = self._bucket
-        with on_capture_stream(self.device, self._route):
+        with on_capture_stream(self.device):
             if b.step is None:
                 b.step = AdamStep(b.loss_fn, params, self.tx.cfg, self.tx.lrs, state=opt_state,
                                   keep_output=True)
-                b.graph = StepGraph(b.step.step, self._route,
-                                    f"{type(self).__name__} step")
+                b.graph = StepGraph(b.step.step, self.device, f"{type(self).__name__} step")
                 b.step.step()  # the shape's first step, eagerly
             else:
                 assign(b.step.params, params)

@@ -24,11 +24,10 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from trajectory_optimization_tpu_torch.models.traj import capture_route, gated_waypoint_scores
+from trajectory_optimization_tpu_torch.models.traj import gated_waypoint_scores
 from trajectory_optimization_tpu_torch.ops import quat as quat_ops
 from trajectory_optimization_tpu_torch.ops.scores import waypoint_scores
-from trajectory_optimization_tpu_torch.opt.engine import EarlyStop, OptimizerConfig, _optimize
-from trajectory_optimization_tpu_torch.opt.graphs import device_route
+from trajectory_optimization_tpu_torch.opt.engine import EarlyStop, OptimizerConfig, optimize
 
 Params = Dict[str, torch.Tensor]
 
@@ -136,9 +135,9 @@ def optimize_waypoints(
 
     ``n_steps`` steps of the two-group Adam engine (``lr_xy`` on positions,
     ``lr_yaw`` on headings), a fixed-length run, captured on the card with
-    or without soft HPR (``capture_route``); aux is the
-    final forward's plus 'losses0', the initial per-waypoint losses, for
-    per-waypoint visibility gains (losses0 / losses).
+    or without soft HPR; aux is the final forward's plus 'losses0', the
+    initial per-waypoint losses, for per-waypoint visibility gains
+    (losses0 / losses).
     """
     as_dev = lambda x: None if x is None else torch.as_tensor(  # noqa: E731
         np.asarray(x) if not torch.is_tensor(x) else x, dtype=torch.float32, device=device)
@@ -156,10 +155,8 @@ def optimize_waypoints(
     # at mean_reward, with thresholds that never trigger
     stop = EarlyStop(rewards_th=float("inf"), smoothness_th=float("inf"),
                      reward_key="mean_reward", smooth_key="mean_reward")
-    route = device_route(points.device, capture_route(problem, points.shape[0]))
-    params, _, _ = _optimize(loss_fn, params, OptimizerConfig(lr_pose=lr_xy, lr_quat=lr_yaw),
-                             n_steps, route=route, early_stop=stop, pose_key="xy",
-                             quat_key="yaw")
+    params, _, _ = optimize(loss_fn, params, OptimizerConfig(lr_pose=lr_xy, lr_quat=lr_yaw),
+                            n_steps, early_stop=stop, pose_key="xy", quat_key="yaw")
     trans, quats = wps_path(params, frozen)
     with torch.no_grad():
         _, aux = loss_fn(params)

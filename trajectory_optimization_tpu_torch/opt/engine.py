@@ -15,13 +15,13 @@ Twin of ``trajectory_optimization_tpu/opt/engine.py``:
     ``done`` only every ``check_every`` steps to leave the loop early. The
     result equals the JAX ``lax.while_loop``'s: same ``n_iters``, same
     parameters;
-  * on CUDA tensors the step loops run as the JAX engine's jitted loops run,
-    as one program: the step is captured once as a CUDA graph over static
-    buffers and replayed (``opt/graphs.py``), the first step of a run eager;
-    on CPU tensors they run the eager loop. Both give the same bits. A
-    generic ``loss_fn`` is captured as ``jax.jit`` traces it: if it reads
-    the host, the capture raises. Callers that know their step reads the
-    host call the private loops (``_run_until_done``) with ``route="eager"``.
+  * every step loop is one static-buffer step (:class:`AdamStep` and its
+    subclasses) driven from the host. On a CUDA device the first step of a
+    run runs as it is and the later ones replay the step, captured once as
+    a CUDA graph (``opt/graphs.py``), as the JAX engine's jitted loops run
+    as one program; on the CPU the step is called directly. A ``loss_fn``
+    is captured as ``jax.jit`` traces it: if it reads the host, the capture
+    raises.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from trajectory_optimization_tpu_torch.opt.graphs import StepGraph, device_route, on_capture_stream
+from trajectory_optimization_tpu_torch.opt.graphs import StepGraph, on_capture_stream
 from trajectory_optimization_tpu_torch.utils.profiling import (
     RUNNER_FIRST_STEP,
     RUNNER_REPLAYS,
@@ -193,7 +193,6 @@ class EarlyStop:
 NEVER = EarlyStop(rewards_th=float("inf"), smoothness_th=float("inf"))
 
 
-
 def _params_device(params: Dict[str, torch.Tensor]) -> torch.device:
     return next(iter(params.values())).device
 
@@ -215,10 +214,11 @@ def clone_tree(tree):
 class AdamStep:
     """The static buffers of one Adam-driven loop and its step: the
     parameters and the Adam state live in tensors whose addresses never
-    change, and ``step()`` computes the new ones exactly as the eager loop
-    does, then ``copy_``s them back. Capturing ``step`` as a CUDA graph and
-    replaying it iterates in place. ``loss_fn`` must read only tensors that
-    outlive the object (static inputs or the caller's data).
+    change, and ``step()`` computes the new ones (:func:`value_and_grad`,
+    then :func:`adam_update`), then ``copy_``s them back. Capturing ``step``
+    as a CUDA graph and replaying it iterates in place. ``loss_fn`` must
+    read only tensors that outlive the object (static inputs or the
+    caller's data).
 
     ``keep_output`` keeps the loss and aux of the step's forward (taken
     before its update) in static buffers ``loss`` and ``aux``, made by the
@@ -257,7 +257,7 @@ class UntilDoneStep(AdamStep):
     """The masked early-stopping loop's static buffers (``done``, ``i``,
     the last loss taken, ``reward0``, ``smooth0``) beside the Adam step's.
     ``step(first=True)`` also records ``reward0`` and ``smooth0``: the
-    first step of a run, run eagerly, outside any capture."""
+    first step of a run, called outside any capture."""
 
     def __init__(self, loss_fn: LossFn, params, cfg: OptimizerConfig, lrs: Dict,
                  stop: EarlyStop):
@@ -309,9 +309,9 @@ class UntilDoneStep(AdamStep):
 
 def drive_until_done(run: UntilDoneStep, graph: StepGraph, n_steps: int, *,
                      check_every: int = 16) -> None:
-    """Take up to ``n_steps`` steps: the first eagerly (it records the gains'
-    baselines), the rest through ``graph``; read ``done`` on the host every
-    ``check_every`` steps, where the eager loop reads it."""
+    """Take up to ``n_steps`` steps: the first called as it is, outside any
+    capture (it records the gains' baselines), the rest through ``graph``;
+    read ``done`` on the host every ``check_every`` steps."""
     stop = run.stop
     can_stop = math.isfinite(stop.rewards_th) or math.isfinite(stop.smoothness_th)
 
@@ -331,55 +331,6 @@ def drive_until_done(run: UntilDoneStep, graph: StepGraph, n_steps: int, *,
                 break
 
 
-def _eager_until_done(loss_fn, params, cfg, n_steps, stop, *, pose_key, quat_key, check_every):
-    lrs = group_lrs(cfg, pose_key, quat_key)
-    state = adam_init(params)
-    device = next(iter(params.values())).device
-    done = torch.zeros((), dtype=torch.bool, device=device)
-    i = torch.zeros((), dtype=torch.int64, device=device)
-    last_loss = torch.full((), float("inf"), device=device)
-    reward0 = torch.full((), 1e-6, device=device)
-    smooth0 = torch.zeros((), device=device)
-    can_stop = math.isfinite(stop.rewards_th) or math.isfinite(stop.smoothness_th)
-    for step in range(n_steps):
-        loss, aux, grads = value_and_grad(loss_fn, params)
-        params, state = adam_update(grads, state, params, cfg, lrs, frozen=done)
-        if step == 0:
-            reward0, smooth0 = aux[stop.reward_key], aux[stop.smooth_key]
-        last_loss = torch.where(done, last_loss, loss)
-        i = i + (~done).to(i.dtype)
-        done = done | (
-            (aux[stop.reward_key] / reward0 > stop.rewards_th)
-            & (smooth0 / aux[stop.smooth_key] > stop.smoothness_th)
-        )
-        if can_stop and (step + 1) % check_every == 0 and bool(done):
-            break
-    return {"params": params, "state": state, "i": i, "loss": last_loss,
-            "reward0": reward0, "smooth0": smooth0}
-
-
-def _run_until_done(
-    loss_fn: LossFn,
-    params: Dict[str, torch.Tensor],
-    cfg: OptimizerConfig,
-    n_steps: int,
-    stop: EarlyStop,
-    *,
-    route: str,
-    pose_key: str = "poses",
-    quat_key: str = "quats",
-    check_every: int = 16,
-):
-    """``run_until_done`` on the given route (see ``opt/graphs.py``)."""
-    if route == "eager":
-        return _eager_until_done(loss_fn, params, cfg, n_steps, stop, pose_key=pose_key,
-                                 quat_key=quat_key, check_every=check_every)
-    with on_capture_stream(_params_device(params), route):
-        run = UntilDoneStep(loss_fn, params, cfg, group_lrs(cfg, pose_key, quat_key), stop)
-        drive_until_done(run, StepGraph(run.step, route), int(n_steps), check_every=check_every)
-    return run.result()
-
-
 def run_until_done(
     loss_fn: LossFn,
     params: Dict[str, torch.Tensor],
@@ -394,20 +345,12 @@ def run_until_done(
     """The masked early-stopping loop shared by :func:`optimize` and
     ``opt.runners.traj_runner``. Returns a dict of device tensors: params,
     state, i (steps taken), loss (of the last step taken), reward0, smooth0.
-    On CUDA tensors the steps after the first replay one captured step."""
-    return _run_until_done(loss_fn, params, cfg, n_steps, stop,
-                           route=device_route(_params_device(params)), pose_key=pose_key,
-                           quat_key=quat_key, check_every=check_every)
-
-
-def _optimize(loss_fn, params, cfg, n_steps, *, route: str, early_stop=None,
-              pose_key="poses", quat_key="quats"):
-    """:func:`optimize` on the given route."""
-    out = _run_until_done(
-        loss_fn, params, cfg, int(n_steps), early_stop or NEVER, route=route,
-        pose_key=pose_key, quat_key=quat_key,
-    )
-    return out["params"], int(out["i"]), float(out["loss"])
+    On a CUDA device the steps after the first replay one captured step."""
+    device = _params_device(params)
+    with on_capture_stream(device):
+        run = UntilDoneStep(loss_fn, params, cfg, group_lrs(cfg, pose_key, quat_key), stop)
+        drive_until_done(run, StepGraph(run.step, device), int(n_steps), check_every=check_every)
+    return run.result()
 
 
 def optimize(
@@ -423,8 +366,9 @@ def optimize(
     """Run the optimization; return (params, n_iters, loss). With
     ``early_stop`` the run ends once the gain thresholds clear; without, it
     takes exactly ``n_steps`` steps."""
-    return _optimize(loss_fn, params, cfg, n_steps, route=device_route(_params_device(params)),
-                     early_stop=early_stop, pose_key=pose_key, quat_key=quat_key)
+    out = run_until_done(loss_fn, params, cfg, n_steps, early_stop or NEVER, pose_key=pose_key,
+                         quat_key=quat_key)
+    return out["params"], int(out["i"]), float(out["loss"])
 
 
 class HistoryStep(AdamStep):
@@ -450,34 +394,6 @@ class HistoryStep(AdamStep):
         self.idx.add_(1)
 
 
-def _optimize_with_history(loss_fn, params, cfg, n_steps, *, route: str, pose_key="poses",
-                           quat_key="quats"):
-    """:func:`optimize_with_history` on the given route."""
-    lrs = group_lrs(cfg, pose_key, quat_key)
-    n_steps = int(n_steps)
-    if route == "eager":
-        state = adam_init(params)
-        rows = []
-        for _ in range(n_steps):
-            loss, aux, grads = value_and_grad(loss_fn, params)
-            params, state = adam_update(grads, state, params, cfg, lrs)
-            scalars = {k: v for k, v in aux.items() if v.dim() == 0}
-            scalars["loss"] = loss
-            rows.append(scalars)
-        keys = rows[0].keys() if rows else ()
-        return params, {k: torch.stack([r[k] for r in rows]).cpu().numpy() for k in keys}
-    with on_capture_stream(_params_device(params), route):
-        run = HistoryStep(loss_fn, params, cfg, lrs, n_steps)
-        graph = StepGraph(run.step, route)
-        for step in range(n_steps):
-            if step == 0:
-                run.step()
-            else:
-                graph()
-    rows = run.rows or {}
-    return run.params, {k: v.cpu().numpy() for k, v in rows.items()}
-
-
 def optimize_with_history(
     loss_fn: LossFn,
     params: Dict[str, torch.Tensor],
@@ -489,19 +405,25 @@ def optimize_with_history(
 ):
     """Fixed-length optimization returning the per-step history of the loss
     and every scalar aux term, as numpy arrays (one host transfer at the end).
-    On CUDA tensors each step after the first replays one captured step,
+    On a CUDA device each step after the first replays one captured step,
     which writes its scalars into row i of the history on the device."""
-    return _optimize_with_history(loss_fn, params, cfg, n_steps,
-                                  route=device_route(_params_device(params)),
-                                  pose_key=pose_key, quat_key=quat_key)
+    device, n_steps = _params_device(params), int(n_steps)
+    with on_capture_stream(device):
+        run = HistoryStep(loss_fn, params, cfg, group_lrs(cfg, pose_key, quat_key), n_steps)
+        graph = StepGraph(run.step, device)
+        if n_steps:
+            run.step()
+        for _ in range(n_steps - 1):
+            graph()
+    return run.params, {k: v.cpu().numpy() for k, v in (run.rows or {}).items()}
 
 
 class OptimizerLoop:
     """Stepwise optimization with persistent state, for callers that
     interleave device steps with host work. ``run(n)`` advances n steps and
-    returns the (loss, aux) of the last forward evaluation. On CUDA tensors
-    the loop's first step runs eagerly and every later one replays a step
-    captured once for the loop."""
+    returns the (loss, aux) of the last forward evaluation. The loop's first
+    step makes its static buffers; on a CUDA device every later one replays
+    a step captured once for the loop."""
 
     def __init__(
         self,
@@ -516,9 +438,7 @@ class OptimizerLoop:
         self._cfg = cfg
         self._lrs = group_lrs(cfg, pose_key, quat_key)
         self._params = params
-        self._state = adam_init(params)
         self._aux = None
-        self._route = device_route(_params_device(params))
         self._step: Optional[AdamStep] = None  # the static buffers, from the first step
         self._graph: Optional[StepGraph] = None
 
@@ -535,23 +455,18 @@ class OptimizerLoop:
         if n == 0:
             with torch.no_grad():
                 loss, aux = self._loss_fn(self._params)
-        elif self._route == "eager":
-            for _ in range(n):
-                loss, aux, grads = value_and_grad(self._loss_fn, self._params)
-                self._params, self._state = adam_update(
-                    grads, self._state, self._params, self._cfg, self._lrs
-                )
         else:
-            with on_capture_stream(_params_device(self._params), self._route):
+            device = _params_device(self._params)
+            with on_capture_stream(device):
                 if self._step is None:
                     self._step = AdamStep(self._loss_fn, self._params, self._cfg, self._lrs,
-                                          state=self._state, keep_output=True)
-                    self._graph = StepGraph(self._step.step, self._route)
-                    self._step.step()  # the loop's first step, eagerly
+                                          keep_output=True)
+                    self._graph = StepGraph(self._step.step, device)
+                    self._step.step()  # the loop's first step, as it is
                     n -= 1
                 for _ in range(n):
                     self._graph()
-            # results the next run leaves alone, as the eager loop's are
+            # results the next run leaves alone
             self._params = clone_tree(self._step.params)
             loss, aux = self._step.loss.clone(), clone_tree(self._step.aux)
         self._aux = aux

@@ -7,19 +7,12 @@ the parameters, moments and counters from them and ``copy_``s the new ones
 back, so replaying the graph iterates in place and each step costs one
 graph launch instead of a few hundred kernel launches.
 
-Routes:
+On a CUDA device the step is run once as it is (the run's own first step:
+it makes the lazily created device state, cuBLAS handles, the kernel
+launcher's sentinels and scratch, on the capture stream), then captured
+and replayed. On any other device the same step is called directly.
 
-* ``"eager"`` — the Python loop of fresh tensors (CPU tensors; on the card
-  every model configuration captures, ``models.traj.capture_route``, and
-  the eager loop is what a test or a check asks for by name);
-* ``"graph"`` — the static-buffer step, run once eagerly (the run's own
-  first step: it makes the lazily created device state — cuBLAS handles,
-  the kernel launcher's sentinels and scratch — on the capture stream),
-  then captured and replayed;
-* ``"static"`` — the same static-buffer step called directly, uncaptured:
-  what the card captures, run on the CPU by the tests.
-
-Every captured run, its eager first step included, runs on one side stream
+Every run on a CUDA device, its first step included, runs on one side stream
 per device (``capture_stream``) that first waits for the caller's stream;
 the caller's stream waits for it at the end. A graph holds its own memory
 pool (the step's intermediates) besides the static buffers of its bucket,
@@ -29,7 +22,7 @@ the scratch cannot free memory the graph still writes. The kernel launch
 counts (``ops._kernels.LAUNCHES``) made while capturing are taken back and
 added once per replay, so the counters keep counting launches on the card.
 A capture or replay that fails raises :class:`CaptureError`; nothing falls
-back to the eager loop. Python's cyclic garbage collector is off while a
+back to an uncaptured step. Python's cyclic garbage collector is off while a
 step is recorded: a collected graph's ``reset`` is a call a capture
 forbids, and would fail the capture under way.
 """
@@ -48,13 +41,7 @@ _streams: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 
 class CaptureError(RuntimeError):
-    """A step routed to capture could not be captured or replayed."""
-
-
-def device_route(device: torch.device, model_route: str = "graph") -> str:
-    """The route of a step on ``device``: the model's route on a CUDA
-    device, the eager loop on the CPU."""
-    return model_route if torch.device(device).type == "cuda" else "eager"
+    """A step on a CUDA device could not be captured or replayed."""
 
 
 def capture_stream(device) -> "torch.cuda.Stream":
@@ -70,14 +57,14 @@ def capture_stream(device) -> "torch.cuda.Stream":
 
 
 @contextlib.contextmanager
-def on_capture_stream(device, route: str):
-    """Run the body on ``device``'s capture stream for the ``"graph"``
-    route, ordered after the caller's stream and before its later work;
-    any other route runs where it is."""
-    if route != "graph":
+def on_capture_stream(device):
+    """Run the body on a CUDA ``device``'s capture stream, ordered after the
+    caller's stream and before its later work; on any other device, where
+    it is."""
+    device = torch.device(device)
+    if device.type != "cuda":
         yield
         return
-    device = torch.device(device)
     with torch.cuda.device(device):
         caller = torch.cuda.current_stream(device)
         side = capture_stream(device)
@@ -90,19 +77,19 @@ def on_capture_stream(device, route: str):
 
 
 class StepGraph:
-    """One step function ``fn()`` over static buffers, replayed from a CUDA
-    graph (route ``"graph"``) or called directly (route ``"static"``).
+    """One step function ``fn()`` over static buffers on ``device``:
+    replayed from a CUDA graph on a CUDA device, called directly on any
+    other.
 
     ``capture()`` records ``fn`` without running it; ``replay()`` runs the
     recorded step once. ``__call__`` captures on first use, then replays.
-    The first step of a run is expected to have been run eagerly (by
+    The first step of a run is expected to have been run as it is (by
     calling ``fn`` on the capture stream) before the first capture.
     """
 
-    def __init__(self, fn: Callable[[], None], route: str, what: str = "optimization step"):
-        if route not in ("graph", "static"):
-            raise ValueError(f"a StepGraph runs the 'graph' or 'static' route, not {route!r}")
-        self.fn, self.route, self.what = fn, route, what
+    def __init__(self, fn: Callable[[], None], device, what: str = "optimization step"):
+        self.fn, self.what = fn, what
+        self.captures = torch.device(device).type == "cuda"
         self.graph: Optional["torch.cuda.CUDAGraph"] = None
         self.launches: Dict[str, int] = {}  # kernel launches one replay makes
         self.scratch = None  # the launcher's scratch the graph was captured with
@@ -110,7 +97,7 @@ class StepGraph:
         self.capture_s = None  # host seconds the capture took (record and instantiate)
 
     def __call__(self) -> None:
-        if self.route == "static":
+        if not self.captures:
             self.fn()
             return
         if self.graph is None:
@@ -152,7 +139,7 @@ class StepGraph:
             raise CaptureError(
                 f"capturing the {self.what} as a CUDA graph failed: {err!r}. A captured step "
                 "must not read the host (.item(), bool(tensor), int(tensor), a host copy) or "
-                "synchronize; route the configuration to the eager loop if it has to."
+                "synchronize."
             ) from err
         self.graph = graph
         self.launches = {k: counted[k] - before[k] for k in counted if counted[k] != before[k]}
