@@ -134,7 +134,14 @@ Phases, each printing one line (any failure raises and exits non-zero):
    steps) and 1,048,576 (2 steps), loss below the start;
    ``TrajectoryOptimizer(soft_hpr=True)`` on the full cloud 10 with path 10
    (14 waypoints, cap 512) for 10 steps, one step in f32 on the card and on
-   the CPU against the card's float64 step (1e-3 of the largest entry);
+   the CPU against the card's float64 step (1e-3 of the largest entry),
+   its launches the tiles' two kernels once a grid and the layout's seven
+   once a gate call (``binned_rows`` once a grid) and no other; the layout
+   kernels B1–B7 (``csrc/binned_layout.cu``) at that cell's shapes (cap
+   512) and the soft pose step's (cap 1024), in f32 and f64, against the
+   plain per-grid chain on the same tensors (B1–B5 ``torch.equal``, B6 and
+   B7 within ``LAYOUT_SUM_ULPS``), each timed alone and through its wrapper
+   beside its bound and the plain chain's stage;
    ``optimize_waypoints`` at the demo's defaults
    (100 steps, every per-waypoint gain >= 1, mean > 1; with soft HPR it is
    held and timed under 12). These soft runs above ``soft_hpr_dense_max``
@@ -228,10 +235,7 @@ Phases, each printing one line (any failure raises and exits non-zero):
    10, each called captured, eager, eager, captured (the waypoints without
    the last): the two eager calls bit-equal (the binned backward adds its
    rows in a fixed order) and the captured ones ``torch.equal`` to them;
-   one step with the fixed order against the same step with atomic adds
-   (the order before), within ``ORDER_TOL`` where it moved a bit, both
-   steps and their row accumulation alone timed; at 1,048,576 points the
-   f32 step, eager and captured (bit-equal), within ``HPR_TOL`` of the
+   at 1,048,576 points the f32 step, eager and captured (bit-equal), within ``HPR_TOL`` of the
    card's float64 step; the real tiles against the static slots per grid.
    Times under [times].
 13. times — per-stage and per-step ms of the eager loop (the series of
@@ -548,6 +552,29 @@ BINNED_OPS = {"forward": 13, "backward": 34}
 KERNEL_ULPS_X = 8
 BINNED_KERNEL_POSE = 262_144  # the soft pose step's points, cap 1024
 BINNED_KERNEL_BYTES = {"forward": (16 + 12, 16), "backward": (16 + 12 + 12, 16 + 16)}
+# The binned gate's layout kernels B1–B7 (csrc/binned_layout.cu) against the
+# plain per-grid chain on the same CUDA tensors (layout_kernel_checks): B1–B5
+# compute the plain chain's operations in its order (the keys, the layouts
+# and tables, the row maxima and their cotangent) and are held torch.equal;
+# B6 and B7 add each entry's terms (the tiles' partial sums into the rows,
+# the rows into the points) in another fixed order than add_rows and
+# autograd, and are held within LAYOUT_SUM_ULPS rounding units per term of
+# the sum of the terms' magnitudes (two orders of a sum of m terms differ by
+# at most 2·(m − 1) such units; a lost or doubled term moves it by far more),
+# plus the smallest normal number per term: the plain chain's gathers are
+# transposed by atomic adds, which flush subnormal terms to zero in float32.
+# Their bound: the bytes of their arguments and results, once.
+LAYOUT_SUM_ULPS = 2
+LAYOUT_KERNELS = ("binned_keys", "binned_layout", "binned_tables", "binned_rowmax",
+                  "binned_rowmax_bwd", "binned_rows", "binned_layout_bwd")
+# (a name the trace gives each launch, launches a gate call) of each stage:
+# the sort's radix passes are cub's, seven for int32 keys (a histogram, an
+# exclusive sum, four one-sweep passes; the index fill before them aside)
+LAYOUT_TRACE_NAMES = {
+    "binned_keys": ("keys_kernel", 1), "sort": ("DeviceRadixSort", 6),
+    "binned_layout": ("layout_kernel", 1), "binned_tables": ("tables_kernel", 1),
+    "binned_rowmax": ("rowmax_kernel", 1), "binned_rowmax_bwd": ("rowmax_bwd_kernel", 1),
+    "binned_rows": ("rows_kernel", 4), "binned_layout_bwd": ("layout_bwd_kernel", 1)}
 # (points, timed steps) of the soft pose step on bench.py's cloud, and the
 # waypoints optimization's steps (the demo's default)
 BINNED_POSE = ((262_144, 5), (1_048_576, 2))
@@ -1679,7 +1706,7 @@ def binned_kernel_checks(dev, cloud10, path10, sync, cuda_ms):
             n_bins = int(tiles[:, 0].max()) + 1
             counts = torch.bincount(bin_s.long(), minlength=n_bins + 1)[:n_bins]
             real = int(((counts + c - 1) // c).sum())
-            q = hpr._tile_row_index(tiles, n, c, cov_pos is not None).view(2, -1, c)[0]
+            q = tiles[:, 1:2] + torch.arange(c, device=dev)  # every tile's query rows
             read = bin_s[q] == tiles[:, :1]
             read[real:] = False
             c_idx = tiles[:, 2:3] + torch.arange(c, device=dev)
@@ -1778,6 +1805,298 @@ def binned_kernel_checks(dev, cloud10, path10, sync, cuda_ms):
         del grads, calls, P, V
         sync()
         torch.cuda.empty_cache()
+    return res
+
+
+def layout_kernel_checks(dev, cloud10, path10, sync, cuda_ms, launches):
+    """[hpr], the binned gate's layout kernels B1–B7 (csrc/binned_layout.cu)
+    against the plain per-grid chain on the same CUDA tensors (``ops.hpr``'s
+    ``_grid_bin_key``, ``_plain_grid_layout``, ``_plain_smax``, ``add_rows``,
+    and autograd through the plain row maxima and gathers), at the cell's
+    shapes (cloud 10 from path 10's waypoint 9, padded to 40,960, cap 512)
+    and the soft pose step's (``BINNED_KERNEL_POSE`` points, cap 1024), each
+    in float32 and float64, from one gate call's own inputs: B1's keys, B2's
+    tables U and R, bins, stratified rows, permutation (and its inverses)
+    and bin edges, B3's tile table and mask, B4's row maxima (``_plain_smax``'s
+    and each grid's) and B5's cotangent of every lse for a seeded cotangent
+    of the maxima ``torch.equal`` to the plain chain's; B6's rows of the
+    tiles' partial sums and B7's ∂u, ∂ρ within ``LAYOUT_SUM_ULPS`` (their
+    terms added in another order). In float32, per gate call: each wrapper's
+    ms (CUDA events, median of 3 windows, host time included), its kernel
+    alone (device time in a ``torch.profiler`` trace) and its bound (the
+    bytes of its arguments and results once), against the plain chain's ms
+    for the same stage. ``launches``: [hpr]'s 10-step soft trajectory run's
+    counts, printed per kernel. Returns {cap: numbers}."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from trajectory_optimization_tpu_torch.ops import _kernels
+    from trajectory_optimization_tpu_torch.ops import hpr
+    from trajectory_optimization_tpu_torch.utils.data import pad_points
+
+    cam = (cloud10 - path10[9]).astype(np.float32)
+    padded, valid = pad_points(cam)
+    pose = np.random.default_rng(0).normal(size=(BINNED_KERNEL_POSE, 3)).astype(np.float32)
+    cases = {512: (torch.as_tensor(padded, device=dev), torch.as_tensor(valid, device=dev)),
+             1024: (torch.as_tensor((pose * [6, 6, 2] + [5, 0, 1]).astype(np.float32),
+                                    device=dev), None)}
+
+    def nbytes(*xs):
+        flat = [y for x in xs for y in (x if isinstance(x, (list, tuple)) else [x])]
+        return sum(t.numel() * t.element_size() for t in flat if t is not None)
+
+    def alone_ms(fn, kernel, per_call, reps=3):
+        """Device ms of fn's launches whose name holds ``kernel`` in a trace,
+        per call, from a trace that holds all ``per_call`` x ``reps`` of them;
+        None if five traces in a row miss some."""
+        fn()
+        sync()
+        for _ in range(5):  # a trace now and then comes back without device activity
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                sync()
+            spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+            if len(spans) == per_call * reps:
+                return sum(spans) / 1e3 / reps
+        return None
+
+    def within_sums(name, got, want, mag, terms, eps):
+        """got and want, the same terms summed in two orders: |got − want| at
+        most LAYOUT_SUM_ULPS·(terms − 1)·eps·Σ|term| + terms·tiny at every
+        entry (tiny: the dtype's smallest normal number)."""
+        d = (got - want).abs()
+        lim = (LAYOUT_SUM_ULPS * (terms - 1).clamp(min=0) * eps * mag
+               + terms * torch.finfo(got.dtype).tiny)
+        if not bool((d <= lim).all()) or not bool(torch.isfinite(got).all()):
+            fail(f"[hpr] {name}: {int((d > lim).sum())} entries off the plain chain's by more "
+                 f"than {LAYOUT_SUM_ULPS} x (terms - 1) rounding units of their terms' sum "
+                 f"(max |diff| {float(d.max()):.3e})")
+        return int((d > 0).sum())
+
+    res = {}
+    for cap, (P0, V0) in cases.items():
+        res[cap] = {}
+        for dtype in (torch.float32, torch.float64):
+            P = P0.to(dtype)
+            V = None if V0 is None else V0.to(dtype)
+            seen = []
+            real = hpr._kernel_smax
+
+            def recording(*args):
+                seen.append(args)
+                return real(*args)
+
+            hpr._kernel_smax = recording
+            try:
+                with torch.no_grad():
+                    hpr.hpr_mask_soft_binned(P, valid=V, cap=cap)
+            finally:
+                hpr._kernel_smax = real
+            u, rho, norms, scale, beta, v, r_param, tau, safety, c, chunk, strat = seen[0]
+            lat, az = hpr._direction_angles(u)
+            n = u.shape[0]
+            specs, table = hpr._layout_plan(r_param, tau, safety, n, c, strat)
+            grids = hpr._binned_grids(r_param, tau, safety)[1]
+            table_d = hpr._device_table(table, dev)
+            ar = torch.arange(c, device=dev)
+            eps = 2.0 ** (-24 if dtype == torch.float32 else -53)
+            tag = f"layout kernels at cap {c}, {n} points, {str(dtype).split('.')[-1]}"
+            held = []
+
+            def equal(name, got, want):
+                if not torch.equal(got, want):
+                    fail(f"[hpr] {tag}: {name} != the plain chain's")
+                held.append(name)
+
+            # B1-B3 and the sort, against the plain chain's layout per grid
+            b1 = lambda: _kernels.binned_keys(u, norms, scale, v, table_d, specs)  # noqa: E731
+            keys = b1()
+            srt = lambda: torch.sort(keys, stable=True)  # noqa: E731
+            keys_s, order = srt()
+            b2 = lambda: _kernels.binned_layout(keys_s, order, u, rho, specs, c)  # noqa: E731
+            U, R, bin_s, edges, cov_pos, perm, pos_a, pos_b = b2()
+            b3 = lambda: _kernels.binned_tables(edges, specs, n, c)  # noqa: E731
+            tiles, tile_ok = b3()
+            plain = [hpr._plain_grid_layout(grid, u, rho, lat, az, norms, scale, v, c, strat)
+                     for grid in grids]
+            for g, (grid, sp, (pU, pR, pb, pc, pt, pok, pp)) in enumerate(
+                    zip(grids, specs, plain)):
+                key, _, n_bins = hpr._grid_bin_key(grid, lat, az, norms, scale, v)
+                equal(f"B1 keys, grid {g}", keys[g * n:(g + 1) * n].long() - (g - 2) * 2**30,
+                      key.long())
+                equal(f"B2 U, grid {g}", U[g], pU)
+                equal(f"B2 R, grid {g}", R[g], pR)
+                equal(f"B2 bin_s, grid {g}", bin_s[g], pb)
+                equal(f"B2 perm, grid {g}", perm[g].long(), pp)
+                equal(f"B2 pos_a, grid {g}", pos_a[g].long()[pp], torch.arange(n, device=dev))
+                equal(f"B2 edges, grid {g}", edges[g, :n_bins + 1].long(), torch.searchsorted(
+                    pb, torch.arange(n_bins + 1, dtype=pb.dtype, device=dev)))
+                if (pc is None) != (not sp.strat):
+                    fail(f"[hpr] {tag}: grid {g} builds the stratified layout where the plain "
+                         "chain does not, or the reverse")
+                if pc is not None:
+                    equal(f"B2 cov_pos, grid {g}", cov_pos[g], pc)
+                    equal(f"B2 pos_b, grid {g}", pc[pos_b[g].long()], pos_a[g].long())
+                sl = slice(sp.tiles, sp.tiles + sp.n_tiles)
+                equal(f"B3 tiles, grid {g}", tiles[sl], pt)
+                equal(f"B3 tile_ok, grid {g}", tile_ok[sl], pok)
+
+            # the tiles (H1), then B4 against _plain_smax and each grid's maxima
+            fwd = [_kernels.soft_binned_fwd(U[g], R[g], beta, bin_s[g],
+                                            cov_pos[g] if sp.strat else None,
+                                            tiles[sp.tiles:sp.tiles + sp.n_tiles], c)
+                   for g, sp in enumerate(specs)]
+            lses = [f[2] for f in fwd]
+            b4 = lambda: _kernels.binned_rowmax(lses, beta, bin_s, pos_a, tiles, tile_ok,  # noqa: E731
+                                                specs, c)
+            smax, up = b4()
+
+            def plain_rowmax(ls):
+                m = torch.full((n,), -hpr._BIG_SOFT, dtype=dtype, device=dev)
+                ups = []
+                for lse, (_, _, pb, _, pt, pok, pp) in zip(ls, plain):
+                    q = pt[:, 1:2] + ar
+                    rows = torch.where((pb[q] == pt[:, :1]) & pok[:, None], lse / beta,
+                                       -hpr._BIG_SOFT)
+                    m_g = torch.full((n,), -hpr._BIG_SOFT, dtype=dtype,
+                                     device=dev).scatter_reduce(
+                        0, q.reshape(-1), rows.reshape(-1), "amax", include_self=True)
+                    ups.append(hpr._unpermute(pp, m_g))
+                    m = torch.maximum(m, ups[-1])
+                return m, ups
+
+            equal("B4 smax", smax, hpr._plain_smax(u, rho, lat, az, norms, scale, beta, v,
+                                                   grids, c, chunk, strat))
+            for g, want in enumerate(plain_rowmax(lses)[1]):
+                equal(f"B4 grid {g}'s maxima", up[g], want)
+
+            # B5 against autograd through the plain row maxima
+            g_smax = torch.as_tensor(np.random.default_rng(7).normal(size=n), dtype=dtype,
+                                     device=dev)
+            b5 = lambda: _kernels.binned_rowmax_bwd(g_smax, lses, beta, bin_s, perm, up,  # noqa: E731
+                                                    tiles, tile_ok, specs, c)
+            flat = b5()
+            lq = [lse.detach().clone().requires_grad_(True) for lse in lses]
+            sp_plain = plain_rowmax(lq)[0]
+            b5_plain = lambda: torch.autograd.grad(sp_plain, lq, g_smax, retain_graph=True)  # noqa: E731
+            g_lse = []
+            for g, (sp, want) in enumerate(zip(specs, b5_plain())):
+                g_lse.append(flat[sp.tiles * c:(sp.tiles + sp.n_tiles) * c].view(sp.n_tiles, c))
+                equal(f"B5 lse cotangent, grid {g}", g_lse[-1], want)
+
+            # the tiles' backward (H2), then B6 against add_rows on the plain rows
+            parts = [_kernels.soft_binned_bwd(U[g], R[g], beta, bin_s[g],
+                                              cov_pos[g] if sp.strat else None,
+                                              tiles[sp.tiles:sp.tiles + sp.n_tiles], fwd[g][0],
+                                              fwd[g][1], g_lse[g].contiguous(), c)
+                     for g, sp in enumerate(specs)]
+            b6 = lambda: [_kernels.binned_rows(pu, pr, bin_s[g],  # noqa: E731
+                                               tiles[sp.tiles:sp.tiles + sp.n_tiles], c,
+                                               U[g].shape[0])
+                          for g, (sp, (pu, pr)) in enumerate(zip(specs, parts))]
+            rows_k = b6()
+            plain_rows = []
+            for sp, (_, _, _, _, pt, _, _) in zip(specs, plain):
+                crow = pt[:, 2:3] + ar + (pt[:, 3:] * n if sp.strat else 0)
+                plain_rows.append(torch.cat([(pt[:, 1:2] + ar).reshape(-1), crow.reshape(-1)]))
+
+            def b6_plain(fn=lambda x: x):
+                out = []
+                for g, ((pu, pr), rows) in enumerate(zip(parts, plain_rows)):
+                    half = rows.shape[0] // 2
+                    out.append((hpr.add_rows(torch.zeros_like(U[g]), rows, fn(pu)),
+                                hpr.add_rows(torch.zeros_like(R[g]), rows[half:], fn(pr))))
+                return out
+
+            moved = 0
+            for g, ((dU, dR), want, mag, cnt) in enumerate(zip(
+                    rows_k, b6_plain(), b6_plain(torch.abs),
+                    b6_plain(lambda x: (x != 0).to(dtype)))):
+                moved += within_sums(f"{tag}: B6 dU, grid {g}", dU, want[0], mag[0], cnt[0], eps)
+                moved += within_sums(f"{tag}: B6 dR, grid {g}", dR, want[1], mag[1], cnt[1], eps)
+            held.append(f"B6 ({moved} entries not bit-equal)")
+
+            # B7 against autograd through the plain chain's gathers
+            dUs, dRs = [r[0] for r in rows_k], [r[1] for r in rows_k]
+            b7 = lambda: _kernels.binned_layout_bwd(dUs, dRs, pos_a, pos_b, specs, dtype)  # noqa: E731
+            du, drho = b7()
+            ul, rl = u.detach().requires_grad_(True), rho.detach().requires_grad_(True)
+            tabs = [t for grid in grids for t in hpr._plain_grid_layout(
+                grid, ul, rl, lat, az, norms, scale, v, c, strat)[:2]]
+
+            def b7_plain(fn=lambda x: x):
+                cots = [fn(t) for pair in zip(dUs, dRs) for t in pair]
+                return torch.autograd.grad(tabs, (ul, rl), cots, retain_graph=True)
+
+            want, mag = b7_plain(), b7_plain(torch.abs)
+            terms = torch.full_like(drho, 2.0 * len(grids))
+            moved = within_sums(f"{tag}: B7 du", du, want[0], mag[0], terms[:, None], eps)
+            moved += within_sums(f"{tag}: B7 drho", drho, want[1], mag[1], terms, eps)
+            held.append(f"B7 ({moved} entries not bit-equal)")
+            entry = {"held": held}
+            if dtype == torch.float32:
+                def plain_keys():
+                    angles = hpr._direction_angles(u)
+                    return [hpr._grid_bin_key(grid, *angles, norms, scale, v) for grid in grids]
+
+                def plain_layout():
+                    angles = hpr._direction_angles(u)
+                    return [hpr._plain_grid_layout(grid, u, rho, *angles, norms, scale, v, c,
+                                                   strat) for grid in grids]
+
+                wrappers = {
+                    "binned_keys": (b1, nbytes(u, norms, v, keys), plain_keys),
+                    "sort": (srt, nbytes(keys, keys_s, order), None),
+                    "binned_layout": (b2, nbytes(keys_s, order, u, rho, U, R, bin_s, edges,
+                                                 cov_pos, perm, pos_a, pos_b), None),
+                    "binned_tables": (b3, nbytes(edges, tiles, tile_ok), None),
+                    "binned_rowmax": (b4, nbytes(lses, bin_s, pos_a, tiles, tile_ok, up, smax),
+                                      lambda: plain_rowmax(lses)),
+                    "binned_rowmax_bwd": (b5, nbytes(g_smax, lses, bin_s, perm, up, tiles,
+                                                     tile_ok, flat), b5_plain),
+                    "binned_rows": (b6, nbytes([p for pair in parts for p in pair], bin_s,
+                                               tiles, dUs, dRs), b6_plain),
+                    "binned_layout_bwd": (b7, nbytes(dUs, dRs, pos_a, pos_b, du, drho),
+                                          b7_plain)}
+                entry["ms"], entry["alone_ms"], entry["bound_ms"], entry["plain_ms"] = {}, {}, {}, {}
+                for k, (fn, nb, plain_fn) in wrappers.items():
+                    entry["ms"][k] = cuda_ms(fn, 5)
+                    kernel, per_call = LAYOUT_TRACE_NAMES[k]
+                    entry["alone_ms"][k] = alone_ms(fn, kernel, per_call)
+                    entry["bound_ms"][k] = nb / HBM_BYTES_PER_MS
+                    if plain_fn is not None:
+                        entry["plain_ms"][k] = cuda_ms(plain_fn, 2)
+                entry["plain_ms"]["layout"] = cuda_ms(plain_layout, 2)
+                entry["layout_ms"] = sum(entry["ms"][k] for k in (
+                    "binned_keys", "sort", "binned_layout", "binned_tables"))
+            res[cap][str(dtype).split(".")[-1]] = entry
+            print(f"[hpr] {tag}: torch.equal to the plain chain: " + ", ".join(
+                sorted({h.split(",")[0] for h in held if not h.startswith(("B6", "B7"))}))
+                + f"; {held[-2]}, {held[-1]}, within {LAYOUT_SUM_ULPS} x (terms - 1) "
+                "rounding units of their terms' sum", flush=True)
+            if dtype == torch.float32:
+                print(f"[hpr] layout kernels at cap {c}, float32, per gate call: " + "; ".join(
+                    f"{k} {entry['ms'][k]:.4f} ms (alone "
+                    + ("not traced" if entry["alone_ms"][k] is None
+                       else f"{entry['alone_ms'][k]:.4f}") + ", bound "
+                    f"{entry['bound_ms'][k]:.5f} by bytes"
+                    + (f", plain {entry['plain_ms'][k]:.3f}" if k in entry["plain_ms"] else "")
+                    + ")" for k in entry["ms"])
+                    + f"; the layout (keys, sort, layout, tables) {entry['layout_ms']:.4f} ms "
+                    f"against _plain_grid_layout x 4 {entry['plain_ms']['layout']:.3f} ms",
+                    flush=True)
+            del seen, U, R, bin_s, edges, cov_pos, perm, pos_a, pos_b, tiles, tile_ok, plain
+            del fwd, lses, parts, rows_k, dUs, dRs, tabs, lq, sp_plain
+            sync()
+            torch.cuda.empty_cache()
+    print("[hpr] layout kernels in [hpr]'s 10-step soft trajectory run (the eager first step, "
+          "the capture and nine replays): " + ", ".join(
+              f"{k} {launches.get(k, 0)}" for k in ("soft_binned_fwd", "soft_binned_bwd")
+              + LAYOUT_KERNELS), flush=True)
+    res["launches"] = {k: launches.get(k, 0) for k in LAYOUT_KERNELS}
     return res
 
 
@@ -1908,9 +2227,14 @@ def binned_checks(dev, intr, cloud10, path10, sync, cuda_ms):
     sync()
     traj_ms = (time.perf_counter() - t0) * 1e3 / 10
     traj_launches = {k: v - before[k] for k, v in _kernels.LAUNCHES.items() if v != before[k]}
-    if set(traj_launches) != {"soft_binned_fwd", "soft_binned_bwd"}:
+    fwd, bwd = (traj_launches.get(k, 0) // 4 for k in ("soft_binned_fwd", "soft_binned_bwd"))
+    if not (fwd and bwd and traj_launches == {
+            "soft_binned_fwd": 4 * fwd, "soft_binned_bwd": 4 * bwd, "binned_keys": fwd,
+            "binned_layout": fwd, "binned_tables": fwd, "binned_rowmax": fwd,
+            "binned_rowmax_bwd": bwd, "binned_rows": 4 * bwd, "binned_layout_bwd": bwd}):
         fail(f"TrajectoryOptimizer(soft_hpr=True) on cloud 10, 10 steps: launches "
-             f"{traj_launches} (the binned tiles' two kernels, and no other)")
+             f"{traj_launches} (the binned tiles' two kernels once a grid, and the layout's "
+             "seven once a gate call, binned_rows once a grid, and no other)")
     traj_peak = torch.cuda.max_memory_allocated() / 2**20
     if not (np.all(np.isfinite(tr.poses)) and np.isfinite(tr.loss) and tr.n_iters == 10
             and tr.loss < loss1 and np.all(np.isfinite(tr.rewards))):
@@ -1974,6 +2298,7 @@ def binned_checks(dev, intr, cloud10, path10, sync, cuda_ms):
     runners.traj_runner.cache_clear()
     gc.collect()
     torch.cuda.empty_cache()
+    res["layout"] = layout_kernel_checks(dev, cloud10, path10, sync, cuda_ms, traj_launches)
 
     # ---- waypoints optimization at the demo's defaults ---------------------
     q_id = identity_quaternions(len(path10))
@@ -4018,16 +4343,6 @@ def graph_checks(dev, intr, clouds, paths, sync):
 GRAPH_SOFT = {"traj": 3, "wps": 2}  # steps per held call
 GRAPH_SOFT_POSE = ((262_144, 3), (1_048_576, 2))  # (points, steps per held call)
 GRAPH_SOFT_REPLAYS = 2  # timed replays of each soft configuration's graph
-# The soft step with the binned backward's rows added in a fixed order
-# (ops.hpr.add_rows) against the same step with index_add_'s atomics: loss
-# and gradient within 1e-4 of the largest entry. Each row takes the same
-# terms in another order, and the atomics' order changes from call to call:
-# at 1,048,576 points the two came 3.4e-7 (translation) and 2.4e-6
-# (quaternion, whose terms cancel) apart, 1.1e-9 in absolute terms (NVIDIA
-# H100 80GB HBM3, 700 W); 20x under HPR_TOL. A row that keeps one term
-# instead of their sum, or a chunk added twice, moves it by far more.
-ORDER_TOL = 1e-4
-ORDER_REPS = 2  # timed turns (fixed, atomic, atomic, fixed) of one step's accumulation
 
 
 def soft_graph_checks(dev, intr, cloud10, path10, sync):
@@ -4040,14 +4355,9 @@ def soft_graph_checks(dev, intr, cloud10, path10, sync):
     tests/torch_loop_ref.py) in turns (captured, eager, eager, captured; the
     waypoints once captured, since each of its calls captures anew). The
     two eager calls must agree bit for bit (the binned backward adds its
-    rows in a fixed order, ``ops.hpr.add_rows``), and the captured
-    calls are held ``torch.equal`` to them. One step (loss and gradient at
-    the initial parameters) with the fixed order against the same step with
-    the rows added by ``index_add_`` (atomics on the card: the order
-    before): where the fixed order moved a bit, within ``ORDER_TOL`` of the
-    largest entry; both steps timed, and the step's row accumulation alone,
-    on its own rows and terms, in both orders (device ms). At 1,048,576
-    points the f32 step, eager and captured, bit-equal to each other and
+    rows in a fixed order, ``csrc/binned_layout.cu``), and the captured
+    calls are held ``torch.equal`` to them. At 1,048,576 points the f32
+    step, eager and captured, bit-equal to each other and
     within ``HPR_TOL`` of the largest entry of the card's float64 step (as
     ``[hpr]`` holds a pose step). Then, per configuration: ms/step of
     the whole calls and of the graph's replays alone, device-busy ms, device
@@ -4067,7 +4377,6 @@ def soft_graph_checks(dev, intr, cloud10, path10, sync):
         PoseProblem, init_pose_params, pose_forward,
     )
     from trajectory_optimization_tpu_torch.models.traj import init_traj_params, traj_forward
-    from trajectory_optimization_tpu_torch.ops import hpr as hpr_ops
     from trajectory_optimization_tpu_torch.opt import engine as te
     from trajectory_optimization_tpu_torch.opt import graphs, runners
     from trajectory_optimization_tpu_torch.utils.data import identity_quaternions, pad_points
@@ -4110,54 +4419,6 @@ def soft_graph_checks(dev, intr, cloud10, path10, sync):
         sync()
         return box
 
-    fixed_rows = hpr_ops.add_rows
-
-    def atomic_rows(dst, rows, src):
-        # the order before: index_add_, atomic adds on the card
-        return dst.index_add_(0, rows, src)
-
-    def timed_step(loss_fn, params, rows_fn, calls=None):
-        """(one eager step's loss and gradient, its wall ms) with the
-        backward's rows added by ``rows_fn``; ``calls`` collects the
-        arguments of every accumulation of the step."""
-        def recording(dst, rows, src):
-            calls.append((dst, rows, src))
-            return rows_fn(dst, rows, src)
-
-        hpr_ops.add_rows = rows_fn if calls is None else recording
-        try:
-            sync()
-            t0 = time.perf_counter()
-            out = step(loss_fn, params)
-            sync()
-            return out, (time.perf_counter() - t0) * 1e3
-        finally:
-            hpr_ops.add_rows = fixed_rows
-
-    def accumulation_ms(calls):
-        """Device ms (CUDA events) of one step's row accumulations, the same
-        rows and terms, in the fixed order and by atomics, in turns (fixed,
-        atomic, atomic, fixed, after one warm-up of each): the best of each."""
-        dsts = {}
-        for dst, _, _ in calls:
-            dsts.setdefault(dst.data_ptr(), torch.zeros_like(dst))
-        work = [(dsts[dst.data_ptr()], rows, src) for dst, rows, src in calls]
-
-        def run(fn):
-            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            t0.record()
-            for dst, rows, src in work:
-                fn(dst, rows, src)
-            t1.record()
-            t1.synchronize()
-            return t0.elapsed_time(t1)
-
-        fns = {"fixed": fixed_rows, "atomic": atomic_rows}
-        times = {k: [] for k in fns}
-        for k in ("fixed", "atomic") + ("fixed", "atomic", "atomic", "fixed") * ORDER_REPS:
-            times[k].append(run(fns[k]))
-        return {k: min(v[1:]) for k, v in times.items()}
-
     def held(name, cfg_steps, call, graph_of, loss_of, params_of, keys, cams, cap, drop,
              f64_tol=None, trace_eager=True, order=("graph", "eager", "eager", "graph")):
         """Run the configuration's checks and measurements (docstring)."""
@@ -4183,47 +4444,29 @@ def soft_graph_checks(dev, intr, cloud10, path10, sync):
         if not eager_bits:
             fail(f"[graphs] soft {name}: two eager calls differ: "
                  f"{'; '.join(differ(outs['eager'][0], outs['eager'][1]))} (the binned "
-                 "backward's rows must add in a fixed order, ops.hpr.add_rows)")
+                 "backward's rows must add in a fixed order)")
         for i, got in enumerate(outs["graph"]):
             bad = differ(got, outs["eager"][0])
             if bad:
                 fail(f"[graphs] soft {name}: captured call {i} != eager: {'; '.join(bad)}")
         entry["held"] = "torch.equal"
-        # one step (loss and gradient at the initial parameters) by each
-        # order of the backward's rows, timed: the fixed order and the rows
-        # added by index_add_ (atomics), as before. The bits the fixed order
-        # moved are held within ORDER_TOL of the largest entry; then the
-        # accumulation alone, timed in both orders on the step's own rows
         lf32, p32 = loss_of(torch.float32), params_of(torch.float32)
-        calls = []
-        new, fixed_ms = timed_step(lf32, p32, fixed_rows, calls)
-        old, atomic_ms = timed_step(lf32, p32, atomic_rows)
-        entry["moved"] = differ(new, old)
-        entry["order_ms"] = {"step": {"fixed": fixed_ms, "atomic": atomic_ms},
-                             "accumulation": accumulation_ms(calls)}
-        del calls
-        if entry["moved"]:
-            entry["fixed_vs_atomic"] = rel_errs(new, old)
-            if not max(entry["fixed_vs_atomic"]) <= ORDER_TOL:
-                fail(f"[graphs] soft {name}: the fixed-order step against the atomic one, "
-                     f"relative max |err| (loss, {', '.join(keys)}) {entry['fixed_vs_atomic']}"
-                     f" over {ORDER_TOL}")
         if f64_tol is not None:
             # the f32 step, eager and captured, against the card's float64 step
             want = step(loss_of(torch.float64), params_of(torch.float64))
+            new = step(lf32, p32)
             captured = captured_step(lf32, p32)
             bad = differ(captured, new)
             if bad:
                 fail(f"[graphs] soft {name}: the captured step != the eager step: "
                      f"{'; '.join(bad)}")
-            entry["vs_f64"] = {"eager": rel_errs(new, want), "captured": rel_errs(captured, want),
-                               "atomic": rel_errs(old, want)}
+            entry["vs_f64"] = {"eager": rel_errs(new, want), "captured": rel_errs(captured, want)}
             if not max(entry["vs_f64"]["eager"] + entry["vs_f64"]["captured"]) <= f64_tol:
                 fail(f"[graphs] soft {name}: the f32 step against float64, relative max |err| "
                      f"(loss, {', '.join(keys)}) {entry['vs_f64']} over {f64_tol}")
             entry["f64_tol"] = f64_tol
-            del want, captured
-        del lf32, p32, new, old
+            del want, captured, new
+        del lf32, p32
         g = graph_of()
         side = graphs.capture_stream(dev)
         with torch.cuda.stream(side):  # warm: the held calls replayed the graph
@@ -4276,22 +4519,12 @@ def soft_graph_checks(dev, intr, cloud10, path10, sync):
         def errs_text(v):
             return "[" + ", ".join(f"{e:.2e}" for e in v) + "]"
 
-        om = entry["order_ms"]
         how = (f"{'both captured calls' if n_graph > 1 else 'the captured call'} torch.equal "
-               "to them; against one step (loss, " + ", ".join(keys) + ") with the rows added "
-               "by index_add_ (atomics), the fixed order moved "
-               + ("no bit" if not entry["moved"] else
-                  ", ".join(entry["moved"]) + ", relative max |err| "
-                  f"{errs_text(entry['fixed_vs_atomic'])} (pin {ORDER_TOL})")
+               "to them"
                + (f"; the f32 step, eager and captured (torch.equal to each other), against "
-                  f"the card's float64 step, relative max |err| eager "
+                  f"the card's float64 step, relative max |err| (loss, {', '.join(keys)}) eager "
                   f"{errs_text(entry['vs_f64']['eager'])}, captured "
-                  f"{errs_text(entry['vs_f64']['captured'])} (pin {f64_tol}; atomics "
-                  f"{errs_text(entry['vs_f64']['atomic'])}, not held)" if f64_tol else "")
-               + f"; one eager step (forward and backward) {om['step']['fixed']:.3f} ms with "
-               f"the fixed order, {om['step']['atomic']:.3f} ms with atomics; the step's row "
-               f"accumulation alone {om['accumulation']['fixed']:.3f} ms against "
-               f"{om['accumulation']['atomic']:.3f} ms (device, CUDA events)")
+                  f"{errs_text(entry['vs_f64']['captured'])} (pin {f64_tol})" if f64_tol else ""))
         print(f"[graphs] soft {name}, {cfg_steps} steps per call, in turns "
               f"{', '.join(order)}: the two eager calls agree bit for bit; {how}; "
               f"{tiles_text(entry['tiles'])}", flush=True)
@@ -4455,10 +4688,6 @@ def print_graph_times(card: str, gr) -> None:
               f"MiB allocated, {t['graph_mib']['reserved']:.1f} MiB reserved; peak MiB "
               + ", ".join(f"{r} {m['allocated']:.1f} allocated / {m['reserved']:.1f} reserved"
                           for r, m in t["peak_mib"].items())
-              + f"; the binned backward's rows, fixed order against atomics: one eager step "
-              f"{t['order_ms']['step']['fixed']:.3f} against {t['order_ms']['step']['atomic']:.3f}"
-              f" ms, its accumulation alone {t['order_ms']['accumulation']['fixed']:.3f} against "
-              f"{t['order_ms']['accumulation']['atomic']:.3f} ms (device)"
               + f"; {tiles_text(t['tiles'])}; held by {t['held']}; {t['seconds']:.1f} s in all",
               flush=True)
 

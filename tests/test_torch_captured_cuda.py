@@ -190,11 +190,13 @@ def test_captured_soft_binned_trajectory(dev, ref):
     the binned tier on its static tile slots, cap 512) through the
     trajectory runner: the step captures (no CaptureError) and replays, two
     plain runs agree bit for bit (the backward adds its rows in a fixed
-    order, ``ops.hpr.add_rows``), and the captured run is torch.equal to
-    them. Both loops launch the binned tiles' two kernels and no other
+    order), and the captured run is torch.equal to them. Both loops launch
+    the binned tiles' two kernels and the layout's seven and no other
     kernel of the port's: per step and scored waypoint, soft_binned_fwd
     once a grid for the forward and once for its checkpointed recompute,
-    soft_binned_bwd once a grid; the final forward once a grid."""
+    soft_binned_bwd once a grid; the final forward once a grid; the
+    layout's forward kernels once a gate forward, its backward kernels once
+    a gate backward (binned_rows once a grid)."""
     prob, path, q, data = ref
     case = (dataclasses.replace(prob, soft_hpr=True), path, q, data)
     runner = tr.TrajRunner(case[0], CFG, te.NEVER, 4)
@@ -202,8 +204,11 @@ def test_captured_soft_binned_trajectory(dev, ref):
                                          for loop in ("captured", "plain", "plain"))
     graph = next(iter(runner.buckets._items.values())).graph
     assert graph.graph is not None and graph.replays == 3 and graph.capture_s > 0
-    grids = 14 * 4  # scored waypoints x grids
-    assert lg == le == {"soft_binned_fwd": (2 * 4 + 1) * grids, "soft_binned_bwd": 4 * grids}
+    fwd, bwd = (2 * 4 + 1) * 14, 4 * 14  # gate forwards and backwards of a run
+    assert lg == le == {"soft_binned_fwd": fwd * 4, "soft_binned_bwd": bwd * 4,
+                        "binned_keys": fwd, "binned_layout": fwd, "binned_tables": fwd,
+                        "binned_rowmax": fwd, "binned_rowmax_bwd": bwd, "binned_rows": bwd * 4,
+                        "binned_layout_bwd": bwd}
     assert int(got[1]) == int(want[1]) == 4
     _assert_runs_equal(again, want)
     _assert_runs_equal(got, want)

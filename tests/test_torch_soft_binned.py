@@ -17,9 +17,14 @@ on the CPU, with one torch thread.
   cos taken twice, once per operand, so that each operand's gradient is the
   product the plain backward forms (``a @ cu`` and ``aᵀ @ qu``); the tile
   gradients are added into the tables by ``add_rows`` in the plain order;
-* the rows that ``soft_binned_bwd``'s partial sums are added into
-  (``_tile_row_index``) are the plain version's query and coverer rows, in
-  its order;
+* the rows that ``binned_rows`` (``csrc/binned_layout.cu``) adds
+  ``soft_binned_bwd``'s partial sums into, by its walk of each row's tiles,
+  are the rows the plain backward adds them into (``add_rows``);
+* CPU tensors reach none of the gate's layout kernels (``binned_keys`` and
+  the rest of ``csrc/binned_layout.cu``), forward or backward, on a padded
+  cloud: the plain per-grid chain runs;
+* the layout plan those kernels take (``_layout_plan``) gives each grid the
+  plain chain's slot count and stratified layout, in slots laid end to end;
 * the kernels' wrappers refuse CPU tensors and inputs of the wrong dtype or
   shape before they build or launch anything.
 
@@ -166,17 +171,160 @@ def test_plain_version_is_autograd_through_the_tiles(name, monkeypatch):
         assert bool(torch.isfinite(dU).all()) and bool(torch.isfinite(dR).all())
 
 
+LAYOUT_WRAPPERS = ("grid_specs", "binned_keys", "binned_layout", "binned_tables",
+                   "binned_rowmax", "binned_rowmax_bwd", "binned_rows", "binned_layout_bwd")
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_cpu_tensors_launch_no_layout_kernel(name, monkeypatch):
+    """A soft gate's forward and backward on a padded cloud of CPU tensors:
+    no layout kernel's wrapper is called, ``LAUNCHES`` unchanged, and
+    the plain per-grid layout runs once per grid."""
+    n, kw = CASES[name]
+    seen = []
+
+    def refused(*args):
+        raise AssertionError("a CPU tensor reached a layout kernel's wrapper")
+
+    for fn in LAYOUT_WRAPPERS:
+        monkeypatch.setattr(_kernels, fn, refused)
+    real = thpr._plain_grid_layout
+    monkeypatch.setattr(thpr, "_plain_grid_layout", lambda *a: seen.append(1) or real(*a))
+    before = dict(_kernels.LAUNCHES)
+    pts = _cloud(n)
+    pts[-7:] = 1e6  # padding, as utils.data.pad_points places it
+    V = torch.ones(n)
+    V[-7:] = 0.0
+    P = torch.as_tensor(pts).requires_grad_(True)
+    vis = thpr.hpr_mask_soft_binned(P, valid=V, **kw)
+    vis.sum().backward()
+    assert len(seen) == 4
+    assert _kernels.LAUNCHES == before
+    assert bool(torch.isfinite(P.grad).all()) and bool((vis[-7:] == 0).all())
+
+
+def _rows_walk(bin_s, tiles, n, cap, rows):
+    """``binned_rows``' walk (``rows_kernel``, csrc/binned_layout.cu), one
+    row of the (rows,) table at a time: from the first tile of the row's
+    bin, while the tiles are of its bin, its query partials (at t·cap + i;
+    not for a stratified row, past n), then its coverer partials (at
+    T·cap + t·cap + j, from the deep tiles for a stratified row, from the
+    others for a row of the first layout). Returns, per partial, the row
+    that takes it (−1 for none); no partial is taken twice."""
+    tb, qoff, coff, deep = (tiles[:, k].tolist() for k in range(4))
+    bins, T = bin_s.tolist(), tiles.shape[0]
+    dest = np.full(2 * T * cap, -1, dtype=np.int64)
+    for r in range(rows):
+        deep_row = r >= n
+        s = r - n if deep_row else r
+        b = bins[s]
+        t0 = int(np.searchsorted(tb, b, side="left"))
+        terms = []
+        for t in range(t0, T):
+            if tb[t] != b:
+                break
+            if not deep_row and 0 <= s - qoff[t] < cap:
+                terms.append(t * cap + s - qoff[t])
+        for t in range(t0, T):
+            if tb[t] != b:
+                break
+            if (deep[t] != 0) == deep_row and 0 <= s - coff[t] < cap:
+                terms.append(T * cap + t * cap + s - coff[t])
+        assert (dest[terms] == -1).all()
+        dest[terms] = r
+    return dest
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_partial_sums_land_on_the_plain_rows(name, monkeypatch):
-    """``_tile_row_index``: every tile's query rows, then every tile's
-    coverer rows, as the plain backward concatenates them."""
-    for U, _, _, bin_s, cov_pos, tiles, cap, _ in _grid_calls(name, monkeypatch):
-        n = bin_s.shape[0]
-        q, crow, _ = _tile_indices(bin_s, cov_pos, tiles, n, cap)
-        want = torch.cat([q.reshape(-1), crow.reshape(-1)])
-        got = thpr._tile_row_index(tiles, n, cap, cov_pos is not None)
-        assert torch.equal(got, want)
-        assert int(got.max()) < U.shape[0]
+    """Per grid of a gate call: each partial sum of ``soft_binned_bwd``'s
+    (every tile's query rows, then every tile's coverer rows) goes, by
+    ``binned_rows``' walk (``_rows_walk``), to the row that
+    ``binned_lse_bwd_ref`` adds it into by ``add_rows``. Every partial
+    that can be non-zero in the gate is taken: a query row that the row
+    maxima read (a real tile's, of its bin) and a coverer of a real tile's
+    bin."""
+    n, kw = CASES[name]
+    layouts, added = [], []
+    real_layout, real_add = thpr._plain_grid_layout, thpr.add_rows
+    monkeypatch.setattr(thpr, "_plain_grid_layout",
+                        lambda *a: layouts.append(real_layout(*a)) or layouts[-1])
+    with torch.no_grad():
+        thpr.hpr_mask_soft_binned(torch.as_tensor(_cloud(n)), **kw)
+    monkeypatch.setattr(thpr, "add_rows", lambda dst, rows, src: added.append(
+        (dst.dim(), rows)) or real_add(dst, rows, src))
+    assert len(layouts) == 4
+    for U, R, bin_s, cov_pos, tiles, tile_ok, _ in layouts:
+        cap = min(kw["cap"], n)
+        chunk = max(1, thpr.TILE_BUDGET["cpu"] // (cap * cap))
+        beta = torch.ones((), dtype=U.dtype)
+        g = torch.ones((tiles.shape[0], cap), dtype=U.dtype)
+        top, total = thpr.binned_lse_ref(U, R, beta, bin_s, cov_pos, tiles, cap, chunk)
+        added.clear()
+        thpr.binned_lse_bwd_ref(U, R, beta, bin_s, cov_pos, tiles, top, total, g, cap, chunk)
+        u_rows = [rows for dim, rows in added if dim == 2]
+        r_rows = [rows for dim, rows in added if dim == 1]
+        halves = [rows.view(2, -1) for rows in u_rows]
+        q_rows = torch.cat([h[0] for h in halves])
+        c_rows = torch.cat([h[1] for h in halves])
+        assert torch.equal(torch.cat(r_rows), c_rows)
+        want = torch.cat([q_rows, c_rows]).numpy()
+        got = _rows_walk(bin_s, tiles, n, cap, U.shape[0])
+        taken = got >= 0
+        assert (got[taken] == want[taken]).all()
+        ar = torch.arange(cap)
+        q = tiles[:, 1:2] + ar
+        c = tiles[:, 2:3] + ar
+        live_q = (bin_s[q] == tiles[:, :1]) & tile_ok[:, None]
+        live_c = (bin_s[c] == tiles[:, :1]) & tile_ok[:, None]
+        live = torch.cat([live_q.reshape(-1), live_c.reshape(-1)]).numpy()
+        assert taken[live].all()
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_layout_plan_matches_the_plain_tables(name, monkeypatch):
+    """``_layout_plan``'s grids (the kernels' layout): each grid's slot
+    count and stratified flag those of the plain chain's table, the slots
+    laid end to end, and its ring tables the grid's n_az and offsets."""
+    n, kw = CASES[name]
+    cap = min(kw["cap"], n)
+    monkeypatch.setattr(_kernels, "grid_specs", lambda grids: tuple(grids))
+    thpr._layout_plan.cache_clear()
+    specs, table = thpr._layout_plan(2.0, 0.02, kw.get("safety", 3.0), n, cap,
+                                     kw.get("stratified_coverers", True))
+    thpr._layout_plan.cache_clear()
+    calls = _grid_calls(name, monkeypatch)
+    grids = thpr._binned_grids(2.0, 0.02, kw.get("safety", 3.0))[1]
+    first = 0
+    for (_, _, _, bin_s, cov_pos, tiles, c, _), spec, grid in zip(calls, specs, grids):
+        n_rings, n_bins, frac_bits, strat, at, slot0, n_tiles = spec[:7]
+        assert c == cap and (n_rings, n_bins) == (grid[0], grid[-1])
+        assert (n_tiles, bool(strat)) == (tiles.shape[0], cov_pos is not None)
+        assert slot0 == first and frac_bits == thpr._frac_bits(n_bins)
+        assert list(table[at:at + 2 * n_rings]) == list(grid[4]) + list(grid[5])
+        assert tuple(spec[7:]) == (grid[1], grid[2], grid[3])
+        first += n_tiles
+
+
+def test_layout_wrappers_refuse_cpu_tensors(monkeypatch):
+    """The layout kernels' wrappers check before they build or launch: CPU
+    tensors are refused, and a plan of other than four grids."""
+    def loaded():
+        raise AssertionError("the wrapper reached the library")
+
+    monkeypatch.setattr(_kernels, "_load", loaded)
+    specs = thpr._layout_plan(2.0, 0.02, 3.0, 512, 128, True)[0]
+    x = torch.zeros(512)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        _kernels.binned_keys(torch.zeros(512, 3), x, torch.ones(()), None,
+                             torch.zeros(8, dtype=torch.int32), specs)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        _kernels.binned_tables(torch.zeros((4, 200), dtype=torch.int32), specs, 512, 128)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        _kernels.binned_rows(x.half(), x, x.int(), torch.zeros((1, 4), dtype=torch.long), 128,
+                             512)
+    with pytest.raises(ValueError, match="takes 4 grids"):
+        _kernels.grid_specs(specs[:3])
 
 
 def test_kernel_wrappers_refuse_bad_inputs(monkeypatch):

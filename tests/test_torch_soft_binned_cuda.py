@@ -53,6 +53,10 @@ F64_REL = 1e-9
 ULPS_X = 8
 COS_ULP = 2.0 ** -24  # one ulp of a float32 cos in [0.5, 1)
 CASES = ("cloud10", "cloud10_unstratified", "pose262k", "ragged", "one_member_bins")
+# The launches of one gate call besides the tiles': the four grids' layout
+# (csrc/binned_layout.cu) forward, and backward with the tiles' rows once a grid
+LAYOUT_FORWARD = {"binned_keys": 1, "binned_layout": 1, "binned_tables": 1, "binned_rowmax": 1}
+LAYOUT_BACKWARD = {"binned_rowmax_bwd": 1, "binned_rows": 4, "binned_layout_bwd": 1}
 
 
 @pytest.fixture(scope="module")
@@ -231,9 +235,9 @@ def test_gate_against_the_plain_version(dev, cloud10_cams, name, monkeypatch):
 
 def test_two_calls_bit_equal_and_a_replay_equal_to_them(dev, cloud10_cams):
     """The gate on a cloud-10 camera at cap 512 with its gradient: two eager
-    calls agree bit for bit (fixed-order sums in the kernels, ``add_rows``
-    after them), and a CUDA graph of the same call replays
-    ``torch.equal`` to them."""
+    calls agree bit for bit (fixed-order sums in the kernels), and a CUDA
+    graph of the same call, which records the tiles' kernels once a grid
+    each way and the layout's kernels, replays ``torch.equal`` to them."""
     cams, valid = cloud10_cams
     P = cams[5].detach().clone().requires_grad_(True)
     w = torch.as_tensor(np.random.default_rng(4).random(P.shape[0]), dtype=torch.float32,
@@ -260,7 +264,8 @@ def test_two_calls_bit_equal_and_a_replay_equal_to_them(dev, cloud10_cams):
         g = tg.StepGraph(fn, dev, "soft gate and gradient")
         g()
     torch.cuda.synchronize()
-    assert g.graph is not None and g.launches == {"soft_binned_fwd": 4, "soft_binned_bwd": 4}
+    assert g.graph is not None and g.launches == {"soft_binned_fwd": 4, "soft_binned_bwd": 4,
+                                                  **LAYOUT_FORWARD, **LAYOUT_BACKWARD}
     for a, b, c in zip(first, second, box):
         assert torch.equal(a, b) and torch.equal(a, c)
 
@@ -268,7 +273,8 @@ def test_two_calls_bit_equal_and_a_replay_equal_to_them(dev, cloud10_cams):
 def test_launches_one_kernel_per_grid_and_no_plain_tile_op(dev, cloud10_cams, monkeypatch):
     """One gate call and its backward on CUDA tensors: ``LAUNCHES`` rises by
     one ``soft_binned_fwd`` per grid and one ``soft_binned_bwd`` per grid's
-    backward, and nothing reaches the plain tile operations."""
+    backward, besides the layout's kernels, and nothing reaches the plain
+    tile operations."""
     def refused(*args):
         raise AssertionError("a CUDA tensor reached the plain tiles")
 
@@ -285,5 +291,6 @@ def test_launches_one_kernel_per_grid_and_no_plain_tile_op(dev, cloud10_cams, mo
     rise = {k: v - before[k] for k, v in _kernels.LAUNCHES.items() if v != before[k]}
     assert after_fwd["soft_binned_fwd"] - before["soft_binned_fwd"] == 4
     assert after_fwd["soft_binned_bwd"] == before["soft_binned_bwd"]
-    assert rise == {"soft_binned_fwd": 4, "soft_binned_bwd": 4}
+    assert rise == {"soft_binned_fwd": 4, "soft_binned_bwd": 4, **LAYOUT_FORWARD,
+                    **LAYOUT_BACKWARD}
     assert bool(torch.isfinite(P.grad).all())

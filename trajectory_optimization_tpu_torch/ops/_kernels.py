@@ -6,8 +6,10 @@ and dispatch: ``ops/fused_vis.py``); ``csrc/fused_traj.cu`` the six of the
 trajectory loss around them, which replace none (``ops/fused_traj.py``);
 ``csrc/splat_render.cu`` the two that replace those of
 ``ops/pallas_render.py`` (``ops/tile_render.py``); ``csrc/soft_binned.cu``
-the binned soft-HPR gate's tile reduction and its backward, which replace
-none (``ops/hpr.py``). Every
+the binned soft-HPR gate's tile reduction and its backward, and
+``csrc/binned_layout.cu`` the same gate's layout (routing, sorts' layouts,
+tile tables, row maxima) and its backward, which replace none
+(``ops/hpr.py``). Every
 ``csrc/*.cu`` is compiled on first use, one ``nvcc -c`` per source, all
 started together, with
 
@@ -76,7 +78,10 @@ LAUNCHES = {
     "splat_runs": 0, "splat_dense": 0,
     "traj_head": 0, "make_norm": 0, "traj_loss": 0, "lo_cotangent": 0, "alpha_beta": 0,
     "traj_tail": 0, "soft_binned_fwd": 0, "soft_binned_bwd": 0,
+    "binned_keys": 0, "binned_layout": 0, "binned_tables": 0, "binned_rowmax": 0,
+    "binned_rowmax_bwd": 0, "binned_rows": 0, "binned_layout_bwd": 0,
 }
+LAYOUT_GRIDS = 4  # the binned tier's staggered grids (ops/hpr.py _binned_grids)
 
 BWD_SLOTS = 40  # K5's sums per waypoint (the JAX twin's layout)
 BIG = 3.0e38  # pass A's min of a waypoint without valid points; its max is −BIG
@@ -208,6 +213,13 @@ def _load():
     lib.ft_traj_tail.argtypes = [P, I] + [P] * 6 + [I, I] + [F] * 6 + [P, P, P]
     lib.sb_fwd.argtypes = [I] + [P] * 6 + [I, I, I] + [P] * 4
     lib.sb_bwd.argtypes = [I] + [P] * 9 + [I, I, I] + [P] * 3
+    lib.bl_keys.argtypes = [I] + [P] * 6 + [I, P, P]
+    lib.bl_layout.argtypes = [I] + [P] * 5 + [I, I, I] + [P] * 9
+    lib.bl_tables.argtypes = [P, P, I, I, I, P, P, P, P]
+    lib.bl_rowmax.argtypes = [I] + [P] * 7 + [I, I, P, P, P]
+    lib.bl_rowmax_bwd.argtypes = [I] + [P] * 9 + [I, I, P, P]
+    lib.bl_rows.argtypes = [I] + [P] * 4 + [I, I, I, I, P, P, P]
+    lib.bl_layout_bwd.argtypes = [I] + [P] * 5 + [I, P, P, P]
     lib.sr_splat_runs.argtypes = [P, P, I, I, F, P, P]
     lib.sr_splat_dense.argtypes = [P, P, I, I, I, F, P, P]
     for fn in (lib.fv_pass_a, lib.fv_pass_b, lib.fv_bwd_stats, lib.fv_bwd_apply,
@@ -215,7 +227,8 @@ def _load():
                lib.sr_splat_runs, lib.sr_splat_dense, lib.sr_tile_h, lib.sr_tile_w,
                lib.sr_band_w, lib.sr_resident_blocks, lib.ft_traj_head, lib.ft_make_norm,
                lib.ft_traj_loss, lib.ft_lo_cotangent, lib.ft_alpha_beta, lib.ft_traj_tail,
-               lib.sb_fwd, lib.sb_bwd):
+               lib.sb_fwd, lib.sb_bwd, lib.bl_keys, lib.bl_layout, lib.bl_tables, lib.bl_rowmax,
+               lib.bl_rowmax_bwd, lib.bl_rows, lib.bl_layout_bwd):
         fn.restype = I
     lib.sr_tile_h.argtypes = lib.sr_tile_w.argtypes = lib.sr_band_w.argtypes = []
     lib.sr_resident_blocks.argtypes = [I]
@@ -651,6 +664,216 @@ def soft_binned_bwd(U, R, beta, bin_s, cov_pos, tiles, top, total, g, cap: int):
     LAUNCHES["soft_binned_bwd"] += 1
     return part_u, part_r
 
+
+
+# ---- the binned soft-HPR gate's layout (csrc/binned_layout.cu)
+
+class GridSpec(ctypes.Structure):
+    """One grid of the binned layout as ``csrc/binned_layout.cu`` reads it:
+    its rings and bins, the key's fraction bits, whether the stratified
+    layout is built, where its ring tables start in the int32 table, its
+    first slot and slots in the tile table, and its float32 cell size and
+    shifts."""
+    _fields_ = ([(k, ctypes.c_int) for k in ("n_rings", "n_bins", "frac_bits", "strat", "table",
+                                             "tiles", "n_tiles")]
+                + [(k, ctypes.c_float) for k in ("delta", "lat_shift", "az_shift")])
+
+
+def grid_specs(grids) -> ctypes.Array:
+    """The ``LAYOUT_GRIDS`` GridSpecs of a layout from one tuple per grid,
+    in ``GridSpec``'s field order."""
+    if len(grids) != LAYOUT_GRIDS:
+        raise ValueError(f"the binned layout takes {LAYOUT_GRIDS} grids, got {len(grids)}")
+    return (GridSpec * LAYOUT_GRIDS)(*(GridSpec(*g) for g in grids))
+
+
+def _layout_sizes(specs):
+    """(total slots, largest n_bins + 1) of ``specs``."""
+    return (sum(g.n_tiles for g in specs), max(g.n_bins for g in specs) + 1)
+
+
+def _float_kind(name: str, t: torch.Tensor) -> int:
+    if t.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name}: expected float32 or float64, got {t.dtype}")
+    return int(t.dtype == torch.float64)
+
+
+def _pointers(ts) -> ctypes.Array:
+    """A host array of the four grids' device addresses (0 for None)."""
+    return (ctypes.c_void_p * LAYOUT_GRIDS)(*(0 if t is None else t.data_ptr() for t in ts))
+
+
+def _launch_layout(name: str, fn, *args) -> None:
+    _raise_on(fn(*args), name)
+    LAUNCHES[name] += 1
+
+
+def binned_keys(u, norms, scale, valid, table, specs):
+    """binned_keys: the (4 N,) int32 sort keys of the four grids, grid g's
+    (``ops.hpr._grid_bin_key``'s on ``ops.hpr._direction_angles(u)``)
+    shifted by (g − 2)·2^30, from the (N, 3) unit directions, the norms and
+    the scale (a 0-dim tensor) of one float dtype, ``valid`` (N,) bool or
+    None and the grids' int32 ring tables."""
+    n = u.shape[0]
+    dt = u.dtype
+    dp = _float_kind("u", u)
+    args = (_check("u", u, (n, 3), dt), _check("norms", norms, (n,), dt),
+            _check("scale", scale, (), dt),
+            None if valid is None else _check("valid", valid, (n,), torch.bool),
+            _check("table", table, table.shape, torch.int32))
+    lib = _load()
+    keys = torch.empty((LAYOUT_GRIDS * n,), dtype=torch.int32, device=u.device)
+    with torch.cuda.device(u.device):
+        _launch_layout("binned_keys", lib.bl_keys, dp, *args, ctypes.addressof(specs), n,
+                       keys.data_ptr(), _stream(u))
+    return keys
+
+
+def binned_layout(keys_s, order, u, rho, specs, cap: int):
+    """binned_layout: from the stably sorted keys and their order (a sort of
+    ``binned_keys``'s), each grid's table ``U`` (rows, 3) and ``R`` (rows,)
+    (rows = 2 N where the grid's stratified layout is built, else N) and the
+    (4, N) layouts: ``bin_s`` int32, ``cov_pos`` int64 (the stratified rows'
+    layout-sort rows; only where built), ``perm`` (sorted row → point),
+    ``pos_a`` and ``pos_b`` (point → row of each layout), int32; and the
+    (4, n_bins + 1) bin edges (``searchsorted``'s)."""
+    n = u.shape[0]
+    dt = u.dtype
+    dp = _float_kind("u", u)
+    if not 1 <= cap <= n:
+        raise ValueError(f"bad cap: cap={cap}, n={n}")
+    _, n_edges = _layout_sizes(specs)
+    args = (_check("keys_s", keys_s, (LAYOUT_GRIDS * n,), torch.int32),
+            _check("order", order, (LAYOUT_GRIDS * n,), torch.int64),
+            _check("u", u, (n, 3), dt), _check("rho", rho, (n,), dt))
+    dev = u.device
+    U = [torch.empty(((2 if g.strat else 1) * n, 3), dtype=dt, device=dev) for g in specs]
+    R = [torch.empty((t.shape[0],), dtype=dt, device=dev) for t in U]
+    bin_s, perm, pos_a, pos_b = (torch.empty((LAYOUT_GRIDS, n), dtype=torch.int32, device=dev)
+                                 for _ in range(4))
+    cov_pos = torch.empty((LAYOUT_GRIDS, n), dtype=torch.int64, device=dev)
+    edges = torch.empty((LAYOUT_GRIDS, n_edges), dtype=torch.int32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch_layout("binned_layout", lib.bl_layout, dp, *args, ctypes.addressof(specs), n,
+                       cap, n_edges, _pointers(U), _pointers(R), bin_s.data_ptr(),
+                       edges.data_ptr(), cov_pos.data_ptr(), perm.data_ptr(), pos_a.data_ptr(),
+                       pos_b.data_ptr(), _stream(u))
+    return U, R, bin_s, edges, cov_pos, perm, pos_a, pos_b
+
+
+def binned_tables(edges, specs, n: int, cap: int):
+    """binned_tables: every grid's static tile table, one (Σ n_tiles, 4)
+    int64 table of rows (bin, query offset, coverer offset, deep), grid by
+    grid, and its (Σ n_tiles,) bool mask of real tiles, from
+    ``binned_layout``'s bin edges."""
+    total, n_edges = _layout_sizes(specs)
+    if not 1 <= cap <= n:
+        raise ValueError(f"bad cap: cap={cap}, n={n}")
+    args = (_check("edges", edges, (LAYOUT_GRIDS, n_edges), torch.int32),)
+    dev = edges.device
+    cum = torch.empty((LAYOUT_GRIDS, n_edges), dtype=torch.int32, device=dev)
+    tiles = torch.empty((total, 4), dtype=torch.int64, device=dev)
+    tile_ok = torch.empty((total,), dtype=torch.bool, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch_layout("binned_tables", lib.bl_tables, *args, ctypes.addressof(specs), n, cap,
+                       n_edges, cum.data_ptr(), tiles.data_ptr(), tile_ok.data_ptr(),
+                       _stream(edges))
+    return tiles, tile_ok
+
+
+def _rowmax_args(lses, beta, bin_s, rows, tiles, tile_ok, specs, cap: int):
+    n = bin_s.shape[1]
+    total, _ = _layout_sizes(specs)
+    dt = beta.dtype
+    dp = _float_kind("beta", beta)
+    for g, (lse, spec) in enumerate(zip(lses, specs)):
+        _check(f"lse[{g}]", lse, (spec.n_tiles, cap), dt)
+    args = (_check("beta", beta, (), dt), _check("bin_s", bin_s, (LAYOUT_GRIDS, n), torch.int32),
+            _check("rows", rows, (LAYOUT_GRIDS, n), torch.int32),
+            _check("tiles", tiles, (total, 4), torch.int64),
+            _check("tile_ok", tile_ok, (total,), torch.bool))
+    return dp, args, n, total
+
+
+def binned_rowmax(lses, beta, bin_s, pos_a, tiles, tile_ok, specs, cap: int):
+    """binned_rowmax: (smax (N,), up (4, N)): each grid's row maximum of
+    lse / β at each point, over the real tiles whose query rows hold it
+    (−1e30 where none does), and their maximum over the grids, from the
+    four grids' (n_tiles, cap) lse and ``binned_layout``'s layouts."""
+    dp, args, n, _ = _rowmax_args(lses, beta, bin_s, pos_a, tiles, tile_ok, specs, cap)
+    dev = beta.device
+    up = torch.empty((LAYOUT_GRIDS, n), dtype=beta.dtype, device=dev)
+    smax = torch.empty((n,), dtype=beta.dtype, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch_layout("binned_rowmax", lib.bl_rowmax, dp, _pointers(lses), *args,
+                       ctypes.addressof(specs), n, cap, up.data_ptr(), smax.data_ptr(),
+                       _stream(beta))
+    return smax, up
+
+
+def binned_rowmax_bwd(g_smax, lses, beta, bin_s, perm, up, tiles, tile_ok, specs, cap: int):
+    """binned_rowmax_bwd: the cotangent of every grid's lse for smax's
+    ``g_smax``, the four grids' (n_tiles, cap) blocks one after the other in
+    a (Σ n_tiles · cap,) tensor."""
+    dp, args, n, total = _rowmax_args(lses, beta, bin_s, perm, tiles, tile_ok, specs, cap)
+    dt = beta.dtype
+    args = (_check("g_smax", g_smax, (n,), dt), _pointers(lses), args[0], args[1], args[2],
+            _check("up", up, (LAYOUT_GRIDS, n), dt), *args[3:])
+    g_lse = torch.empty((total * cap,), dtype=dt, device=beta.device)
+    lib = _load()
+    with torch.cuda.device(beta.device):
+        _launch_layout("binned_rowmax_bwd", lib.bl_rowmax_bwd, dp, *args,
+                       ctypes.addressof(specs), n, cap, g_lse.data_ptr(), _stream(beta))
+    return g_lse
+
+
+def binned_rows(part_u, part_r, bin_s, tiles, cap: int, rows: int):
+    """binned_rows: one grid's (dU (rows, 3), dR (rows,)) from
+    ``soft_binned_bwd``'s partial sums: each row of the table takes the
+    partials of the tiles of its bin that hold it, query partials first,
+    then coverer partials, each in tile order."""
+    n, T = bin_s.shape[0], tiles.shape[0]
+    dt = part_u.dtype
+    dp = _float_kind("part_u", part_u)
+    if rows not in (n, 2 * n) or not 1 <= cap <= n:
+        raise ValueError(f"bad table: rows={rows}, cap={cap}, n={n}")
+    args = (_check("part_u", part_u, (2 * T * cap, 3), dt),
+            _check("part_r", part_r, (T * cap,), dt), _check("bin_s", bin_s, (n,), torch.int32),
+            _check("tiles", tiles, (T, 4), torch.int64))
+    dU = torch.empty((rows, 3), dtype=dt, device=part_u.device)
+    dR = torch.empty((rows,), dtype=dt, device=part_u.device)
+    lib = _load()
+    with torch.cuda.device(part_u.device):
+        _launch_layout("binned_rows", lib.bl_rows, dp, *args, n, T, cap, rows, dU.data_ptr(),
+                       dR.data_ptr(), _stream(part_u))
+    return dU, dR
+
+
+def binned_layout_bwd(dU, dR, pos_a, pos_b, specs, dtype):
+    """binned_layout_bwd: (du (N, 3), drho (N,)) from the cotangents of the
+    four grids' tables (``binned_layout``'s U and R; None for none): each
+    point's rows of every grid, both layouts, added in a fixed order."""
+    n = pos_a.shape[1]
+    for g, spec in enumerate(specs):
+        rows = (2 if spec.strat else 1) * n
+        if dU[g] is not None:
+            _check(f"dU[{g}]", dU[g], (rows, 3), dtype)
+        if dR[g] is not None:
+            _check(f"dR[{g}]", dR[g], (rows,), dtype)
+    dev = pos_a.device
+    args = (_check("pos_a", pos_a, (LAYOUT_GRIDS, n), torch.int32),
+            _check("pos_b", pos_b, (LAYOUT_GRIDS, n), torch.int32))
+    du = torch.empty((n, 3), dtype=dtype, device=dev)
+    drho = torch.empty((n,), dtype=dtype, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        _launch_layout("binned_layout_bwd", lib.bl_layout_bwd, int(dtype == torch.float64),
+                       _pointers(dU), _pointers(dR), *args, ctypes.addressof(specs), n,
+                       du.data_ptr(), drho.data_ptr(), _stream(pos_a))
+    return du, drho
 
 def _splat_args(offsets, entries, tiles_y, tiles_x):
     n_tiles = tiles_y * tiles_x

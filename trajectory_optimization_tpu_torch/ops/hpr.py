@@ -19,6 +19,9 @@ the convex hull; the hull's vertices are the visible points.
    staggered grids, O(N·cap) pairs; the tiles are reduced with a
    hand-derived backward that recomputes them, on the card by two
    hand-written kernels (``csrc/soft_binned.cu``), on the CPU in chunks.
+   On the card the four grids' layouts, tile tables and row maxima, and
+   their backward, are hand-written kernels too (``csrc/binned_layout.cu``);
+   on the CPU a plain chain per grid.
 
 :func:`soft_hpr_gate` picks the soft tier of the pose and trajectory losses
 by the cloud's size, as the JAX twin does.
@@ -35,7 +38,7 @@ import torch
 
 from trajectory_optimization_tpu_torch.ops import _kernels
 from trajectory_optimization_tpu_torch.ops.numerics import safe_norm
-from trajectory_optimization_tpu_torch.utils.profiling import HPR_GATE, span
+from trajectory_optimization_tpu_torch.utils.profiling import HPR_GATE, HPR_LAYOUT, span
 
 _BIG_SOFT = 1.0e30  # self-exclusion sentinel and runner-up mask
 # Elements of one (C, rows, N) support tile of hpr_mask_approx or one
@@ -453,6 +456,25 @@ def _cached_table(data: bytes, dtype: str, shape, dev: torch.device) -> torch.Te
     return torch.tensor(np.frombuffer(data, dtype=dtype).reshape(shape), device=dev)
 
 
+def _frac_bits(n_bins: int) -> int:
+    """The bits of a grid's int32 sort key below its bin id (the bin ids
+    0..n_bins take the rest of 30 bits); at least 8, or the binning is too
+    fine for the key."""
+    frac_bits = 30 - max(1, int(n_bins + 1)).bit_length()
+    if frac_bits < 8:
+        raise ValueError(
+            f"binning too fine for an int32 sort key ({n_bins} bins); "
+            f"lower safety/raise r_param")
+    return frac_bits
+
+
+def _builds_stratified(stratified: bool, n: int, cap: int, frac_bits: int) -> bool:
+    """Whether a grid lays out the stratified coverers: asked for, deeper
+    chunks exist (cap < n), and the (bin, priority) key has room for
+    priorities up to 2n."""
+    return stratified and cap < n and (2 * n) < (1 << frac_bits)
+
+
 def _grid_bin_key(grid, lat, az, norms, scale, v):
     """Bin ids and the quantized (bin, distance) int32 sort key for one grid
     of :func:`_binned_grids`: ``bins·2^frac_bits + ⌊frac·2^frac_bits⌋`` with
@@ -468,11 +490,7 @@ def _grid_bin_key(grid, lat, az, norms, scale, v):
     are filled on the device and the grid's tables copied there once
     (:func:`_device_table`): a captured step makes no host copy."""
     n_rings, delta, lat_shift, az_shift, n_az_np, offs_np, n_bins = grid
-    frac_bits = 30 - max(1, int(n_bins + 1)).bit_length()
-    if frac_bits < 8:
-        raise ValueError(
-            f"binning too fine for an int32 sort key ({n_bins} bins); "
-            f"lower safety/raise r_param")
+    frac_bits = _frac_bits(n_bins)
     dev = lat.device
     n_az, offs = _device_table(n_az_np, dev), _device_table(offs_np, dev)
     f32 = lambda x: torch.full((), x, dtype=torch.float32, device=dev)  # noqa: E731
@@ -573,19 +591,6 @@ def binned_lse_bwd_ref(U, R, beta, bin_s, cov_pos, tiles, top, total, g, cap: in
     return dU, dR
 
 
-def _tile_row_index(tiles, n: int, cap: int, strat: bool) -> torch.Tensor:
-    """The rows of ``U``/``R`` that the partial sums of ``soft_binned_bwd``
-    belong to, in its order: every tile's query rows, then every tile's
-    coverer rows (those of the stratified layout at n..2n where deep)."""
-    _, qoff, coff, deep = tiles.unbind(1)
-    ar = torch.arange(cap, device=tiles.device)
-    q = qoff[:, None] + ar
-    crow = coff[:, None] + ar
-    if strat:
-        crow = crow + deep[:, None] * n
-    return torch.cat([q.reshape(-1), crow.reshape(-1)])
-
-
 class _BinnedLSE(torch.autograd.Function):
     """lse[t, i] = logsumexpⱼ(β·dom) of every query row of every tile of one
     grid: nothing of size T·cap² is kept between forward and backward. The
@@ -600,7 +605,9 @@ class _BinnedLSE(torch.autograd.Function):
     ``soft_binned_bwd`` (``ops._kernels``; ``csrc/soft_binned.cu``), one
     each per grid over all its tiles, which give the same top and total on
     the rows the gate reads and the same gradient; the backward's partial
-    sums are added by :func:`add_rows`, as the plain version's."""
+    sums are added into the rows by ``binned_rows`` (``csrc/binned_layout.cu``),
+    each row's terms in a fixed order, where the plain version adds them by
+    :func:`add_rows`."""
 
     @staticmethod
     def forward(ctx, U, R, beta, bin_s, cov_pos, tiles, cap, chunk):
@@ -618,17 +625,207 @@ class _BinnedLSE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         U, R, beta, bin_s, cov_pos, tiles, top, total = ctx.saved_tensors
-        with span(SOFT_BINNED_RANGE):
-            if _kernels.on_cpu(U):
+        if _kernels.on_cpu(U):
+            with span(SOFT_BINNED_RANGE):
                 dU, dR = binned_lse_bwd_ref(U, R, beta, bin_s, cov_pos, tiles, top, total, g,
                                             ctx.cap, ctx.chunk)
-            else:
-                part_u, part_r = _kernels.soft_binned_bwd(
-                    U, R, beta, bin_s, cov_pos, tiles, top, total, g.contiguous(), ctx.cap)
-                rows = _tile_row_index(tiles, bin_s.shape[0], ctx.cap, cov_pos is not None)
-                dR = add_rows(torch.zeros_like(R), rows[rows.shape[0] // 2:], part_r)
-                dU = add_rows(torch.zeros_like(U), rows, part_u)
+            return dU, dR, None, None, None, None, None, None
+        with span(SOFT_BINNED_RANGE):
+            part_u, part_r = _kernels.soft_binned_bwd(
+                U, R, beta, bin_s, cov_pos, tiles, top, total, g.contiguous(), ctx.cap)
+        with span(HPR_LAYOUT):
+            dU, dR = _kernels.binned_rows(part_u, part_r, bin_s, tiles, ctx.cap, U.shape[0])
         return dU, dR, None, None, None, None, None, None
+
+
+def _plain_grid_layout(grid, u, rho, lat, az, norms, scale, v, cap: int, stratified: bool):
+    """One grid's layout by plain operations: (U, R, bin_s, cov_pos, tiles,
+    tile_ok, perm), the arguments of :class:`_BinnedLSE` with the mask of
+    the table's real tiles and the layout sort's permutation. Per grid, one
+    stable sort by (bin, ‖p‖) makes each bin contiguous, closest first;
+    with ``stratified``, where the key leaves room (2n < 2^frac_bits) and
+    ``cap < n``, a second sort by (bin, priority) lays out the stratified
+    coverers (:func:`_stratified_priority`) at rows n..2n of U and R. The
+    tile table is the twin's: ``n_bins + ⌈n/cap⌉`` static slots, a size
+    from shapes alone, of which the slots past the last real tile are
+    masked out (``tile_ok``). The CPU's route, and on the card the
+    reference of ``_kernels.binned_keys``/``binned_layout``/``binned_tables``."""
+    n = u.shape[0]
+    dev = u.device
+    key, frac_bits, n_bins = _grid_bin_key(grid, lat, az, norms, scale, v)
+    key_s, u0_s, u1_s, u2_s, rho_s, perm = _cosort(key, u[:, 0], u[:, 1], u[:, 2], rho)
+    bin_s = key_s >> frac_bits
+    u_s = torch.stack([u0_s, u1_s, u2_s], dim=1)
+    # bins are sorted: member counts by binary search
+    edges = torch.searchsorted(
+        bin_s, torch.arange(n_bins + 1, dtype=bin_s.dtype, device=dev))
+    counts, starts = edges[1:] - edges[:-1], edges[:-1]
+
+    strat = _builds_stratified(stratified, n, cap, frac_bits)
+    if strat:
+        # rank in bin: segment starts by one cummax pass
+        iota = torch.arange(n, device=dev)
+        seg_first = torch.ones(n, dtype=torch.bool, device=dev)
+        seg_first[1:] = bin_s[1:] != bin_s[:-1]
+        rank = iota - torch.cummax(torch.where(seg_first, iota, 0), dim=0).values
+        prio = _stratified_priority(rank, max(cap // 4, 1), n)
+        key2 = bin_s * (1 << frac_bits) + prio.to(bin_s.dtype)
+        _, cov_u0, cov_u1, cov_u2, cov_rho, cov_pos = _cosort(
+            key2, u0_s, u1_s, u2_s, rho_s)
+        # both layouts in one table: the stratified one at rows n..2n
+        U = torch.cat([u_s, torch.stack([cov_u0, cov_u1, cov_u2], dim=1)])
+        R = torch.cat([rho_s, cov_rho])
+    else:
+        U, R, cov_pos = u_s, rho_s, None
+
+    tiles_per_bin = (counts + cap - 1) // cap  # 0 for empty bins
+    tile_cum = torch.cat([tiles_per_bin.new_zeros(1), torch.cumsum(tiles_per_bin, 0)])
+    # the twin's static slots: Σ⌈count/cap⌉ ≤ n_bins + ⌈n/cap⌉, a size
+    # from shapes alone; the slots past the last real tile are empty
+    slot = torch.arange(n_bins + -(-n // cap), device=dev)
+    tile_bin = torch.clamp(torch.searchsorted(tile_cum, slot, right=True) - 1, 0, n_bins - 1)
+    within = slot - tile_cum[tile_bin]
+    tile_ok = within < tiles_per_bin[tile_bin]
+    qoff = torch.clamp(starts[tile_bin] + within * cap, 0, n - cap)
+    coff = torch.clamp(starts[tile_bin], 0, n - cap)
+    deep = (within >= 1).long() if strat else torch.zeros_like(within)
+    tiles = torch.stack([tile_bin, qoff, coff, deep], dim=1)
+    return U, R, bin_s, cov_pos, tiles, tile_ok, perm
+
+
+def _plain_smax(u, rho, lat, az, norms, scale, beta, v, grids, cap: int, chunk: int,
+                stratified: bool):
+    """The gate's row maxima (N,) by the plain per-grid chain: each grid's
+    layout (:func:`_plain_grid_layout`), its tiles (:class:`_BinnedLSE`),
+    each query row of bin b the max over the real tiles of b that hold it
+    (``scatter_reduce``; an empty slot's rows stay out and their gradient is
+    exactly 0), and the grids combined by elementwise max."""
+    n = u.shape[0]
+    ar = torch.arange(cap, device=u.device)
+    smax = torch.full((n,), -_BIG_SOFT, dtype=u.dtype, device=u.device)
+    for grid in grids:
+        U, R, bin_s, cov_pos, tiles, tile_ok, perm = _plain_grid_layout(
+            grid, u, rho, lat, az, norms, scale, v, cap, stratified)
+        lse = _BinnedLSE.apply(U, R, beta, bin_s, cov_pos, tiles, cap, chunk)
+        q = tiles[:, 1:2] + ar
+        rows = torch.where((bin_s[q] == tiles[:, :1]) & tile_ok[:, None], lse / beta,
+                           -_BIG_SOFT)
+        smax_g = torch.full((n,), -_BIG_SOFT, dtype=u.dtype, device=u.device).scatter_reduce(
+            0, q.reshape(-1), rows.reshape(-1), "amax", include_self=True)
+        smax = torch.maximum(smax, _unpermute(perm, smax_g))
+    return smax
+
+
+@functools.lru_cache(maxsize=64)
+def _layout_plan(r_param: float, tau: float, safety: float, n: int, cap: int, stratified: bool):
+    """(GridSpecs, int32 ring tables) of the kernels' layout of n points at
+    ``cap`` (``csrc/binned_layout.cu``): per grid of :func:`_binned_grids`
+    its rings, bins, fraction bits, whether the stratified layout is built
+    (as :func:`_plain_grid_layout` decides it), its slots in the concatenated
+    tile table, and its n_az and ring offsets, concatenated in the table."""
+    _, grids = _binned_grids(r_param, tau, safety)
+    specs, table, first = [], [], 0
+    for n_rings, delta, lat_shift, az_shift, n_az, offs, n_bins in grids:
+        frac_bits = _frac_bits(n_bins)
+        strat = _builds_stratified(stratified, n, cap, frac_bits)
+        n_tiles = n_bins + -(-n // cap)
+        specs.append((n_rings, n_bins, frac_bits, int(strat), len(table), first, n_tiles,
+                      delta, lat_shift, az_shift))
+        table.extend(n_az.tolist())
+        table.extend(offs.tolist())
+        first += n_tiles
+    return _kernels.grid_specs(specs), np.asarray(table, dtype=np.int32)
+
+
+def _layout_kernels(u, rho, norms, scale, v, plan, cap: int):
+    """The four grids' layouts by the kernels, in one pass: the routing
+    angles and keys (``binned_keys``), one stable sort of all four grids'
+    keys, the layouts
+    and tables (``binned_layout``, ``binned_tables``). Returns (U, R) lists
+    and the (4, n) ``bin_s``, ``cov_pos``, ``perm``, ``pos_a``, ``pos_b``,
+    the concatenated ``tiles`` and ``tile_ok``: each grid's equal to
+    :func:`_plain_grid_layout`'s."""
+    specs, table = plan
+    keys = _kernels.binned_keys(u, norms, scale, v, _device_table(table, u.device), specs)
+    keys_s, order = torch.sort(keys, stable=True)
+    U, R, bin_s, edges, cov_pos, perm, pos_a, pos_b = _kernels.binned_layout(
+        keys_s, order, u, rho, specs, cap)
+    tiles, tile_ok = _kernels.binned_tables(edges, specs, u.shape[0], cap)
+    return U, R, bin_s, cov_pos, perm, pos_a, pos_b, tiles, tile_ok
+
+
+class _BinnedLayout(torch.autograd.Function):
+    """The four grids' layouts by the kernels (:func:`_layout_kernels`):
+    the tables U and R, differentiable in u and ρ, then the layouts, which
+    are not. The backward adds each point's rows of every grid's tables
+    (both layouts) into its ∂u and ∂ρ in a fixed order (``binned_layout_bwd``):
+    the transposes of the plain chain's gathers."""
+
+    @staticmethod
+    def forward(ctx, u, rho, norms, scale, v, plan, cap):
+        U, R, bin_s, cov_pos, perm, pos_a, pos_b, tiles, tile_ok = _layout_kernels(
+            u, rho, norms, scale, v, plan, cap)
+        ctx.mark_non_differentiable(bin_s, cov_pos, perm, pos_a, tiles, tile_ok)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(pos_a, pos_b)
+        ctx.specs, ctx.dtype = plan[0], u.dtype
+        return (*U, *R, bin_s, cov_pos, perm, pos_a, tiles, tile_ok)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        pos_a, pos_b = ctx.saved_tensors
+        g = _kernels.LAYOUT_GRIDS
+        with span(HPR_LAYOUT):
+            du, drho = _kernels.binned_layout_bwd(grads[:g], grads[g:2 * g], pos_a, pos_b,
+                                                  ctx.specs, ctx.dtype)
+        return (du, drho) + (None,) * 5
+
+
+class _BinnedRowMax(torch.autograd.Function):
+    """The gate's row maxima from the four grids' tiles (``binned_rowmax``):
+    at each point, each grid's max of lse/β over the real tiles that hold
+    it, then the max over the grids, as :func:`_plain_smax`. The backward
+    (``binned_rowmax_bwd``) gives each lse entry the cotangent the plain
+    chain gives it: ``torch.maximum``'s halves at a tie along the grids,
+    ``scatter_reduce``'s even split among a row's equal maxima."""
+
+    @staticmethod
+    def forward(ctx, beta, bin_s, perm, pos_a, tiles, tile_ok, specs, cap, *lses):
+        smax, up = _kernels.binned_rowmax(lses, beta, bin_s, pos_a, tiles, tile_ok, specs, cap)
+        ctx.save_for_backward(beta, bin_s, perm, tiles, tile_ok, up, *lses)
+        ctx.specs, ctx.cap = specs, cap
+        return smax
+
+    @staticmethod
+    def backward(ctx, g):
+        beta, bin_s, perm, tiles, tile_ok, up, *lses = ctx.saved_tensors
+        with span(HPR_LAYOUT):
+            flat = _kernels.binned_rowmax_bwd(g.contiguous(), lses, beta, bin_s, perm, up, tiles,
+                                              tile_ok, ctx.specs, ctx.cap)
+        glse = [flat[s.tiles * ctx.cap:(s.tiles + s.n_tiles) * ctx.cap].view(s.n_tiles, ctx.cap)
+                for s in ctx.specs]
+        return (None,) * 8 + tuple(glse)
+
+
+def _kernel_smax(u, rho, norms, scale, beta, v, r_param, tau, safety, cap: int, chunk: int,
+                 stratified: bool):
+    """The gate's row maxima (N,) on the card: the four grids' layouts in
+    one pass of kernels around one sort (:class:`_BinnedLayout`), each
+    grid's tiles (:class:`_BinnedLSE`), the row maxima in one kernel
+    (:class:`_BinnedRowMax`); equal to :func:`_plain_smax`'s, bit for bit.
+    The layout's launches lie in the span ``HPR_LAYOUT``."""
+    plan = _layout_plan(r_param, tau, safety, u.shape[0], cap, stratified)
+    specs = plan[0]
+    g = _kernels.LAYOUT_GRIDS
+    with span(HPR_LAYOUT):
+        out = _BinnedLayout.apply(u, rho, norms, scale, v, plan, cap)
+    U, R = out[:g], out[g:2 * g]
+    bin_s, cov_pos, perm, pos_a, tiles, tile_ok = out[2 * g:]
+    lses = [_BinnedLSE.apply(U[k], R[k], beta, bin_s[k], cov_pos[k] if s.strat else None,
+                             tiles[s.tiles:s.tiles + s.n_tiles], cap, chunk)
+            for k, s in enumerate(specs)]
+    with span(HPR_LAYOUT):
+        return _BinnedRowMax.apply(beta, bin_s, perm, pos_a, tiles, tile_ok, specs, cap, *lses)
 
 
 def hpr_mask_soft_binned(
@@ -663,12 +860,15 @@ def hpr_mask_soft_binned(
     max (``tile_ok``). The function reads nothing from the device on the
     host, so a step that calls it can be captured as a CUDA graph.
 
+    CPU tensors take the plain chain grid by grid (:func:`_plain_smax`);
+    CUDA tensors the kernels (:func:`_kernel_smax`), which lay out all four
+    grids at once and give the same layouts, tiles and mask bit for bit.
+
     ``valid``: padded points set neither radius nor scale, cover no one and
     report 0. Returns (N,) visibility in (0, 1).
     """
     n = points.shape[0]
     cap = min(cap, n)
-    dev = points.device
     norms = gate_norms(points)  # a finite gradient at ‖p‖ = 0
     if valid is not None:
         v = valid > 0
@@ -681,62 +881,16 @@ def hpr_mask_soft_binned(
     scale = torch.clamp(torch.amax(norms_v), min=1e-6).detach()
     beta = sharpness / scale
     u = points / _maximum(norms, 1e-12)[:, None]
-    lat, az = _direction_angles(u)
     chunk = max(1, TILE_BUDGET["cuda" if points.is_cuda else "cpu"] // (cap * cap))
-    ar = torch.arange(cap, device=dev)
 
-    _, grids = _binned_grids(r_param, tau, safety)
-    smax = torch.full((n,), -_BIG_SOFT, dtype=points.dtype, device=dev)
-    for grid in grids:
-        key, frac_bits, n_bins = _grid_bin_key(grid, lat, az, norms, scale, v)
-        key_s, u0_s, u1_s, u2_s, rho_s, perm = _cosort(key, u[:, 0], u[:, 1], u[:, 2], rho)
-        bin_s = key_s >> frac_bits
-        u_s = torch.stack([u0_s, u1_s, u2_s], dim=1)
-        # bins are sorted: member counts by binary search
-        edges = torch.searchsorted(
-            bin_s, torch.arange(n_bins + 1, dtype=bin_s.dtype, device=dev))
-        counts, starts = edges[1:] - edges[:-1], edges[:-1]
-
-        strat = stratified_coverers and cap < n and (2 * n) < (1 << frac_bits)
-        if strat:
-            # rank in bin: segment starts by one cummax pass
-            iota = torch.arange(n, device=dev)
-            seg_first = torch.ones(n, dtype=torch.bool, device=dev)
-            seg_first[1:] = bin_s[1:] != bin_s[:-1]
-            rank = iota - torch.cummax(torch.where(seg_first, iota, 0), dim=0).values
-            prio = _stratified_priority(rank, max(cap // 4, 1), n)
-            key2 = bin_s * (1 << frac_bits) + prio.to(bin_s.dtype)
-            _, cov_u0, cov_u1, cov_u2, cov_rho, cov_pos = _cosort(
-                key2, u0_s, u1_s, u2_s, rho_s)
-            # both layouts in one table: the stratified one at rows n..2n
-            U = torch.cat([u_s, torch.stack([cov_u0, cov_u1, cov_u2], dim=1)])
-            R = torch.cat([rho_s, cov_rho])
-        else:
-            U, R, cov_pos = u_s, rho_s, None
-
-        tiles_per_bin = (counts + cap - 1) // cap  # 0 for empty bins
-        tile_cum = torch.cat([tiles_per_bin.new_zeros(1), torch.cumsum(tiles_per_bin, 0)])
-        # the twin's static slots: Σ⌈count/cap⌉ ≤ n_bins + ⌈n/cap⌉, a size
-        # from shapes alone; the slots past the last real tile are empty
-        slot = torch.arange(n_bins + -(-n // cap), device=dev)
-        tile_bin = torch.clamp(torch.searchsorted(tile_cum, slot, right=True) - 1, 0, n_bins - 1)
-        within = slot - tile_cum[tile_bin]
-        tile_ok = within < tiles_per_bin[tile_bin]
-        qoff = torch.clamp(starts[tile_bin] + within * cap, 0, n - cap)
-        coff = torch.clamp(starts[tile_bin], 0, n - cap)
-        deep = (within >= 1).long() if strat else torch.zeros_like(within)
-        tiles = torch.stack([tile_bin, qoff, coff, deep], dim=1)
-
-        lse = _BinnedLSE.apply(U, R, beta, bin_s, cov_pos, tiles, cap, chunk)
-        # each query row of bin b takes the max over the real tiles of b that
-        # hold it; an empty slot's rows stay out (their gradient is exactly 0)
-        q = qoff[:, None] + ar
-        rows = torch.where((bin_s[q] == tile_bin[:, None]) & tile_ok[:, None], lse / beta,
-                           -_BIG_SOFT)
-        smax_g = torch.full((n,), -_BIG_SOFT, dtype=points.dtype, device=dev).scatter_reduce(
-            0, q.reshape(-1), rows.reshape(-1), "amax", include_self=True)
-        smax = torch.maximum(smax, _unpermute(perm, smax_g))
-
+    if _kernels.on_cpu(points):
+        lat, az = _direction_angles(u)
+        smax = _plain_smax(u, rho, lat, az, norms, scale, beta, v,
+                           _binned_grids(r_param, tau, safety)[1], cap, chunk,
+                           stratified_coverers)
+    else:
+        smax = _kernel_smax(u, rho, norms, scale, beta, v, r_param, tau, safety, cap, chunk,
+                            stratified_coverers)
     out = torch.sigmoid(beta * (rho + tau * scale - smax))
     if v is not None:
         out = out * v.to(out.dtype)

@@ -25,7 +25,10 @@
     (``ops.hpr.soft_hpr_gate``, either tier: norms, routing, sorts and
     searches, tiles and the row maxima), and inside it the soft-HPR and
     frozen-tile ranges (``ops.hpr.SOFT_DOMINANCE_RANGE``,
-    ``SOFT_BINNED_RANGE``, ``models.traj_frozen.FROZEN_TILES_RANGE``).
+    ``SOFT_BINNED_RANGE``, ``models.traj_frozen.FROZEN_TILES_RANGE``) and,
+    on the card, ``HPR_LAYOUT`` around the binned tier's layout kernels
+    (keys, sort, layouts, tile tables, row maxima; in the backward the
+    tiles' rows, the row maxima's and the layouts' transposes).
 
   A replay runs no Python, so nothing inside a captured step's kernels is
   a span; the device trace names them.
@@ -49,6 +52,7 @@ RUNNER_FIRST_STEP = "trajopt.runner.first_step"
 RUNNER_REPLAYS = "trajopt.runner.replays"
 RUNNER_FINAL_FORWARD = "trajopt.runner.final_forward"
 HPR_GATE = "trajopt.hpr.gate"
+HPR_LAYOUT = "trajopt.hpr.layout"
 
 _NO_SPAN = contextlib.nullcontext()
 _profiling = torch.autograd._profiler_enabled
